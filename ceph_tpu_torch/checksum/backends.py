@@ -1,0 +1,46 @@
+"""Checksum backend observability.
+
+Every crc routing decision records here — plain module-level counters
+(increments are GIL-atomic), plus a last-backend marker the
+``Checksummer`` facade surfaces per call.
+
+Backends:
+- ``kernel`` — the CUDA fold kernel (checksum/cuda_crc.py, csrc/crc32c.cu)
+- ``plain``  — the plain PyTorch fold (checksum/crc32c.py), on a CPU
+  tensor, or on a CUDA tensor with ``ec_use_kernels`` off
+- ``host``   — the host scalar path (checksum/host.py)
+"""
+
+from __future__ import annotations
+
+_counts: dict[str, int] = {}
+_bytes: dict[str, int] = {}
+_last: str | None = None
+
+
+def record(backend: str, nbytes: int = 0) -> None:
+    global _last
+    _counts[backend] = _counts.get(backend, 0) + 1
+    if nbytes:
+        _bytes[backend] = _bytes.get(backend, 0) + int(nbytes)
+    _last = backend
+
+
+def last_backend() -> str | None:
+    """Backend of the most recent checksum computation."""
+    return _last
+
+
+def counts() -> dict[str, int]:
+    return dict(_counts)
+
+
+def bytes_hashed() -> dict[str, int]:
+    return dict(_bytes)
+
+
+def reset() -> None:
+    global _last
+    _counts.clear()
+    _bytes.clear()
+    _last = None

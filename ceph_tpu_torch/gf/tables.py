@@ -1,0 +1,134 @@
+"""GF(2^8) scalar arithmetic tables (host-side numpy).
+
+These are the semantics the reference gets from its vendored SIMD GF
+libraries (gf-complete / ISA-L — SURVEY.md section 2.1, "Vendored native
+libs"): exp/log tables over the 0x11D field, multiply, divide, inverse.
+``mul_bitmatrix`` lowers multiply-by-constant to an 8x8 GF(2) matrix:
+the form the plain bit-plane engine (``ops.bitplane``) consumes and the
+form in which codecs hand matrices to the CUDA kernels, which recover
+the byte coefficients from it (``ops.cuda_encode``).
+
+Bit convention: bit i of a byte is the coefficient of x^i (LSB-first),
+matching how ISA-L / gf-complete represent field elements.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+
+# x^8 + x^4 + x^3 + x^2 + 1 — ISA-L's and gf-complete's default w=8 field.
+GF_POLY = 0x11D
+
+
+def _build_tables() -> tuple[np.ndarray, np.ndarray]:
+    exp = np.zeros(512, dtype=np.uint8)
+    log = np.zeros(256, dtype=np.int32)
+    x = 1
+    for i in range(255):
+        exp[i] = x
+        log[x] = i
+        x <<= 1
+        if x & 0x100:
+            x ^= GF_POLY
+    for i in range(255, 512):
+        exp[i] = exp[i - 255]
+    log[0] = -1  # undefined
+    return exp, log
+
+
+gf_exp, gf_log = _build_tables()
+
+
+def gf_mul(a: int, b: int) -> int:
+    """Scalar GF(2^8) multiply."""
+    if a == 0 or b == 0:
+        return 0
+    return int(gf_exp[gf_log[a] + gf_log[b]])
+
+
+def gf_div(a: int, b: int) -> int:
+    if b == 0:
+        raise ZeroDivisionError("GF(2^8) division by zero")
+    if a == 0:
+        return 0
+    return int(gf_exp[(gf_log[a] - gf_log[b]) % 255])
+
+
+def gf_inv(a: int) -> int:
+    if a == 0:
+        raise ZeroDivisionError("GF(2^8) inverse of zero")
+    return int(gf_exp[255 - gf_log[a]])
+
+
+def gf_pow(a: int, n: int) -> int:
+    if n == 0:
+        return 1
+    if a == 0:
+        return 0
+    return int(gf_exp[(gf_log[a] * n) % 255])
+
+
+gf_inv_table = np.array([0] + [gf_inv(i) for i in range(1, 256)], dtype=np.uint8)
+
+
+def gf_mul_bytes(c: int, data: np.ndarray) -> np.ndarray:
+    """Multiply every byte of ``data`` by constant ``c`` (numpy reference)."""
+    data = np.asarray(data, dtype=np.uint8)
+    if c == 0:
+        return np.zeros_like(data)
+    if c == 1:
+        return data.copy()
+    lc = gf_log[c]
+    out = np.zeros_like(data)
+    nz = data != 0
+    out[nz] = gf_exp[lc + gf_log[data[nz].astype(np.int32)]]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _mul_bitmatrix_cached(c: int) -> bytes:
+    # Column j of the matrix is c * x^j; row i is bit i of those products.
+    m = np.zeros((8, 8), dtype=np.uint8)
+    for j in range(8):
+        prod = gf_mul(c, 1 << j)
+        for i in range(8):
+            m[i, j] = (prod >> i) & 1
+    return m.tobytes()
+
+
+def mul_bitmatrix(c: int) -> np.ndarray:
+    """8x8 GF(2) matrix M with bits(c*v) = M @ bits(v) (bit i = coeff of x^i).
+
+    This is the lowering that turns GF(2^8) matrix codes into pure
+    XOR networks — the formulation of the plain bit-plane engine (SURVEY.md
+    section 7, "Design stance").
+    """
+    return np.frombuffer(_mul_bitmatrix_cached(c), dtype=np.uint8).reshape(8, 8).copy()
+
+
+# [256, 8, 8] — all multiply-by-constant bit matrices.
+MUL_BITMATRIX = np.stack([mul_bitmatrix(c) for c in range(256)])
+
+
+def gf_apply_bytes_host(mat: np.ndarray, stacked: np.ndarray) -> np.ndarray:
+    """Apply a GF(2^8) byte matrix on the HOST: out[..., r, :] =
+    XOR_c mat[r, c] * stacked[..., c, :].
+
+    The small-op path (the reference's ec_encode_data on CPU): below
+    ~1 MiB the copy to the card and the launch cost more than the math.
+    Log/exp tables here; bit-identical to the device paths (tests)."""
+    mat = np.asarray(mat, dtype=np.uint8)
+    data = np.ascontiguousarray(stacked, dtype=np.uint8)
+    lead = data.shape[:-2]
+    flat = data.reshape((-1,) + data.shape[-2:])
+    b, c_count, n = flat.shape
+    r_count = mat.shape[0]
+    out = np.zeros((b, r_count, n), dtype=np.uint8)
+    for r in range(r_count):
+        for c in range(c_count):
+            g = int(mat[r, c])
+            if g:
+                out[:, r, :] ^= gf_mul_bytes(g, flat[:, c, :])
+    return out.reshape(lead + (r_count, n))

@@ -1,0 +1,145 @@
+"""Interval arithmetic for shard extents.
+
+The reference threads ``extent_set``/``extent_map`` (interval containers
+over byte offsets) through every EC read/write plan
+(src/osd/ECUtil.h:202-344 ``shard_extent_set_t``). Here extents are
+host-side shape math: they decide what to DMA and how to tile kernels,
+and never reach the device.
+"""
+
+from __future__ import annotations
+
+from bisect import bisect_right
+from collections.abc import Iterable, Iterator
+
+
+class ExtentSet:
+    """Sorted, coalesced set of half-open byte ranges [start, end)."""
+
+    __slots__ = ("_runs",)
+
+    def __init__(self, runs: Iterable[tuple[int, int]] = ()) -> None:
+        self._runs: list[tuple[int, int]] = []
+        for start, end in runs:
+            self.insert(start, end - start)
+
+    # -- mutation ------------------------------------------------------
+    def insert(self, offset: int, length: int) -> None:
+        if length <= 0:
+            return
+        start, end = offset, offset + length
+        runs = self._runs
+        i = bisect_right(runs, (start,)) - 1
+        if i >= 0 and runs[i][1] >= start:
+            start = runs[i][0]
+        else:
+            i += 1
+        j = i
+        while j < len(runs) and runs[j][0] <= end:
+            end = max(end, runs[j][1])
+            j += 1
+        runs[i:j] = [(start, end)]
+
+    def union(self, other: "ExtentSet") -> None:
+        for start, end in other._runs:
+            self.insert(start, end - start)
+
+    def erase(self, offset: int, length: int) -> None:
+        if length <= 0:
+            return
+        start, end = offset, offset + length
+        out = []
+        for s, e in self._runs:
+            if e <= start or s >= end:
+                out.append((s, e))
+                continue
+            if s < start:
+                out.append((s, start))
+            if e > end:
+                out.append((end, e))
+        self._runs = out
+
+    # -- queries -------------------------------------------------------
+    def __iter__(self) -> Iterator[tuple[int, int]]:
+        return iter(self._runs)
+
+    def __len__(self) -> int:
+        return len(self._runs)
+
+    def __bool__(self) -> bool:
+        return bool(self._runs)
+
+    def __eq__(self, other: object) -> bool:
+        return isinstance(other, ExtentSet) and self._runs == other._runs
+
+    def __repr__(self) -> str:
+        spans = ",".join(f"[{s},{e})" for s, e in self._runs)
+        return f"ExtentSet({spans})"
+
+    def size(self) -> int:
+        return sum(e - s for s, e in self._runs)
+
+    def range_start(self) -> int:
+        return self._runs[0][0]
+
+    def range_end(self) -> int:
+        return self._runs[-1][1]
+
+    def contains(self, offset: int, length: int = 1) -> bool:
+        i = bisect_right(self._runs, (offset,)) - 1
+        if i >= 0 and self._runs[i][1] >= offset + length:
+            return True
+        # bisect on (offset,) sorts before (offset, end): check the run
+        # actually starting at `offset` too.
+        i += 1
+        return (
+            i < len(self._runs)
+            and self._runs[i][0] <= offset
+            and self._runs[i][1] >= offset + length
+        )
+
+    def intersects(self, offset: int, length: int) -> bool:
+        end = offset + length
+        i = bisect_right(self._runs, (offset,)) - 1
+        for s, e in self._runs[max(i, 0):]:
+            if s >= end:
+                return False
+            if e > offset:
+                return True
+        return False
+
+    def intersection(self, other: "ExtentSet") -> "ExtentSet":
+        out = ExtentSet()
+        a, b = self._runs, other._runs
+        i = j = 0
+        while i < len(a) and j < len(b):
+            s = max(a[i][0], b[j][0])
+            e = min(a[i][1], b[j][1])
+            if s < e:
+                out.insert(s, e - s)
+            if a[i][1] < b[j][1]:
+                i += 1
+            else:
+                j += 1
+        return out
+
+    def difference(self, other: "ExtentSet") -> "ExtentSet":
+        out = ExtentSet(self._runs)
+        for s, e in other._runs:
+            out.erase(s, e - s)
+        return out
+
+    def copy(self) -> "ExtentSet":
+        c = ExtentSet()
+        c._runs = list(self._runs)
+        return c
+
+    def align(self, granularity: int) -> "ExtentSet":
+        """Widen every run outward to multiples of ``granularity`` (the
+        page/chunk rounding the reference applies before device work)."""
+        out = ExtentSet()
+        for s, e in self._runs:
+            s2 = (s // granularity) * granularity
+            e2 = -(-e // granularity) * granularity
+            out.insert(s2, e2 - s2)
+        return out

@@ -1,0 +1,153 @@
+"""Per-shard cumulative CRC32C — the ``ECUtil::HashInfo`` analog.
+
+Mirrors osd/ECUtil.h:731-780: one cumulative crc32c per shard, seeded
+at -1 (0xFFFFFFFF), updated append-only as shards grow; persisted next
+to the object and checked by deep scrub (ECBackend.cc:1829-1869).
+
+Two append paths, bit-identical by construction:
+
+- ``append``: raw bytes, routed through ``checksum.crc32c_stream``
+  (host below the device threshold, device-batched fold above, on the
+  HashInfo's device) — the fallback tier.
+- ``append_block_csums``: seeds the cumulative hashes from the fused
+  encode+checksum kernel's ZERO-INIT per-block csums
+  (ops/cuda_encode.py) via crc range concatenation — the bytes are
+  hashed exactly once, on the card, in the launch that encoded them.
+
+``to_bytes``/``from_bytes`` are byte-compatible with ``ceph_tpu``'s.
+"""
+
+from __future__ import annotations
+
+import json
+
+import numpy as np
+
+from ceph_tpu_torch.checksum import crc32c_chain, crc32c_stream
+
+SEED = 0xFFFFFFFF
+
+
+class HashInfo:
+    def __init__(self, num_chunks: int, device="cuda") -> None:
+        """``device`` hashes appends above ``csum_device_min_bytes``
+        (``"cuda"`` unless the caller asks for the CPU)."""
+        from ceph_tpu_torch.utils.device import resolve_device
+
+        self.device = resolve_device(device)
+        self.total_chunk_size = 0
+        self.cumulative_shard_hashes = [SEED] * num_chunks
+
+    def append(
+        self,
+        old_size: int,
+        to_append: "dict[int, np.ndarray | bytes | bytearray | memoryview]",
+    ) -> None:
+        """Extend shard crcs with bytes written at ``old_size``.
+
+        Values are raw shard bytes: bytes-like taken as-is, ndarrays
+        must already be uint8 (no silent value casts — the crc is over
+        stored bytes, so a lossy cast would hide corruption).
+
+        The reference asserts appends are contiguous and equal-length
+        across shards (HashInfo::append, ECUtil.cc); same contract here.
+        """
+        if old_size != self.total_chunk_size:
+            raise ValueError(
+                f"non-contiguous append: old_size={old_size}, "
+                f"have={self.total_chunk_size}"
+            )
+
+        def as_bytes(b) -> bytes:
+            if isinstance(b, (bytes, bytearray, memoryview)):
+                return bytes(b)
+            arr = np.asarray(b)
+            if arr.dtype != np.uint8:
+                raise TypeError(f"shard bytes must be uint8, got {arr.dtype}")
+            return arr.tobytes()
+
+        bufs = {shard: as_bytes(b) for shard, b in to_append.items()}
+        sizes = {len(b) for b in bufs.values()}
+        if len(sizes) > 1:
+            raise ValueError(f"unequal append sizes {sizes}")
+        for shard, data in bufs.items():
+            self.cumulative_shard_hashes[shard] = crc32c_stream(
+                data, self.cumulative_shard_hashes[shard], self.device
+            )
+        if sizes:
+            self.total_chunk_size += sizes.pop()
+
+    def append_block_csums(
+        self,
+        old_size: int,
+        to_append: "dict[int, np.ndarray]",
+        block_bytes: int,
+    ) -> None:
+        """Extend shard crcs from kernel-produced ZERO-INIT per-block
+        crc32c values (the fused encode+csum output) instead of raw
+        bytes: cum' = A_block @ cum ⊕ crc_0(block), repeated — bit-
+        identical to ``append`` over the same bytes, with no second
+        pass over them. Same contiguity/equal-length contract."""
+        if old_size != self.total_chunk_size:
+            raise ValueError(
+                f"non-contiguous append: old_size={old_size}, "
+                f"have={self.total_chunk_size}"
+            )
+        blocks = {
+            shard: np.asarray(v).reshape(-1)
+            for shard, v in to_append.items()
+        }
+        sizes = {v.size for v in blocks.values()}
+        if len(sizes) > 1:
+            raise ValueError(f"unequal append sizes {sizes}")
+        for shard, csums in blocks.items():
+            self.cumulative_shard_hashes[shard] = crc32c_chain(
+                self.cumulative_shard_hashes[shard], csums, block_bytes
+            )
+        if sizes:
+            self.total_chunk_size += sizes.pop() * block_bytes
+
+    def get_chunk_hash(self, shard: int) -> int:
+        return self.cumulative_shard_hashes[shard]
+
+    def get_total_chunk_size(self) -> int:
+        return self.total_chunk_size
+
+    def has_chunk_hash(self) -> bool:
+        return bool(self.cumulative_shard_hashes)
+
+    def clear(self) -> None:
+        self.total_chunk_size = 0
+        self.cumulative_shard_hashes = [
+            SEED for _ in self.cumulative_shard_hashes
+        ]
+
+    # -- persistence (the encode/decode-to-attr analog) ----------------
+    def to_bytes(self) -> bytes:
+        return json.dumps(
+            {
+                "total_chunk_size": self.total_chunk_size,
+                "hashes": self.cumulative_shard_hashes,
+            }
+        ).encode()
+
+    @classmethod
+    def from_bytes(cls, raw: bytes, device="cuda") -> "HashInfo":
+        obj = json.loads(raw.decode())
+        hi = cls(len(obj["hashes"]), device)
+        hi.total_chunk_size = obj["total_chunk_size"]
+        hi.cumulative_shard_hashes = list(obj["hashes"])
+        return hi
+
+    def __eq__(self, other: object) -> bool:
+        return (
+            isinstance(other, HashInfo)
+            and self.total_chunk_size == other.total_chunk_size
+            and self.cumulative_shard_hashes == other.cumulative_shard_hashes
+        )
+
+    def __repr__(self) -> str:
+        return (
+            f"HashInfo(size={self.total_chunk_size}, "
+            f"crcs={[hex(h) for h in self.cumulative_shard_hashes]})"
+        )

@@ -1,0 +1,165 @@
+"""Where the time of the ported EC(8,4) slice goes, on one CUDA card.
+
+Runs the main path of ``chip_smoke.py`` (host-staged write with fused
+csums and HashInfo, degraded read, verify) once to warm up, then once
+under ``torch.profiler`` (CPU + CUDA activities) and once under
+``cProfile``, and prints per phase:
+
+- host-clock time, and device busy time summed over kernels and copies
+  (from the profiler's device events), hence the device idle share;
+- the top device operations by total device time;
+- the top host functions by cumulative time (cProfile: it slows every
+  Python call, so its shares lean toward call-heavy code).
+
+Writes the full report to ``chiprun_out/torch_slice_breakdown.json``.
+Not part of the package; imports nothing of JAX or ceph_tpu.
+
+Usage: python3 experiments/torch_slice_breakdown.py [--seed N]
+"""
+
+from __future__ import annotations
+
+import argparse
+import cProfile
+import io
+import json
+import pstats
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent.parent
+K, M, STRIPES, CHUNK, CB = 8, 4, 8, 1 << 20, 4096
+LOST = (0, 3, 9, 11)
+
+
+def phases(payload, dev_name="cuda"):
+    """name -> zero-argument callable for each phase of the main path,
+    built fresh so every run does the same work."""
+    from ceph_tpu_torch.checksum import Checksummer
+    from ceph_tpu_torch.codecs import registry
+    from ceph_tpu_torch.pipeline import HashInfo, ShardExtentMap, StripeInfo
+
+    codec = registry.factory(
+        "isa", {"k": str(K), "m": str(M)}, device=dev_name
+    )
+    sinfo = StripeInfo(K, M, K * CHUNK)
+    streams = np.ascontiguousarray(
+        payload.reshape(STRIPES, K, CHUNK).transpose(1, 0, 2)
+    ).reshape(K, -1)
+    shard_bytes = STRIPES * CHUNK
+    state = {}
+
+    def write():
+        smap = ShardExtentMap(sinfo)
+        for r in range(K):
+            smap.insert(r, 0, streams[r])
+        smap.encode(codec, HashInfo(K + M, device=dev_name), csum_block=CB)
+        state["stored"] = {s: smap.get(s, 0, shard_bytes)
+                           for s in range(K + M)}
+        state["csums"] = smap.csums
+
+    def degraded_read():
+        smap = ShardExtentMap(sinfo)
+        for s, buf in state["stored"].items():
+            if s not in LOST:
+                smap.insert(s, 0, buf)
+        smap.decode(codec, set(LOST), K * shard_bytes)
+
+    def verify():
+        from ceph_tpu_torch.checksum.crc32c import crc32c_seed_shift
+
+        blob = np.concatenate(
+            [state["csums"]["shards"][s][1] for s in range(K + M)]
+        ) ^ np.uint32(crc32c_seed_shift(CB, 0xFFFFFFFF))
+        data = np.concatenate([state["stored"][s] for s in range(K + M)])
+        assert Checksummer("crc32c", CB, device=dev_name).verify(
+            data, blob) == (-1, 0)
+
+    return {"write": write, "degraded_read": degraded_read,
+            "verify": verify}
+
+
+def device_time_us(prof) -> tuple[float, list]:
+    """Sum of device time over the kernels and copies the card ran, and
+    the top ones, from a finished torch.profiler run. Only events that
+    ran on the device count: a host op's device total (aten::copy_)
+    repeats its children's, and CUPTI's own buffer requests are no
+    work of the program."""
+    rows = []
+    for evt in prof.key_averages():
+        if not str(evt.device_type).endswith("CUDA"):
+            continue
+        if evt.key.startswith("Activity Buffer Request"):
+            continue
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0)
+        if dev_us:
+            rows.append({"name": evt.key, "device_us": float(dev_us),
+                         "count": int(evt.count)})
+    rows.sort(key=lambda r: -r["device_us"])
+    return sum(r["device_us"] for r in rows), rows[:8]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    payload = np.random.default_rng(args.seed).integers(
+        0, 256, K * STRIPES * CHUNK, dtype=np.uint8
+    )
+    steps = phases(payload)
+    for fn in steps.values():  # warm-up: build, caches, tables
+        fn()
+    torch.cuda.synchronize()
+
+    report = {"device": torch.cuda.get_device_name(0), "phases": {}}
+    for name, fn in steps.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        busy_us, top_dev = device_time_us(prof)
+        cp = cProfile.Profile()
+        cp.enable()
+        fn()
+        torch.cuda.synchronize()
+        cp.disable()
+        buf = io.StringIO()
+        pstats.Stats(cp, stream=buf).sort_stats("cumulative").print_stats(14)
+        report["phases"][name] = {
+            "wall_us": wall_us, "device_busy_us": busy_us,
+            "device_idle_share": 1.0 - busy_us / wall_us,
+            "top_device_ops": top_dev, "cprofile_top": buf.getvalue(),
+        }
+        print(f"== {name}: {wall_us:.0f} us host clock, {busy_us:.0f} us "
+              f"device busy, idle share {1 - busy_us / wall_us:.3f}")
+        for row in top_dev:
+            print(f"   device {row['device_us']:9.1f} us x{row['count']:<4} "
+                  f"{row['name'][:70]}")
+        print("\n".join(buf.getvalue().splitlines()[:40]))
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "torch_slice_breakdown.json").write_text(
+        json.dumps(report, indent=1)
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

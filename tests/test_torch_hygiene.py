@@ -1,0 +1,126 @@
+"""Import hygiene and device discipline of ceph_tpu_torch.
+
+- No module of the package, and not ``chip_smoke.py``, imports JAX or
+  anything of ceph_tpu: checked on the source (every import statement)
+  and in a fresh interpreter (this suite's conftest imports JAX, so
+  ``sys.modules`` is only meaningful in a subprocess). ``ceph_tpu_torch``
+  starts with ``ceph_tpu``: the check is for the module ``ceph_tpu`` and
+  the prefix ``ceph_tpu.``.
+- Entry points default to the card: without one they raise instead of
+  running on the CPU; ``device="cpu"`` is the only way onto the plain
+  path.
+"""
+
+import ast
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "ceph_tpu_torch"
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    return (
+        name in ("jax", "jaxlib", "ceph_tpu")
+        or name.startswith(("jax.", "jaxlib.", "ceph_tpu."))
+    )
+
+
+@pytest.mark.parametrize(
+    "path", SOURCES, ids=[str(p.relative_to(ROOT)) for p in SOURCES]
+)
+def test_source_imports_no_jax_or_reference(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path.name}:{node.lineno} imports {bad}"
+
+
+def test_fresh_interpreter_loads_no_jax_or_reference():
+    modules = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
+            ".__init__")
+        for p in PKG.rglob("*.py")
+    )
+    code = (
+        "import importlib, json, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=120, check=True, cwd=ROOT,
+    ).stdout
+    loaded = json.loads(out.strip().splitlines()[-1])
+    assert "ceph_tpu_torch.codecs.isa" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_entry_points_raise_without_a_card(no_card):
+    from ceph_tpu_torch.checksum import Checksummer, crc32c_device
+    from ceph_tpu_torch.codecs import create_codec, registry
+    from ceph_tpu_torch.pipeline import HashInfo
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        registry.factory("isa", {"k": "4", "m": "2"})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_codec("isa", k="4", m="2")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Checksummer("crc32c", 4096)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        HashInfo(6)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        crc32c_device(np.zeros((2, 4096), np.uint8))
+    # asking for the CPU is the way onto the plain path
+    codec = registry.factory("isa", {"k": "4", "m": "2"}, device="cpu")
+    assert codec.device == torch.device("cpu")
+
+
+def test_codec_without_device_refuses_host_input():
+    from ceph_tpu_torch.codecs.isa import ErasureCodeIsa
+    from ceph_tpu_torch.utils import config
+
+    codec = ErasureCodeIsa()
+    codec.init({"k": "4", "m": "2"})
+    data = {i: np.zeros(4096, np.uint8) for i in range(4)}
+    with config.override(ec_host_dispatch_bytes=0):
+        with pytest.raises(RuntimeError, match="no device"):
+            codec.encode_chunks(data)
+
+
+def test_kernel_wrappers_never_run_plain_for_a_device_tensor():
+    from ceph_tpu_torch.checksum.cuda_crc import crc32c_blocks
+    from ceph_tpu_torch.gf import gf_matrix_to_bitmatrix, isa_rs_matrix
+    from ceph_tpu_torch.ops import cuda_encode
+
+    bm = gf_matrix_to_bitmatrix(isa_rs_matrix(4, 2)[4:])
+    meta = torch.empty((2, 4, 4096), dtype=torch.uint8, device="meta")
+    for call in (
+        lambda: cuda_encode.gf_apply(bm, meta),
+        lambda: cuda_encode.gf_apply_shards(bm, list(meta.unbind(1))),
+        lambda: cuda_encode.gf_apply_csum(bm, meta, 1024),
+        lambda: crc32c_blocks(meta[:, 0], 0),
+    ):
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
