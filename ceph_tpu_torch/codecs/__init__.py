@@ -3,11 +3,16 @@
 The plugin subsystem of the reference (src/erasure-code/ — SURVEY.md
 section 2.1): a registry of codec factories (``registry``), the
 contract (``interface``), shared default behavior (``base``), the
-matrix engine (``matrix_codec``) and the ported families:
+GF(2^8) matrix engine (``matrix_codec``), the packet bit-matrix engine
+(``bitmatrix_codec``) and the ported families:
 
 - ``isa``: Reed-Solomon Vandermonde + Cauchy with decode-table cache
+- ``jerasure``: the seven techniques (reed_sol_van, reed_sol_r6_op,
+  cauchy_orig, cauchy_good, liberation, blaum_roth, liber8tion)
+- ``xor``: single XOR parity
+- ``lrc``: layered locally repairable codes (kml and explicit layers)
 
-jerasure, lrc, shec, clay and xor are still to be ported (ROADMAP.md).
+shec and clay are still to be ported (ROADMAP.md).
 """
 
 from .interface import (  # noqa: F401
@@ -25,3 +30,6 @@ from .registry import (  # noqa: F401
 # Register in-tree plugins (the analog of osd_erasure_code_plugins
 # preload — global.yaml.in:2638).
 from . import isa as _isa  # noqa: E402,F401
+from . import jerasure as _jerasure  # noqa: E402,F401
+from . import lrc as _lrc  # noqa: E402,F401
+from . import xor_codec as _xor  # noqa: E402,F401

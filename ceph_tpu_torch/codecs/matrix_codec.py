@@ -4,15 +4,20 @@ The shared engine under the matrix-style families (ISA-L RS/Cauchy) —
 the role ``ec_encode_data`` plays in the reference — where one launch
 encodes an arbitrary stripe batch.
 
-Routing of one matrix application (``ceph_tpu``'s, minus its mesh, DCN
-and XOR-schedule routes, which are not ported yet):
+Routing of one matrix application (``ceph_tpu``'s, minus its mesh and
+DCN routes, which are not ported yet):
 
 - host numpy input at or below ``ec_host_dispatch_bytes``: the host GF
   tables, numpy out (``host_*`` counters);
+- a matrix whose entries are all 0 or 1 (the xor plugin, LRC xor-local
+  layers, an ISA decode needing only the all-ones parity row), on the
+  card with ``ec_use_sched`` on and within the schedule gate: the
+  XOR-schedule kernel over the shards, w = 1 (``sched_*``); over the
+  gate it is counted in ``sched_rejected_density`` and goes on below;
 - a CUDA tensor, or host input above the threshold (sent to the
-  codec's device): the CUDA kernel (``kernel_*``) — per-shard operands
-  when the shards already lie on the card, the stacked form for host
-  input;
+  codec's device): the GF(2^8) apply kernel (``kernel_*``) — per-shard
+  operands when the shards already lie on the card, the stacked form
+  for host input;
 - a CPU tensor, or a CUDA tensor with ``ec_use_kernels`` off: the plain
   PyTorch version (``plain_*``).
 
@@ -30,7 +35,7 @@ import numpy as np
 import torch
 
 from ceph_tpu_torch.gf import decode_matrix, gf_matrix_to_bitmatrix
-from ceph_tpu_torch.ops import cuda_encode
+from ceph_tpu_torch.ops import cuda_encode, cuda_xor, xor_schedule
 from ceph_tpu_torch.ops.bitplane import gf_encode_bitplane
 from ceph_tpu_torch.utils.device import to_numpy, to_tensor
 
@@ -50,11 +55,18 @@ def dispatch_counters():
 
     b = PerfCountersBuilder(perf_collection, "ec_dispatch")
     for op in ("encode", "decode", "delta"):
-        b.add_u64_counter(f"kernel_{op}", f"{op}s served by a CUDA kernel")
+        b.add_u64_counter(
+            f"kernel_{op}", f"{op}s served by the GF(2^8) apply kernel"
+        )
         b.add_u64_counter(
             f"plain_{op}", f"{op}s served by the plain PyTorch version"
         )
         b.add_u64_counter(f"host_{op}", f"{op}s served by host GF tables")
+        b.add_u64_counter(
+            f"sched_{op}",
+            f"{op}s served by the XOR-schedule kernel (0/1 packet and "
+            "byte matrices)",
+        )
     b.add_u64_counter(
         "fused_encode",
         "encodes that also produced per-block crc32c of every shard in "
@@ -65,6 +77,19 @@ def dispatch_counters():
         "fused encode+csum requests outside the contract (csum block "
         "not a power of two >= 256 dividing the chunk): the caller "
         "encodes normally and hashes separately",
+    )
+    b.add_u64_counter(
+        "sched_rejected_density",
+        "0/1 matrix applies whose schedule stayed over the op-count "
+        "gate: byte matrices then take the GF(2^8) apply kernel, packet "
+        "matrices the schedule kernel or its plain version all the same "
+        "(in selection form; no other kernel takes k*w columns)",
+    )
+    b.add_u64_counter(
+        "sched_rejected_shape",
+        "schedule-eligible applies no schedule kernel form could take "
+        "(ceph_tpu's tiling gates; the CUDA kernel takes every shape, so "
+        "this stays 0 — kept for perf dump parity)",
     )
     return b.create_perf_counters()
 
@@ -128,6 +153,74 @@ class BitplaneDispatchMixin:
     def _count(self, t: torch.Tensor, op: str) -> None:
         route = "kernel" if self._use_kernel(t) else "plain"
         dispatch_counters().inc(f"{route}_{op}")
+
+    def _schedule(self, mat01: np.ndarray, keep_rejected: bool):
+        """The schedule to run for a 0/1 matrix: the CSE'd program
+        under ``ec_sched_opt`` (gated on post-CSE op count), the
+        selection form otherwise (gated on raw density). A matrix over
+        its gate counts ``sched_rejected_density`` and runs as selection
+        rows if ``keep_rejected``, else the result is None."""
+        from ceph_tpu_torch.utils import config
+
+        sched = xor_schedule.routable_schedule(
+            mat01, config.get("ec_sched_opt")
+        )
+        if sched is None:
+            dispatch_counters().inc("sched_rejected_density")
+            if keep_rejected:
+                sched = xor_schedule.schedule_rows(mat01)
+        return sched
+
+    def _sched_shards_route(
+        self, mat01: np.ndarray, shards: list, w: int, op: str,
+        keep_rejected: bool = True,
+    ):
+        """Serve a 0/1 matrix apply with the XOR-schedule kernel's
+        per-shard form (w packets per chunk; w = 1 is whole-chunk byte
+        rows): shards in, shards out, nothing stacked. Host arrays above
+        the host threshold go to the codec's device shard by shard.
+        Returns the output shards, or None when the op is not the
+        kernel's: unequal shapes, a host-sized op, the CPU,
+        ``ec_use_kernels`` off, or a rejected matrix without
+        ``keep_rejected``."""
+        from ceph_tpu_torch.utils import config
+
+        if self._host_sized(*shards):
+            return None
+        shape = tuple(shards[0].shape)
+        if any(tuple(s.shape) != shape for s in shards[1:]):
+            return None
+        dev = next(
+            (s.device for s in shards if isinstance(s, torch.Tensor)),
+            None,
+        ) or self._target_device()
+        if dev.type != "cuda" or not config.get("ec_use_kernels"):
+            return None
+        sched = self._schedule(mat01, keep_rejected)
+        if sched is None:
+            return None
+        dispatch_counters().inc(f"sched_{op}")
+        return cuda_xor.xor_schedule_apply_shards(
+            sched, self._as_tensors(shards), w
+        )
+
+    def _try_sched_bytes(self, mat: np.ndarray, shards: list, op: str):
+        """w = 1 schedule route for GF(2^8) byte matrices whose entries
+        are all 0/1: over the subfield {0, 1} each output chunk is a
+        pure XOR of input chunks. Other matrices bail on the max()
+        probe with no counter (not eligible, not rejected); rejected
+        ones, and every one with ``ec_use_sched`` off, keep the GF(2^8)
+        apply kernel."""
+        from ceph_tpu_torch.utils import config
+
+        mat = np.asarray(mat)
+        if (not config.get("ec_use_sched") or mat.size == 0
+                or int(mat.max()) > 1):
+            return None
+        return self._sched_shards_route(
+            np.ascontiguousarray(mat, dtype=np.uint8), shards, 1, op,
+            keep_rejected=False,
+        )
 
     def _dispatch_bitmatrix_shards(
         self, bmat_np: np.ndarray, shards: list, op: str
@@ -249,6 +342,11 @@ class MatrixErasureCodec(BitplaneDispatchMixin, ErasureCodeBase):
                 self.generator[self.k :, :], np.stack(shards, axis=-2)
             )
             return [out[..., j, :] for j in range(self.m)]
+        outs = self._try_sched_bytes(
+            self.generator[self.k :, :], shards, "encode"
+        )
+        if outs is not None:
+            return outs
         return self._dispatch_bitmatrix_shards(
             self._encode_bmat_np, shards, "encode"
         )
@@ -278,10 +376,19 @@ class MatrixErasureCodec(BitplaneDispatchMixin, ErasureCodeBase):
             out = gf_apply_bytes_host(mat, np.stack(shards, axis=-2))
             outs = [out[..., j, :] for j in range(len(want))]
         else:
-            bmat_np = self._tables.get(
-                key, lambda: self._build_decode_bmat(present, want)
+            # 0/1 decode rows (an XOR-parity group's repair) ride the
+            # schedule kernel; the byte matrix is the host route's
+            mat = self._host_tables.get(
+                key, lambda: self._build_decode_bytes(present, want)
             )
-            outs = self._dispatch_bitmatrix_shards(bmat_np, shards, "decode")
+            outs = self._try_sched_bytes(mat, shards, "decode")
+            if outs is None:
+                bmat_np = self._tables.get(
+                    key, lambda: self._build_decode_bmat(present, want)
+                )
+                outs = self._dispatch_bitmatrix_shards(
+                    bmat_np, shards, "decode"
+                )
         result = {w: chunks[w] for w in want_to_read if w in chunks}
         for idx, w in enumerate(want):
             result[w] = outs[idx]
@@ -348,12 +455,19 @@ class MatrixErasureCodec(BitplaneDispatchMixin, ErasureCodeBase):
                 )
                 for pid, p in parity.items()
             }
-        key = ("delta", tuple(cols))
-        bmat_np = self._tables.get(
-            key,
-            lambda: gf_matrix_to_bitmatrix(self.generator[self.k :, cols]),
+        contribs = self._try_sched_bytes(
+            self.generator[self.k :, cols], shards, "delta"
         )
-        contribs = self._dispatch_bitmatrix_shards(bmat_np, shards, "delta")
+        if contribs is None:
+            bmat_np = self._tables.get(
+                ("delta", tuple(cols)),
+                lambda: gf_matrix_to_bitmatrix(
+                    self.generator[self.k :, cols]
+                ),
+            )
+            contribs = self._dispatch_bitmatrix_shards(
+                bmat_np, shards, "delta"
+            )
         return {
             pid: torch.bitwise_xor(
                 to_tensor(p, contribs[0].device), contribs[pid - self.k]

@@ -154,4 +154,10 @@ CRC32C_BLOCKS = Kernel(
     "crc32c", "crc32c_blocks", [_P, _P, _L, _L, ctypes.c_uint, _P, _P]
 )
 
-ALL = (GF_APPLY, GF_APPLY_CSUM, CRC32C_BLOCKS)
+#: Kernel D — XOR-schedule apply, stacked and per-shard (csrc/xor_schedule.cu)
+XOR_SCHEDULE = Kernel(
+    "xor_schedule", "xor_schedule",
+    [_P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _L, _L],
+)
+
+ALL = (GF_APPLY, GF_APPLY_CSUM, CRC32C_BLOCKS, XOR_SCHEDULE)

@@ -97,6 +97,26 @@ OPTIONS: tuple[Option, ...] = (
         min=0,
     ),
     Option(
+        "ec_use_sched", bool, True,
+        desc="serve 0/1 GF(2^8) byte matrices (the xor plugin, LRC "
+             "xor-local layers, all-ones decode rows) on the card with "
+             "the XOR-schedule kernel (csrc/xor_schedule.cu) instead of "
+             "the GF(2^8) apply kernel. Packet bit-matrices (liberation "
+             "family) always take the XOR-schedule kernel: the apply "
+             "kernel takes at most 32 columns, they have k*w",
+    ),
+    Option(
+        "ec_sched_opt", bool, True,
+        desc="superoptimize XOR schedules (arxiv 2108.02692): greedy "
+             "pairwise CSE factors shared subexpressions across rows "
+             "into scratch intermediates, the DAG is reordered for "
+             "operand locality, and the gate moves to post-CSE op "
+             "count; off = the un-optimized selection-form schedule "
+             "under the raw density gate, the pinned bit-equal escape "
+             "hatch",
+        see_also=("ec_use_sched",),
+    ),
+    Option(
         "ec_host_dispatch_bytes", int, 1 << 20,
         desc="host-array ops at or below this many input bytes encode/"
              "decode on the host GF tables instead of the device "

@@ -1,34 +1,42 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``ceph_tpu_torch``) on one card.
 
-Drives the erasure-coded write, the degraded read and the CRC32C verify
-of ISA-L ``reed_sol_van`` EC(8,4) through the package's public entry
-points, at BlueStore's 4 KiB csum block:
+Drives two paths through the package's public entry points, at
+BlueStore's 4 KiB csum block, each counted on its own:
 
 1. set-up: the card's name and power limit; build every kernel in
    ``ceph_tpu_torch/csrc/`` (all sources in parallel) and print the time;
 2. every kernel against its plain PyTorch version on the card, byte for
-   byte, at the listed shapes (ragged chunk lengths included), timed at
-   the shapes the main path gives it;
-3. the write: ``ShardExtentMap.encode`` of 8 stripes x 8 x 1 MiB chunks
-   (64 MiB data, 32 MiB parity) with fused csums and HashInfo, then the
-   same through ``encode_chunks_with_csums`` / ``encode_chunks`` on
-   CUDA tensors;
-4. the degraded read: shards {0, 3, 9, 11} lost, rebuilt through
-   ``ShardExtentMap.decode`` and ``decode_chunks`` on CUDA tensors;
-5. verify: ``Checksummer("crc32c", 4096).verify`` over all 12 shards,
-   clean and with one flipped byte; HashInfo from the fused csums equals
-   HashInfo appended from the bytes;
-6. the golden corpus entry ``tests/corpus/v0/isa/isa_k=8_m=3_technique=
-   reed_sol_van`` re-encoded (and one erasure pair decoded) on the card.
+   byte, at the listed shapes (ragged lengths included), timed at the
+   shapes the main paths give it: the kernel's device time per launch
+   (torch.profiler; the ``ms`` of the ``{"kernels": ...}`` line), one
+   wrapper call and the plain version (CUDA events);
+3. the ISA-L path, ``reed_sol_van`` EC(8,4): the write
+   (``ShardExtentMap.encode`` of 8 stripes x 8 x 1 MiB chunks with fused
+   csums and HashInfo, then ``encode_chunks_with_csums`` /
+   ``encode_chunks`` on CUDA tensors), the degraded read of shards
+   {0, 3, 9, 11} (``ShardExtentMap.decode`` and ``decode_chunks``), the
+   ``Checksummer`` verify (clean and one flipped byte) and the corpus
+   entry ``tests/corpus/v0/isa/isa_k=8_m=3_technique=reed_sol_van``;
+4. the XOR-schedule path, jerasure ``liberation`` k=6 m=2 w=7 over 16
+   stripes of 1,032,192-byte chunks (7 packets of 147,456 bytes): the
+   write (``ShardExtentMap.encode`` with HashInfo plus the blob csums,
+   then ``encode_chunks`` on CUDA tensors), the degraded read of shards
+   {1, 4} (both routes), the RMW of one chunk of data shard 3
+   (``encode_parity_delta`` and ``apply_delta`` on CUDA tensors); LRC
+   k=4 m=2 l=3 ``local_parity=xor`` over 16 stripes of 1 MiB chunks
+   (encode, ``minimum_to_decode`` of one lost chunk, its local repair
+   through ``decode_chunks``); and the v1 corpus entries liberation
+   k=6 w=7, blaum_roth k=4 and liber8tion k=8, encoded and one
+   2-erasure decode each.
 
 Kernel launch counts and the ``ec_dispatch`` / ``checksum.backends``
-counters are zeroed just before phase 3 and read just after phase 6:
-every kernel must have launched, and no plain, host or fused-fallback
-route may have served the path. Outputs are then checked against the
-plain versions on the card and the host oracles. Any failure raises and
-the script exits non-zero; so does a machine without a card, or a
-directory without the package.
+counters are zeroed just before each path and read just after it: every
+kernel of the path must have launched, and no plain, host or fallback
+route may have served it. Outputs are then checked against the plain
+versions on the card and the host oracles. Any failure raises and the
+script exits non-zero; so does a machine without a card, or a directory
+without the package.
 
 Usage: python3 chip_smoke.py [--seed N]
 """
@@ -46,13 +54,32 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 MIB = 1 << 20
+CSUM_BLOCK = 4096
+H100_BYTES_PER_S = 3.35e12  # H100 SXM data sheet (80 GB HBM3)
+
+# the ISA-L path
 K, M = 8, 4
 STRIPES = 8
 CHUNK = MIB
-CSUM_BLOCK = 4096
 LOST = (0, 3, 9, 11)
-H100_BYTES_PER_S = 3.35e12  # H100 SXM data sheet (80 GB HBM3)
 CORPUS = ROOT / "tests/corpus/v0/isa/isa_k=8_m=3_technique=reed_sol_van"
+
+# the XOR-schedule path
+LIB_PROFILE = {"technique": "liberation", "k": "6", "m": "2", "w": "7"}
+LIB_K, LIB_M, LIB_W = 6, 2, 7
+LIB_STRIPES = 16
+LIB_P = 147456  # 144 KiB packets
+LIB_CHUNK = LIB_W * LIB_P  # 1,032,192 B: a multiple of 7 * 128 and 4 KiB
+LIB_LOST = (1, 4)
+LRC_PROFILE = {"k": "4", "m": "2", "l": "3", "local_parity": "xor"}
+LRC_STRIPES, LRC_CHUNK = 16, MIB
+LIB_CORPUS = [
+    ROOT / "tests/corpus/v1/jerasure" / name for name in (
+        "jerasure_k=6_m=2_technique=liberation_w=7",
+        "jerasure_k=4_m=2_technique=blaum_roth",
+        "jerasure_k=8_m=2_technique=liber8tion",
+    )
+]
 
 KERNEL_INFO = {
     "gf_apply": (
@@ -66,6 +93,10 @@ KERNEL_INFO = {
     "crc32c_blocks": (
         "ceph_tpu_torch/csrc/crc32c.cu",
         "ceph_tpu/checksum/pallas_crc.py:141",
+    ),
+    "xor_schedule": (
+        "ceph_tpu_torch/csrc/xor_schedule.cu",
+        "ceph_tpu/ops/xor_schedule.py:460; ceph_tpu/ops/xor_schedule.py:640",
     ),
 }
 
@@ -86,8 +117,10 @@ def max_err(a, b) -> int:
 
 
 def time_ms(fn, iters: int) -> float:
-    """Mean device time of one call, from CUDA events around ``iters``
-    calls after one warm-up call."""
+    """Mean time of one call, from CUDA events around ``iters`` calls
+    after one warm-up call. For a kernel shorter than its wrapper's host
+    work this is the wrapper's rate, not the kernel's: see
+    ``kernel_ms``."""
     import torch
 
     fn()
@@ -102,8 +135,33 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_ms(fn, iters: int, kernel: str) -> float:
+    """Mean device time of one launch of the CUDA kernel whose symbol
+    contains ``kernel``, from torch.profiler over ``iters`` calls after
+    one warm-up: the kernel alone, without the host time of its
+    wrapper."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for evt in prof.key_averages():
+        if kernel in evt.key:
+            total_us += getattr(evt, "self_device_time_total", None) or \
+                getattr(evt, "self_cuda_time_total", 0)
+            count += evt.count
+    check(count == iters and total_us > 0,
+          f"profiler saw {count} launches of {kernel}, want {iters}")
+    return total_us / count / 1e3
+
+
 class Phase:
-    """CUDA-event and host-clock time of one phase of the main path."""
+    """CUDA-event and host-clock time of one phase of a main path."""
 
     results: list[dict] = []
 
@@ -141,8 +199,69 @@ class Phase:
         return False
 
 
+class Counted:
+    """One main path's counts: every kernel's launches and the
+    ``ec_dispatch`` and ``checksum.backends`` counters, zeroed on entry
+    and read on exit."""
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+
+    def __enter__(self):
+        from ceph_tpu_torch import kernels
+        from ceph_tpu_torch.checksum import backends
+        from ceph_tpu_torch.codecs.matrix_codec import dispatch_counters
+
+        for kern in kernels.ALL:
+            kern.launches = 0
+        dispatch_counters().reset()
+        backends.reset()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        from ceph_tpu_torch import kernels
+        from ceph_tpu_torch.checksum import backends
+        from ceph_tpu_torch.codecs.matrix_codec import dispatch_counters
+
+        if exc[0] is not None:
+            return False
+        torch.cuda.synchronize()
+        self.launches = {k.symbol: k.launches for k in kernels.ALL}
+        self.dispatch = dispatch_counters().dump()
+        self.backends = backends.counts()
+        print(f"{self.name} path launches: {self.launches}")
+        print(f"{self.name} path ec_dispatch: "
+              f"{ {k: v for k, v in self.dispatch.items() if v} }")
+        print(f"{self.name} path checksum.backends: {self.backends}")
+        return False
+
+    def check_routes(self, kernels_used) -> None:
+        """Every kernel of the path launched; no plain, host or fallback
+        route served it; every checksum ran on the kernel."""
+        for name in kernels_used:
+            check(self.launches[name] > 0,
+                  f"kernel {name} never launched on the {self.name} path")
+        for key, val in self.dispatch.items():
+            if key.startswith(("plain_", "host_")) or key in (
+                "fused_fallback", "sched_rejected_shape"
+            ):
+                check(val == 0, f"{self.name} path ec_dispatch {key} = "
+                      f"{val}, want 0")
+        check(set(self.backends) == {"kernel"},
+              f"{self.name} path checksum backends {self.backends}, want "
+              "kernel only")
+
+
+def rand_on(rng, dev, shape):
+    import torch
+
+    return torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+
+
 def kernel_vs_plain(rng, dev) -> dict:
-    """Phase 2: each kernel against its plain version on the card.
+    """Phase 2, Kernels A-C: each against its plain version on the card.
     Returns per kernel {max_abs_err, ms, plain_ms, bound_ms}."""
     import torch
 
@@ -158,11 +277,10 @@ def kernel_vs_plain(rng, dev) -> dict:
     from ceph_tpu_torch.ops.bitplane import gf_encode_bitplane
 
     def rand(shape):
-        return torch.from_numpy(
-            rng.integers(0, 256, shape, dtype=np.uint8)
-        ).to(dev)
+        return rand_on(rng, dev, shape)
 
-    out = {name: {"max_abs_err": 0} for name in KERNEL_INFO}
+    out = {name: {"max_abs_err": 0} for name in
+           ("gf_apply", "gf_apply_csum", "crc32c_blocks")}
 
     def note(name, err, what):
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
@@ -219,81 +337,190 @@ def kernel_vs_plain(rng, dev) -> dict:
                  f"L={block} init={init:#x}")
         del data
 
-    # times at the shapes the main path gives each kernel
+    # times at the shapes the main path gives each kernel: the kernel's
+    # device time (profiler), one wrapper call (CUDA events), the plain
+    # version (CUDA events)
     io = (K + M) * STRIPES * CHUNK
-    out["gf_apply"].update(
-        ms=time_ms(lambda: ce.gf_apply(enc, main), 20),
-        plain_ms=time_ms(lambda: gf_encode_bitplane(enc, main), 3),
-        bound_ms=io / H100_BYTES_PER_S * 1e3,
-    )
     csum_bytes = 4 * STRIPES * (K + M) * (CHUNK // CSUM_BLOCK)
-    out["gf_apply_csum"].update(
-        ms=time_ms(lambda: ce.gf_apply_csum(enc, main, CSUM_BLOCK), 20),
-        plain_ms=time_ms(
-            lambda: ce.gf_apply_csum_plain(enc, main, CSUM_BLOCK), 3
-        ),
-        bound_ms=(io + csum_bytes) / H100_BYTES_PER_S * 1e3,
-    )
     verify = rand((io // CSUM_BLOCK, CSUM_BLOCK))
-    out["crc32c_blocks"].update(
-        ms=time_ms(lambda: crc32c_blocks(verify, 0xFFFFFFFF), 20),
-        plain_ms=time_ms(lambda: crc32c_fold_plain(verify, 0xFFFFFFFF), 3),
-        bound_ms=(io + 4 * verify.shape[0]) / H100_BYTES_PER_S * 1e3,
-    )
-    for name, row in out.items():
-        print(f"  {name}: {row['ms']:.4f} ms kernel, {row['plain_ms']:.3f} "
-              f"ms plain, bound {row['bound_ms']:.4f} ms (bytes)")
+    timed = {
+        "gf_apply": (lambda: ce.gf_apply(enc, main),
+                     lambda: gf_encode_bitplane(enc, main),
+                     "gf_apply_kernel", io),
+        "gf_apply_csum": (
+            lambda: ce.gf_apply_csum(enc, main, CSUM_BLOCK),
+            lambda: ce.gf_apply_csum_plain(enc, main, CSUM_BLOCK),
+            "gf_apply_csum_kernel", io + csum_bytes),
+        "crc32c_blocks": (
+            lambda: crc32c_blocks(verify, 0xFFFFFFFF),
+            lambda: crc32c_fold_plain(verify, 0xFFFFFFFF),
+            "crc32c_blocks_kernel", io + 4 * verify.shape[0]),
+    }
+    for name, (fn, plain, symbol, nbytes) in timed.items():
+        out[name].update(
+            ms=kernel_ms(fn, 20, symbol), call_ms=time_ms(fn, 20),
+            plain_ms=time_ms(plain, 3),
+            bound_ms=nbytes / H100_BYTES_PER_S * 1e3,
+        )
+        row = out[name]
+        print(f"  {name}: {row['ms']:.4f} ms kernel (profiler), "
+              f"{row['call_ms']:.4f} ms a call (events), "
+              f"{row['plain_ms']:.3f} ms plain, bound "
+              f"{row['bound_ms']:.4f} ms (bytes)")
     return out
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
+def xor_cases(rng):
+    """(label, schedule, w, rows, cols) for Kernel D: the liberation
+    k=6 w=7 encode (CSE'd and selection form), its inverted decode for
+    lost {1, 4}, a one-column delta, blaum_roth k=4 w=6 and liber8tion
+    k=8 encodes, the w=1 all-ones row and the LRC local-repair row, an
+    empty output row, and a dense random 56x56 matrix after CSE."""
+    from ceph_tpu_torch.codecs import registry
+    from ceph_tpu_torch.ops import xor_schedule as xs
 
+    def coding(profile):
+        return registry.factory(
+            "jerasure", profile, device="cuda").coding_bitmatrix
+
+    lib = registry.factory("jerasure", LIB_PROFILE, device="cuda")
+    enc = lib.coding_bitmatrix
+    present = [s for s in range(LIB_K + LIB_M) if s not in LIB_LOST]
+    dec = lib._build_decode_bitmatrix(present, list(LIB_LOST))
+    lrc = registry.factory("lrc", LRC_PROFILE, device="cuda")
+    local = lrc.layers[1].codec._build_decode_bytes([1, 2, 3], [0])
+    empty = enc.copy()
+    empty[5] = 0
+    dense = (rng.random((56, 56)) < 0.5).astype(np.uint8)
+    mats = [
+        ("liberation k=6 w=7 encode", enc, 7),
+        ("liberation decode lost {1,4}", dec, 7),
+        ("liberation delta of column 3",
+         np.ascontiguousarray(enc[:, 3 * 7:4 * 7]), 7),
+        ("blaum_roth k=4 w=6 encode", coding(
+            {"technique": "blaum_roth", "k": "4", "m": "2", "w": "6"}), 6),
+        ("liber8tion k=8 encode", coding(
+            {"technique": "liber8tion", "k": "8", "m": "2"}), 8),
+        ("all-ones row w=1", np.ones((1, 5), np.uint8), 1),
+        ("LRC local repair row w=1", local, 1),
+        ("empty output row", empty, 7),
+        ("dense 56x56", dense, 8),
+    ]
+    cases = [(f"{label} (CSE)", xs.optimize_schedule(m), w, *m.shape)
+             for label, m, w in mats]
+    cases.insert(1, ("liberation k=6 w=7 encode (selection rows)",
+                     xs.schedule_rows(enc), 7, *enc.shape))
+    return cases
+
+
+def xor_vs_plain(rng, dev) -> dict:
+    """Phase 2, Kernel D: both forms against the plain version, byte for
+    byte, at P = 147,456 (the main path's packet), 2,048 and a ragged
+    1,003; then timed at the main path's shape."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    if not (ROOT / "ceph_tpu_torch" / "csrc").is_dir():
-        print(f"chip_smoke: no ceph_tpu_torch package beside {__file__}",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT))
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(args.seed)
+    from ceph_tpu_torch.ops import cuda_xor
+    from ceph_tpu_torch.ops import xor_schedule as xs
 
-    # -- 1. set-up ------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    from ceph_tpu_torch import kernels
+    err = 0
+    for label, sched, w, rows, cols in xor_cases(rng):
+        slots = (xs._linearize(sched)[1]
+                 if isinstance(sched, xs.Schedule) else 0)
+        for p, b in ((LIB_P, LIB_STRIPES), (2048, 8), (1003, 8)):
+            packets = rand_on(rng, dev, (b, cols, p))
+            want = xs.xor_schedule_plain(sched, packets)
+            e1 = max_err(cuda_xor.xor_schedule_apply(sched, packets), want)
+            shards = [packets[:, i * w:(i + 1) * w].reshape(b, w * p)
+                      .contiguous() for i in range(cols // w)]
+            got = cuda_xor.xor_schedule_apply_shards(sched, shards, w)
+            e2 = max_err(torch.stack(got, 1),
+                         want.reshape(b, rows // w, w * p))
+            print(f"  xor_schedule {label} [{rows}x{cols}, {slots} slots] "
+                  f"P={p}: max_abs_err stacked {e1}, shards {e2}")
+            check(e1 == 0 and e2 == 0,
+                  f"xor_schedule {label} P={p} disagrees with its plain "
+                  "version")
+            err = max(err, e1, e2)
+            del packets, want, shards, got
 
-    t0 = time.perf_counter()
-    logs = kernels.build_all()
-    print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s "
-          "(all sources in parallel)")
-    for src, (secs, log) in sorted(logs.items()):
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-        print(f"  {src}: {secs:.1f} s; " + " | ".join(regs))
+    # the main path's shape: the liberation encode's CSE'd schedule
+    from ceph_tpu_torch.codecs import registry
 
-    # -- 2. every kernel against its plain version ----------------------
-    print("kernel vs plain on the card:")
-    rows = kernel_vs_plain(rng, dev)
-    torch.cuda.empty_cache()
+    enc = registry.factory(
+        "jerasure", LIB_PROFILE, device="cuda").coding_bitmatrix
+    sched = xs.routable_schedule(enc)
+    kw, mw = enc.shape[1], enc.shape[0]
+    packets = rand_on(rng, dev, (LIB_STRIPES, kw, LIB_P))
+    shards = [packets[:, i * LIB_W:(i + 1) * LIB_W].reshape(
+        LIB_STRIPES, LIB_CHUNK).contiguous() for i in range(LIB_K)]
+    def stacked():
+        return cuda_xor.xor_schedule_apply(sched, packets)
 
-    # -- 3..6. the main path, counted -----------------------------------
-    from ceph_tpu_torch.checksum import Checksummer, backends
+    def per_shard():
+        return cuda_xor.xor_schedule_apply_shards(sched, shards, LIB_W)
+
+    symbol = "xor_schedule_kernel"
+    row = {
+        "max_abs_err": err,
+        "ms": kernel_ms(stacked, 20, symbol),
+        "call_ms": time_ms(stacked, 20),
+        "shards_ms": kernel_ms(per_shard, 20, symbol),
+        "shards_call_ms": time_ms(per_shard, 20),
+        "plain_ms": time_ms(lambda: xs.xor_schedule_plain(sched, packets),
+                            3),
+        "bound_ms": (kw + mw) * LIB_P * LIB_STRIPES / H100_BYTES_PER_S * 1e3,
+    }
+    # the LRC local repair: 3 whole 1 MiB chunks -> 1, w = 1
+    local = xs.optimize_schedule(np.ones((1, 3), np.uint8))
+    group = [rand_on(rng, dev, (LRC_STRIPES, LRC_CHUNK)) for _ in range(3)]
+    row["lrc_repair_ms"] = kernel_ms(
+        lambda: cuda_xor.xor_schedule_apply_shards(local, group, 1), 20,
+        symbol)
+    row["lrc_repair_bound_ms"] = (4 * LRC_STRIPES * LRC_CHUNK
+                                  / H100_BYTES_PER_S * 1e3)
+    print(f"  xor_schedule: {row['ms']:.4f} ms kernel stacked, "
+          f"{row['shards_ms']:.4f} ms kernel per-shard (profiler); "
+          f"{row['call_ms']:.4f} / {row['shards_call_ms']:.4f} ms a call "
+          f"(events); {row['plain_ms']:.3f} ms plain; bound "
+          f"{row['bound_ms']:.4f} ms (bytes); LRC local repair "
+          f"{row['lrc_repair_ms']:.4f} ms kernel, bound "
+          f"{row['lrc_repair_bound_ms']:.4f} ms")
+
+    # Kernel A against Kernel D on 0/1 byte matrices (w = 1), which
+    # either could serve: the LRC repair row and a dense random 0/1
+    # [4, 12] matrix over 16 stripes of 1 MiB chunks
+    from ceph_tpu_torch.gf import gf_matrix_to_bitmatrix
+    from ceph_tpu_torch.ops import cuda_encode
+
+    dense01 = (rng.random((4, 12)) < 0.5).astype(np.uint8)
+    wide = [rand_on(rng, dev, (LRC_STRIPES, LRC_CHUNK)) for _ in range(12)]
+    for label, mat, srcs in (("LRC repair row 1x3", np.ones((1, 3), np.uint8),
+                              group), ("dense 0/1 4x12", dense01, wide)):
+        bits = gf_matrix_to_bitmatrix(mat)
+        opt = xs.optimize_schedule(mat)
+        a = kernel_ms(lambda: cuda_encode.gf_apply_shards(bits, srcs), 20,
+                      "gf_apply_kernel")
+        d = kernel_ms(
+            lambda: cuda_xor.xor_schedule_apply_shards(opt, srcs, 1), 20,
+            symbol)
+        row[f"A_vs_D {label}"] = (a, d)
+        print(f"  0/1 byte matrix {label}: Kernel A {a:.4f} ms, Kernel D "
+              f"{d:.4f} ms (profiler)")
+    return row
+
+
+def isa_path(rng, dev) -> Counted:
+    """Phases 3-6: the ISA-L reed_sol_van EC(8,4) write, degraded read,
+    verify and corpus, counted; then its outputs checked."""
+    import torch
+
+    from ceph_tpu_torch.checksum import Checksummer
     from ceph_tpu_torch.checksum.crc32c import (
         crc32c_fold_plain,
         crc32c_seed_shift,
     )
     from ceph_tpu_torch.checksum.reference import crc32c_ref
     from ceph_tpu_torch.codecs import registry
-    from ceph_tpu_torch.codecs.matrix_codec import dispatch_counters
     from ceph_tpu_torch.gf import (
         gf_apply_bytes_host,
         gf_matrix_to_bitmatrix,
@@ -315,97 +542,81 @@ def main(argv=None) -> int:
     shard_bytes = STRIPES * CHUNK
     data_bytes = K * shard_bytes
 
-    for kern in kernels.ALL:
-        kern.launches = 0
-    dispatch_counters().reset()
-    backends.reset()
-
-    codec = registry.factory(
-        "isa", {"k": str(K), "m": str(M), "technique": "reed_sol_van"},
-        device="cuda",
-    )
-    smap = ShardExtentMap(sinfo)
-    for r in range(K):
-        smap.insert(r, 0, streams[r])
-    hinfo = HashInfo(K + M, device="cuda")
-    with Phase("write_host_staged", data_bytes):
-        smap.encode(codec, hinfo, csum_block=CSUM_BLOCK)
-    stored = {s: smap.get(s, 0, shard_bytes) for s in range(K + M)}
-    fused = smap.csums
-
-    dev_data = torch.from_numpy(
-        payload.reshape(STRIPES, K, CHUNK).transpose(1, 0, 2).copy()
-    ).to(dev)  # [K, STRIPES, CHUNK]: shard i is dev_data[i]
-    with Phase("write_device_resident", data_bytes):
-        par_c, csums_dev = codec.encode_chunks_with_csums(
-            {i: dev_data[i] for i in range(K)}, CSUM_BLOCK
+    with Counted("isa") as counted:
+        codec = registry.factory(
+            "isa", {"k": str(K), "m": str(M), "technique": "reed_sol_van"},
+            device="cuda",
         )
-        par_p = codec.encode_chunks({i: dev_data[i] for i in range(K)})
-        par_c = {j: to_numpy(v) for j, v in par_c.items()}
-        par_p = {j: to_numpy(v) for j, v in par_p.items()}
+        smap = ShardExtentMap(sinfo)
+        for r in range(K):
+            smap.insert(r, 0, streams[r])
+        hinfo = HashInfo(K + M, device="cuda")
+        with Phase("write_host_staged", data_bytes):
+            smap.encode(codec, hinfo, csum_block=CSUM_BLOCK)
+        stored = {s: smap.get(s, 0, shard_bytes) for s in range(K + M)}
+        fused = smap.csums
 
-    survivors = ShardExtentMap(sinfo)
-    for s in range(K + M):
-        if s not in LOST:
-            survivors.insert(s, 0, stored[s])
-    with Phase("degraded_read_host_staged", K * shard_bytes):
-        survivors.decode(codec, set(LOST), K * shard_bytes)
-    rebuilt = {s: survivors.get(s, 0, shard_bytes) for s in LOST}
+        dev_data = torch.from_numpy(
+            payload.reshape(STRIPES, K, CHUNK).transpose(1, 0, 2).copy()
+        ).to(dev)  # [K, STRIPES, CHUNK]: shard i is dev_data[i]
+        with Phase("write_device_resident", data_bytes):
+            par_c, csums_dev = codec.encode_chunks_with_csums(
+                {i: dev_data[i] for i in range(K)}, CSUM_BLOCK
+            )
+            par_p = codec.encode_chunks({i: dev_data[i] for i in range(K)})
+            par_c = {j: to_numpy(v) for j, v in par_c.items()}
+            par_p = {j: to_numpy(v) for j, v in par_p.items()}
 
-    chunks_dev = {
-        s: torch.from_numpy(stored[s].reshape(STRIPES, CHUNK)).to(dev)
-        for s in range(K + M) if s not in LOST
-    }
-    with Phase("degraded_read_device_resident", K * shard_bytes):
-        rebuilt_dev = codec.decode_chunks(set(LOST), chunks_dev)
-        rebuilt_dev = {s: to_numpy(rebuilt_dev[s]) for s in LOST}
+        survivors = ShardExtentMap(sinfo)
+        for s in range(K + M):
+            if s not in LOST:
+                survivors.insert(s, 0, stored[s])
+        with Phase("degraded_read_host_staged", K * shard_bytes):
+            survivors.decode(codec, set(LOST), K * shard_bytes)
+        rebuilt = {s: survivors.get(s, 0, shard_bytes) for s in LOST}
 
-    seed_xor = crc32c_seed_shift(CSUM_BLOCK, 0xFFFFFFFF)
-    all_shards = np.concatenate([stored[s] for s in range(K + M)])
-    blob_csums = np.concatenate(
-        [fused["shards"][s][1] for s in range(K + M)]
-    ) ^ np.uint32(seed_xor)
-    summer = Checksummer("crc32c", CSUM_BLOCK, device="cuda")
-    flip_at = 5 * shard_bytes + 123457
-    corrupt = all_shards.copy()
-    corrupt[flip_at] ^= 0x5A
-    hinfo_bytes = HashInfo(K + M, device="cuda")
-    with Phase("verify", 2 * all_shards.nbytes + all_shards.nbytes):
-        clean = summer.verify(all_shards, blob_csums)
-        dirty = summer.verify(corrupt, blob_csums)
-        hinfo_bytes.append(0, stored)
+        chunks_dev = {
+            s: torch.from_numpy(stored[s].reshape(STRIPES, CHUNK)).to(dev)
+            for s in range(K + M) if s not in LOST
+        }
+        with Phase("degraded_read_device_resident", K * shard_bytes):
+            rebuilt_dev = codec.decode_chunks(set(LOST), chunks_dev)
+            rebuilt_dev = {s: to_numpy(rebuilt_dev[s]) for s in LOST}
 
-    meta = json.loads((CORPUS / "profile.json").read_text())
-    corpus_payload = (CORPUS / "payload.bin").read_bytes()
-    corpus_codec = registry.factory(
-        meta["plugin"], meta["profile"], device="cuda"
-    )
-    want_chunks = {
-        i: (CORPUS / f"chunk.{i}").read_bytes()
-        for i in range(corpus_codec.get_chunk_count())
-    }
-    with Phase("corpus", len(corpus_payload)):
-        corpus_now = corpus_codec.encode(corpus_payload)
-        corpus_dec = corpus_codec.decode(
-            {1, 9}, {i: c for i, c in want_chunks.items() if i not in (1, 9)}
+        seed_xor = crc32c_seed_shift(CSUM_BLOCK, 0xFFFFFFFF)
+        all_shards = np.concatenate([stored[s] for s in range(K + M)])
+        blob_csums = np.concatenate(
+            [fused["shards"][s][1] for s in range(K + M)]
+        ) ^ np.uint32(seed_xor)
+        summer = Checksummer("crc32c", CSUM_BLOCK, device="cuda")
+        flip_at = 5 * shard_bytes + 123457
+        corrupt = all_shards.copy()
+        corrupt[flip_at] ^= 0x5A
+        hinfo_bytes = HashInfo(K + M, device="cuda")
+        with Phase("verify", 2 * all_shards.nbytes + all_shards.nbytes):
+            clean = summer.verify(all_shards, blob_csums)
+            dirty = summer.verify(corrupt, blob_csums)
+            hinfo_bytes.append(0, stored)
+
+        meta = json.loads((CORPUS / "profile.json").read_text())
+        corpus_payload = (CORPUS / "payload.bin").read_bytes()
+        corpus_codec = registry.factory(
+            meta["plugin"], meta["profile"], device="cuda"
         )
-    torch.cuda.synchronize()
-
-    launches = {k.symbol: k.launches for k in kernels.ALL}
-    dispatch = dispatch_counters().dump()
-    csum_backends = backends.counts()
-    print(f"main-path launches: {launches}")
-    print(f"ec_dispatch: {dispatch}")
-    print(f"checksum.backends: {csum_backends}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} never launched on the main path")
-    for key, val in dispatch.items():
-        if key.startswith(("plain_", "host_")) or key == "fused_fallback":
-            check(val == 0, f"ec_dispatch {key} = {val}, want 0")
-    check(dispatch["kernel_encode"] > 0 and dispatch["kernel_decode"] > 0
-          and dispatch["fused_encode"] > 0, "kernel_* did not move")
-    check(set(csum_backends) == {"kernel"},
-          f"checksum backends {csum_backends}, want kernel only")
+        want_chunks = {
+            i: (CORPUS / f"chunk.{i}").read_bytes()
+            for i in range(corpus_codec.get_chunk_count())
+        }
+        with Phase("corpus", len(corpus_payload)):
+            corpus_now = corpus_codec.encode(corpus_payload)
+            corpus_dec = corpus_codec.decode(
+                {1, 9},
+                {i: c for i, c in want_chunks.items() if i not in (1, 9)},
+            )
+    counted.check_routes(("gf_apply", "gf_apply_csum", "crc32c_blocks"))
+    d = counted.dispatch
+    check(d["kernel_encode"] > 0 and d["kernel_decode"] > 0
+          and d["fused_encode"] > 0, "kernel_* did not move")
 
     # -- the outputs, against the plain versions and the host oracles ---
     gen = isa_rs_matrix(K, M)
@@ -460,18 +671,268 @@ def main(argv=None) -> int:
         check(corpus_now[i] == chunk, f"corpus chunk {i} differs")
     for i in (1, 9):
         check(corpus_dec[i] == want_chunks[i], f"corpus decode {i} differs")
-    print("outputs: parity, csums, HashInfo, rebuilt shards, verify and "
+    print("isa outputs: parity, csums, HashInfo, rebuilt shards, verify and "
           "corpus all byte-exact")
+    return counted
+
+
+def schedule_path(rng, dev) -> Counted:
+    """The XOR-schedule path: the liberation k=6 m=2 w=7 write, degraded
+    read and RMW, the LRC xor-local repair and the v1 corpus entries,
+    counted; then their outputs checked."""
+    import torch
+
+    from ceph_tpu_torch.checksum import Checksummer
+    from ceph_tpu_torch.checksum.crc32c import (
+        crc32c_chain,
+        crc32c_fold_plain,
+    )
+    from ceph_tpu_torch.checksum.reference import crc32c_ref
+    from ceph_tpu_torch.codecs import registry
+    from ceph_tpu_torch.gf import gf_apply_bytes_host, gf_matrix_to_bitmatrix
+    from ceph_tpu_torch.ops import xor_schedule as xs
+    from ceph_tpu_torch.ops.bitplane import gf_encode_bitplane
+    from ceph_tpu_torch.pipeline import (
+        HashInfo,
+        ShardExtentMap,
+        StripeInfo,
+    )
+    from ceph_tpu_torch.utils import config
+    from ceph_tpu_torch.utils.device import to_numpy
+
+    k, m, n, chunk = LIB_K, LIB_M, LIB_K + LIB_M, LIB_CHUNK
+    payload = rng.integers(0, 256, k * LIB_STRIPES * chunk, dtype=np.uint8)
+    by_stripe = payload.reshape(LIB_STRIPES, k, chunk)
+    streams = np.ascontiguousarray(by_stripe.transpose(1, 0, 2)).reshape(
+        k, LIB_STRIPES * chunk)
+    sinfo = StripeInfo(k, m, k * chunk)
+    shard_bytes = LIB_STRIPES * chunk
+    data_bytes = k * shard_bytes
+    new_chunk = rng.integers(0, 256, chunk, dtype=np.uint8)
+    lrc_data = rng.integers(0, 256, (4, LRC_STRIPES, LRC_CHUNK),
+                            dtype=np.uint8)
+    corpus = []
+    for entry in LIB_CORPUS:
+        meta = json.loads((entry / "profile.json").read_text())
+        n_chunks = int(meta["profile"]["k"]) + int(meta["profile"]["m"])
+        corpus.append((meta, (entry / "payload.bin").read_bytes(), {
+            i: (entry / f"chunk.{i}").read_bytes() for i in range(n_chunks)
+        }))
+    dev_data = torch.from_numpy(by_stripe.transpose(1, 0, 2).copy()).to(dev)
+    lrc_dev = torch.from_numpy(lrc_data).to(dev)
+
+    with Counted("schedule") as counted:
+        codec = registry.factory("jerasure", LIB_PROFILE, device="cuda")
+        smap = ShardExtentMap(sinfo)
+        for r in range(k):
+            smap.insert(r, 0, streams[r])
+        hinfo = HashInfo(n, device="cuda")
+        summer = Checksummer("crc32c", CSUM_BLOCK, device="cuda")
+        with Phase("lib_write_host_staged", data_bytes):
+            smap.encode(codec, hinfo, csum_block=CSUM_BLOCK)
+            stored = {s: smap.get(s, 0, shard_bytes) for s in range(n)}
+            blob = summer.calculate(
+                np.concatenate([stored[s] for s in range(n)]))
+
+        with Phase("lib_write_device_resident", data_bytes):
+            par = codec.encode_chunks({i: dev_data[i] for i in range(k)})
+            par = {j: to_numpy(v) for j, v in par.items()}
+
+        survivors = ShardExtentMap(sinfo)
+        for s in range(n):
+            if s not in LIB_LOST:
+                survivors.insert(s, 0, stored[s])
+        with Phase("lib_degraded_read_host_staged", data_bytes):
+            survivors.decode(codec, set(LIB_LOST), k * shard_bytes)
+        rebuilt = {s: survivors.get(s, 0, shard_bytes) for s in LIB_LOST}
+        chunks_dev = {
+            s: torch.from_numpy(stored[s].reshape(LIB_STRIPES, chunk)).to(dev)
+            for s in range(n) if s not in LIB_LOST
+        }
+        with Phase("lib_degraded_read_device_resident", data_bytes):
+            rebuilt_dev = codec.decode_chunks(set(LIB_LOST), chunks_dev)
+            rebuilt_dev = {s: to_numpy(rebuilt_dev[s]) for s in LIB_LOST}
+
+        # RMW of chunk 1 (the second stripe) of data shard 3
+        old_map = ShardExtentMap(sinfo)
+        for s in range(n):
+            old_map.insert(s, 0, stored[s])
+        new_map = ShardExtentMap(sinfo)
+        new_map.insert(3, chunk, new_chunk)
+        old_parity = {s: stored[s][chunk:2 * chunk] for s in (k, k + 1)}
+        delta_dev = torch.from_numpy(
+            np.bitwise_xor(stored[3][chunk:2 * chunk], new_chunk)
+        ).to(dev)
+        # each RMW reads a delta chunk and m parity chunks, writes m
+        with Phase("lib_rmw", 2 * (1 + 2 * m) * chunk):
+            # one 1,008 KiB chunk is under the 1 MiB host threshold: 0
+            # sends this small write's delta to the card
+            with config.override(ec_host_dispatch_bytes=0):
+                new_map.encode_parity_delta(codec, old_map)
+            rmw = {s: new_map.get(s, chunk, chunk) for s in (k, k + 1)}
+            rmw_dev = codec.apply_delta(
+                {3: delta_dev},
+                {s: torch.from_numpy(p).to(dev)
+                 for s, p in old_parity.items()},
+            )
+            rmw_dev = {s: to_numpy(v) for s, v in rmw_dev.items()}
+
+        lrc = registry.factory("lrc", LRC_PROFILE, device="cuda")
+        with Phase("lrc_xor_local", 4 * LRC_STRIPES * LRC_CHUNK):
+            lrc_par = lrc.encode_chunks({i: lrc_dev[i] for i in range(4)})
+            lrc_full = {**{i: lrc_dev[i] for i in range(4)}, **lrc_par}
+            plan = lrc.minimum_to_decode({0}, set(range(8)) - {0})
+            repaired = lrc.decode_chunks(
+                {0}, {s: lrc_full[s] for s in plan})
+            repaired = to_numpy(repaired[0])
+            lrc_par = {j: to_numpy(v) for j, v in lrc_par.items()}
+
+        corpus_out = []
+        with Phase("lib_corpus", sum(len(p) for _, p, _ in corpus)):
+            for meta, corpus_payload, want_chunks in corpus:
+                cc = registry.factory(meta["plugin"], meta["profile"],
+                                      device="cuda")
+                corpus_out.append((
+                    cc.encode(corpus_payload),
+                    cc.decode({1, 3}, {i: c for i, c in want_chunks.items()
+                                       if i not in (1, 3)}),
+                ))
+    counted.check_routes(("xor_schedule", "crc32c_blocks", "gf_apply"))
+    d = counted.dispatch
+    for key in ("sched_encode", "sched_decode", "sched_delta"):
+        check(d[key] > 0, f"schedule path ec_dispatch {key} did not move")
+    print(f"schedule path sched_rejected_density = "
+          f"{d['sched_rejected_density']}")
+
+    # -- the outputs, against the plain version and the host oracles ----
+    coding = codec.coding_bitmatrix
+    rows = xs.schedule_rows(coding)  # no CSE: independent of the kernel's
+
+    def plain_parity(data):  # [S, k, chunk] -> [S, m, chunk] on the card
+        pk = torch.from_numpy(np.ascontiguousarray(data)).to(dev).reshape(
+            data.shape[0], k * LIB_W, LIB_P)
+        return to_numpy(xs.xor_schedule_plain(rows, pk)).reshape(
+            data.shape[0], m, chunk)
+
+    want_par = plain_parity(by_stripe)
+    for j in range(m):
+        want_stream = want_par[:, j].reshape(-1)
+        check(np.array_equal(stored[k + j], want_stream),
+              f"host-staged parity {k + j} differs from the plain version")
+        check(np.array_equal(par[k + j].reshape(-1), want_stream),
+              f"device parity {k + j} differs from the plain version")
+    cols = 1024  # host GF tables over the packets' first bytes
+    host_pk = by_stripe.reshape(LIB_STRIPES, k * LIB_W, LIB_P)[..., :cols]
+    check(np.array_equal(
+        gf_apply_bytes_host(coding, host_pk),
+        want_par.reshape(LIB_STRIPES, m * LIB_W, LIB_P)[..., :cols]),
+        "plain parity differs from the host GF tables")
+    full = torch.from_numpy(np.stack([stored[s] for s in range(n)])).to(dev)
+    want_blob = to_numpy(crc32c_fold_plain(
+        full.reshape(-1, CSUM_BLOCK), 0xFFFFFFFF)).astype(np.uint32)
+    check(np.array_equal(blob, want_blob),
+          "blob csums differ from the plain fold")
+    blk = stored[k][:CSUM_BLOCK].tobytes()
+    check(int(blob[k * shard_bytes // CSUM_BLOCK]) ==
+          crc32c_ref(0xFFFFFFFF, blk),
+          "a parity blob csum differs from the bitwise oracle")
+    for s in range(n):
+        c0 = crc32c_fold_plain(full[s].reshape(-1, CSUM_BLOCK), 0)
+        check(hinfo.get_chunk_hash(s) ==
+              crc32c_chain(0xFFFFFFFF, to_numpy(c0), CSUM_BLOCK),
+              f"HashInfo of shard {s} differs from the plain fold")
+    for s in LIB_LOST:
+        check(np.array_equal(rebuilt[s], stored[s]),
+              f"ShardExtentMap.decode rebuilt shard {s} wrong")
+        check(np.array_equal(rebuilt_dev[s].reshape(-1), stored[s]),
+              f"decode_chunks rebuilt shard {s} wrong")
+    patched = np.stack([stored[i][chunk:2 * chunk] for i in range(k)])
+    patched[3] = new_chunk
+    want_rmw = plain_parity(patched[None])[0]
+    for j in range(m):
+        check(np.array_equal(rmw[k + j], want_rmw[j]),
+              f"encode_parity_delta parity {k + j} != a full re-encode")
+        check(np.array_equal(rmw_dev[k + j], want_rmw[j]),
+              f"device apply_delta parity {k + j} != a full re-encode")
+    check(len(plan) == 3, f"LRC local repair plan {sorted(plan)}, want the "
+          "3-chunk local group")
+    check(np.array_equal(repaired, lrc_data[0]), "LRC local repair wrong")
+    want_lrc = to_numpy(gf_encode_bitplane(
+        gf_matrix_to_bitmatrix(lrc._composite),
+        torch.from_numpy(lrc_data.transpose(1, 0, 2).copy()).to(dev)))
+    for j in range(lrc.m):
+        check(np.array_equal(lrc_par[lrc.k + j], want_lrc[:, j]),
+              f"LRC parity {lrc.k + j} differs from the plain apply")
+    by_pos = {lrc.chunk_mapping[i]: v for i, v in
+              {**dict(enumerate(lrc_data)), **lrc_par}.items()}
+    check(np.array_equal(by_pos[3], by_pos[0] ^ by_pos[1] ^ by_pos[2]),
+          "LRC local parity is not the XOR of its group")
+    for (meta, _, want_chunks), (now, dec) in zip(corpus, corpus_out):
+        name = meta["profile"]["technique"]
+        for i, c in want_chunks.items():
+            check(now[i] == c, f"corpus {name} chunk {i} differs")
+        for i in (1, 3):
+            check(dec[i] == want_chunks[i], f"corpus {name} decode {i} "
+                  "differs")
+    print("schedule outputs: parity, csums, HashInfo, rebuilt shards, delta "
+          "parity, LRC repair and corpus all byte-exact")
+    return counted
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (ROOT / "ceph_tpu_torch" / "csrc").is_dir():
+        print(f"chip_smoke: no ceph_tpu_torch package beside {__file__}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(args.seed)
+
+    # -- 1. set-up ------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    from ceph_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    logs = kernels.build_all()
+    print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s "
+          "(all sources in parallel)")
+    for src, (secs, log) in sorted(logs.items()):
+        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+        print(f"  {src}: {secs:.1f} s; " + " | ".join(regs))
+
+    # -- 2. every kernel against its plain version ----------------------
+    print("kernel vs plain on the card:")
+    rows = kernel_vs_plain(rng, dev)
+    rows["xor_schedule"] = xor_vs_plain(rng, dev)
+    torch.cuda.empty_cache()
+
+    # -- 3.. the main paths, each counted --------------------------------
+    paths = [isa_path(rng, dev)]
+    torch.cuda.empty_cache()
+    paths.append(schedule_path(rng, dev))
 
     print(json.dumps({"phases": Phase.results}))
     kern_rows = []
-    for kern in (kernels.GF_APPLY, kernels.GF_APPLY_CSUM,
-                 kernels.CRC32C_BLOCKS):
+    for kern in kernels.ALL:
         name = kern.symbol
         src, replaces = KERNEL_INFO[name]
         kern_rows.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": sum(p.launches[name] for p in paths),
             "max_abs_err": rows[name]["max_abs_err"],
             "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
             "bound_ms": rows[name]["bound_ms"], "bound_by": "bytes",

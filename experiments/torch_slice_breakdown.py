@@ -1,9 +1,12 @@
-"""Where the time of the ported EC(8,4) slice goes, on one CUDA card.
+"""Where the time of the ported slices goes, on one CUDA card.
 
-Runs the main path of ``chip_smoke.py`` (host-staged write with fused
-csums and HashInfo, degraded read, verify) once to warm up, then once
+Runs the main paths of ``chip_smoke.py`` once to warm up, then once
 under ``torch.profiler`` (CPU + CUDA activities) and once under
-``cProfile``, and prints per phase:
+``cProfile``: the ISA EC(8,4) host-staged write with fused csums and
+HashInfo, degraded read and verify; the jerasure liberation k=6 w=7
+host-staged write with HashInfo, degraded read of shards {1, 4} and the
+RMW of one chunk; and the LRC xor-local repair of one chunk on CUDA
+tensors. Prints per phase:
 
 - host-clock time, and device busy time summed over kernels and copies
   (from the profiler's device events), hence the device idle share;
@@ -33,6 +36,9 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent.parent
 K, M, STRIPES, CHUNK, CB = 8, 4, 8, 1 << 20, 4096
 LOST = (0, 3, 9, 11)
+LIB = {"technique": "liberation", "k": "6", "m": "2", "w": "7"}
+LIB_K, LIB_N, LIB_STRIPES, LIB_CHUNK = 6, 8, 16, 7 * 147456
+LIB_LOST = (1, 4)
 
 
 def phases(payload, dev_name="cuda"):
@@ -82,6 +88,63 @@ def phases(payload, dev_name="cuda"):
             "verify": verify}
 
 
+def schedule_phases(rng, dev_name="cuda"):
+    """The XOR-schedule path's phases, as ``phases``."""
+    import torch
+
+    from ceph_tpu_torch.codecs import registry
+    from ceph_tpu_torch.pipeline import HashInfo, ShardExtentMap, StripeInfo
+    from ceph_tpu_torch.utils import config
+
+    codec = registry.factory("jerasure", LIB, device=dev_name)
+    sinfo = StripeInfo(LIB_K, LIB_N - LIB_K, LIB_K * LIB_CHUNK)
+    shard_bytes = LIB_STRIPES * LIB_CHUNK
+    streams = rng.integers(0, 256, (LIB_K, shard_bytes), dtype=np.uint8)
+    new_chunk = rng.integers(0, 256, LIB_CHUNK, dtype=np.uint8)
+    lrc = registry.factory(
+        "lrc", {"k": "4", "m": "2", "l": "3", "local_parity": "xor"},
+        device=dev_name)
+    group = [torch.from_numpy(rng.integers(
+        0, 256, (16, 1 << 20), dtype=np.uint8)).to(dev_name)
+        for _ in range(3)]
+    state = {}
+
+    def stored_map():
+        smap = ShardExtentMap(sinfo)
+        for s, buf in state["stored"].items():
+            smap.insert(s, 0, buf)
+        return smap
+
+    def lib_write():
+        smap = ShardExtentMap(sinfo)
+        for r in range(LIB_K):
+            smap.insert(r, 0, streams[r])
+        smap.encode(codec, HashInfo(LIB_N, device=dev_name), csum_block=CB)
+        state["stored"] = {s: smap.get(s, 0, shard_bytes)
+                           for s in range(LIB_N)}
+
+    def lib_degraded_read():
+        smap = stored_map()
+        for s in LIB_LOST:
+            smap.erase_shard(s)
+        smap.decode(codec, set(LIB_LOST), LIB_K * shard_bytes)
+
+    def lib_rmw():
+        new = ShardExtentMap(sinfo)
+        new.insert(3, LIB_CHUNK, new_chunk)
+        with config.override(ec_host_dispatch_bytes=0):
+            new.encode_parity_delta(codec, stored_map())
+
+    def lrc_local_repair():
+        # minimum_to_decode's plan for chunk 0: data 1, the group's
+        # global parity (4) and its local parity (5); random bytes time
+        # the same as a codeword
+        lrc.decode_chunks({0}, {1: group[0], 4: group[1], 5: group[2]})
+
+    return {"lib_write": lib_write, "lib_degraded_read": lib_degraded_read,
+            "lib_rmw": lib_rmw, "lrc_local_repair": lrc_local_repair}
+
+
 def device_time_us(prof) -> tuple[float, list]:
     """Sum of device time over the kernels and copies the card ran, and
     the top ones, from a finished torch.profiler run. Only events that
@@ -119,6 +182,7 @@ def main(argv=None) -> int:
         0, 256, K * STRIPES * CHUNK, dtype=np.uint8
     )
     steps = phases(payload)
+    steps.update(schedule_phases(np.random.default_rng(args.seed + 1)))
     for fn in steps.values():  # warm-up: build, caches, tables
         fn()
     torch.cuda.synchronize()

@@ -86,6 +86,11 @@ def test_default_device_entry_points_raise_without_a_card(no_card):
         registry.factory("isa", {"k": "4", "m": "2"})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         create_codec("isa", k="4", m="2")
+    for plugin, profile in (("jerasure", {"technique": "liberation"}),
+                            ("lrc", {"k": "4", "m": "2", "l": "3"}),
+                            ("xor", {"k": "3"})):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            registry.factory(plugin, profile)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Checksummer("crc32c", 4096)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -112,15 +117,19 @@ def test_codec_without_device_refuses_host_input():
 def test_kernel_wrappers_never_run_plain_for_a_device_tensor():
     from ceph_tpu_torch.checksum.cuda_crc import crc32c_blocks
     from ceph_tpu_torch.gf import gf_matrix_to_bitmatrix, isa_rs_matrix
-    from ceph_tpu_torch.ops import cuda_encode
+    from ceph_tpu_torch.ops import cuda_encode, cuda_xor
 
     bm = gf_matrix_to_bitmatrix(isa_rs_matrix(4, 2)[4:])
+    rows = ((0, 1), (2, 3))
     meta = torch.empty((2, 4, 4096), dtype=torch.uint8, device="meta")
     for call in (
         lambda: cuda_encode.gf_apply(bm, meta),
         lambda: cuda_encode.gf_apply_shards(bm, list(meta.unbind(1))),
         lambda: cuda_encode.gf_apply_csum(bm, meta, 1024),
         lambda: crc32c_blocks(meta[:, 0], 0),
+        lambda: cuda_xor.xor_schedule_apply(rows, meta),
+        lambda: cuda_xor.xor_schedule_apply_shards(
+            rows, list(meta.unbind(1)), 1),
     ):
         with pytest.raises(ValueError, match="unsupported device"):
             call()

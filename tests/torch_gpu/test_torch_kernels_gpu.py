@@ -109,3 +109,142 @@ def test_codec_routes_on_the_card(cuda):
     assert all(torch.equal(pk[j], pp[j]) for j in pk)
     assert np.array_equal(ck, cp)
     assert torch.equal(dk[0], data[0]) and torch.equal(dp[9], pk[9])
+
+
+# ------------------------------------------------------------- Kernel D
+def _liberation(k=6, w=7):
+    from ceph_tpu_torch.codecs import registry
+
+    return registry.factory(
+        "jerasure",
+        {"technique": "liberation", "k": str(k), "m": "2", "w": str(w)},
+        device="cuda",
+    )
+
+
+def _xor_cases():
+    """(label, 0/1 matrix, w) for Kernel D: liberation encode, its
+    inverted decode for lost {1, 4}, a one-column delta, a dense random
+    matrix (many scratch slots), an empty row and the w=1 rows."""
+    from ceph_tpu_torch.codecs.bitmatrix_codec import liberation_bitmatrix
+
+    enc = np.frombuffer(liberation_bitmatrix(6, 7), np.uint8).reshape(14, 42)
+    codec = _liberation()
+    present = [0, 2, 3, 5, 6, 7]
+    dec = codec._build_decode_bitmatrix(present, [1, 4])
+    rng = np.random.default_rng(5)
+    dense = (rng.random((56, 56)) < 0.5).astype(np.uint8)
+    empty = enc.copy()
+    empty[3] = 0
+    return [
+        ("liberation encode", enc, 7),
+        ("liberation decode {1,4}", dec, 7),
+        ("liberation delta col 3", np.ascontiguousarray(enc[:, 21:28]), 7),
+        ("dense 56x56", dense, 8),
+        ("empty row", empty, 7),
+        ("all-ones w=1", np.ones((1, 5), np.uint8), 1),
+    ]
+
+
+@pytest.mark.parametrize("p", [2048, 1003, 147456])
+@pytest.mark.parametrize("case", range(6))
+@pytest.mark.parametrize("opt", [True, False])
+def test_xor_schedule_matches_plain(cuda, p, case, opt):
+    from ceph_tpu_torch.ops import cuda_xor
+    from ceph_tpu_torch.ops import xor_schedule as xs
+
+    label, mat, w = _xor_cases()[case]
+    sched = xs.optimize_schedule(mat) if opt else xs.schedule_rows(mat)
+    rows, cols = mat.shape
+    packets = _data((3, cols, p), seed=case).to(cuda)
+    want = xs.xor_schedule_plain(sched, packets)
+    assert torch.equal(cuda_xor.xor_schedule_apply(sched, packets), want)
+    shards = [packets[:, i * w:(i + 1) * w].reshape(3, w * p).contiguous()
+              for i in range(cols // w)]
+    got = cuda_xor.xor_schedule_apply_shards(sched, shards, w)
+    assert len(got) == rows // w
+    for j, o in enumerate(got):
+        assert torch.equal(o, want[:, j * w:(j + 1) * w].reshape(3, w * p))
+    torch.cuda.synchronize()
+
+
+def test_xor_schedule_unaligned_views(cuda):
+    """Shards at odd byte offsets take the byte-load path."""
+    from ceph_tpu_torch.ops import cuda_xor
+    from ceph_tpu_torch.ops import xor_schedule as xs
+
+    mat = np.ones((1, 3), np.uint8)
+    base = _data((4, 3 * 1001 + 1)).to(cuda)
+    shards = [base[:, 1 + i * 1001:1 + (i + 1) * 1001] for i in range(3)]
+    (got,) = cuda_xor.xor_schedule_apply_shards(
+        xs.optimize_schedule(mat), shards, 1)
+    assert torch.equal(got, shards[0] ^ shards[1] ^ shards[2])
+
+
+def test_liberation_encode_on_card_moves_sched_counters(cuda):
+    from ceph_tpu_torch import kernels
+    from ceph_tpu_torch.codecs.matrix_codec import dispatch_counters
+
+    codec = _liberation()
+    data = {i: _data((2, 7 * 2048), seed=i).to(cuda) for i in range(6)}
+    counters = dispatch_counters()
+    counters.reset()
+    before = kernels.XOR_SCHEDULE.launches
+    parity = codec.encode_chunks(data)
+    assert kernels.XOR_SCHEDULE.launches == before + 1
+    got = counters.dump()
+    assert got["sched_encode"] == 1 and got["plain_encode"] == 0
+    from ceph_tpu_torch.codecs import registry
+
+    ref = registry.factory("jerasure", dict(codec.profile), device="cpu")
+    want = ref.encode_chunks({i: v.cpu() for i, v in data.items()})
+    for j in want:
+        assert torch.equal(parity[j].cpu(), want[j])
+    # host-staged input above the threshold: the packetized form
+    host = {i: v.cpu().numpy() for i, v in data.items()}
+    from ceph_tpu_torch.utils import config
+
+    with config.override(ec_host_dispatch_bytes=0):
+        staged = codec.encode_chunks(host)
+    assert counters.dump()["sched_encode"] == 2
+    for j in want:
+        assert torch.equal(staged[j].cpu(), want[j])
+
+
+def test_lrc_xor_local_repair_on_card(cuda):
+    from ceph_tpu_torch.codecs import registry
+    from ceph_tpu_torch.codecs.matrix_codec import dispatch_counters
+
+    codec = registry.factory(
+        "lrc", {"k": "4", "m": "2", "l": "3", "local_parity": "xor"},
+        device="cuda")
+    data = {i: _data((4, 65536), seed=i).to(cuda) for i in range(4)}
+    parity = codec.encode_chunks(data)
+    full = {**data, **parity}
+    plan = codec.minimum_to_decode({0}, set(range(8)) - {0})
+    assert len(plan) == 3
+    counters = dispatch_counters()
+    counters.reset()
+    out = codec.decode_chunks({0}, {s: full[s] for s in plan})
+    assert counters.dump()["sched_decode"] == 1
+    assert torch.equal(out[0], data[0])
+
+
+def test_ec_use_sched_off_takes_the_apply_kernel(cuda):
+    """0/1 byte matrices ride Kernel D by default and Kernel A with
+    ec_use_sched off, to the same bytes."""
+    from ceph_tpu_torch.codecs import registry
+    from ceph_tpu_torch.codecs.matrix_codec import dispatch_counters
+    from ceph_tpu_torch.utils import config
+
+    codec = registry.factory("xor", {"k": "4"}, device="cuda")
+    data = {i: _data((2, 8192), seed=i).to(cuda) for i in range(4)}
+    counters = dispatch_counters()
+    counters.reset()
+    sched = codec.encode_chunks(data)
+    with config.override(ec_use_sched=False):
+        kern = codec.encode_chunks(data)
+    got = counters.dump()
+    assert got["sched_encode"] == 1 and got["kernel_encode"] == 1
+    assert torch.equal(sched[4], kern[4])
+    assert torch.equal(sched[4], data[0] ^ data[1] ^ data[2] ^ data[3])
