@@ -11,8 +11,9 @@ GF(2^8) matrix engine (``matrix_codec``), the packet bit-matrix engine
   cauchy_orig, cauchy_good, liberation, blaum_roth, liber8tion)
 - ``xor``: single XOR parity
 - ``lrc``: layered locally repairable codes (kml and explicit layers)
+- ``clay``: coupled-layer MSR codes with fractional single-chunk repair
 
-shec and clay are still to be ported (ROADMAP.md).
+shec is still to be ported (ROADMAP.md).
 """
 
 from .interface import (  # noqa: F401
@@ -29,6 +30,7 @@ from .registry import (  # noqa: F401
 
 # Register in-tree plugins (the analog of osd_erasure_code_plugins
 # preload — global.yaml.in:2638).
+from . import clay as _clay  # noqa: E402,F401
 from . import isa as _isa  # noqa: E402,F401
 from . import jerasure as _jerasure  # noqa: E402,F401
 from . import lrc as _lrc  # noqa: E402,F401

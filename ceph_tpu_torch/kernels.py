@@ -160,4 +160,16 @@ XOR_SCHEDULE = Kernel(
     [_P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _L, _L],
 )
 
-ALL = (GF_APPLY, GF_APPLY_CSUM, CRC32C_BLOCKS, XOR_SCHEDULE)
+#: Kernel E — CLAY repair stage a, uncoupled values (csrc/clay_repair.cu)
+CLAY_UNCOUPLED = Kernel(
+    "clay_repair", "clay_uncoupled",
+    [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _L, _L, _L, _P],
+)
+#: Kernel F — CLAY repair stage c, couple and scatter (csrc/clay_repair.cu)
+CLAY_COUPLE_SCATTER = Kernel(
+    "clay_repair", "clay_couple_scatter",
+    [_P, _P, _P, _P, _I, _I, _P, _P, _L, _L, _L, _L, _L, _P],
+)
+
+ALL = (GF_APPLY, GF_APPLY_CSUM, CRC32C_BLOCKS, XOR_SCHEDULE, CLAY_UNCOUPLED,
+       CLAY_COUPLE_SCATTER)

@@ -49,6 +49,9 @@ class ShardExtentMap:
         if arr.size == 0:
             return
         runs = self._bufs.setdefault(shard, [])
+        if not runs or runs[-1][0] + runs[-1][1].size < offset:
+            runs.append((offset, arr))  # past every run: nothing merges
+            return
         new_start, new_end = offset, offset + arr.size
         merged_start, merged_end = new_start, new_end
         keep: list[tuple[int, np.ndarray]] = []

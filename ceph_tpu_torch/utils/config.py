@@ -117,6 +117,16 @@ OPTIONS: tuple[Option, ...] = (
         see_also=("ec_use_sched",),
     ),
     Option(
+        "ec_clay_kernels", bool, True,
+        desc="serve CLAY fractional repair of tensors with the "
+             "hand-written CUDA repair kernels (csrc/clay_repair.cu: "
+             "uncoupled values, then couple + scatter; any geometry) "
+             "around one GF(2^8) apply per intersection-score group; "
+             "CPU tensors run their plain PyTorch versions. Off runs "
+             "the whole-tensor (no aloof helper) or itemized PyTorch "
+             "routes on the tensors' device",
+    ),
+    Option(
         "ec_host_dispatch_bytes", int, 1 << 20,
         desc="host-array ops at or below this many input bytes encode/"
              "decode on the host GF tables instead of the device "

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``ceph_tpu_torch``) on one card.
 
-Drives two paths through the package's public entry points, at
+Drives three paths through the package's public entry points, at
 BlueStore's 4 KiB csum block, each counted on its own:
 
 1. set-up: the card's name and power limit; build every kernel in
@@ -28,7 +28,21 @@ BlueStore's 4 KiB csum block, each counted on its own:
    (encode, ``minimum_to_decode`` of one lost chunk, its local repair
    through ``decode_chunks``); and the v1 corpus entries liberation
    k=6 w=7, blaum_roth k=4 and liber8tion k=8, encoded and one
-   2-erasure decode each.
+   2-erasure decode each;
+5. the CLAY path, CLAY(8,4,d=11) over 64 objects of 4 MiB (Ceph's
+   default object size, one stripe each): ``encode_chunks`` on CUDA
+   tensors (checked against the host path on 2 objects), the
+   host-staged write (``ShardExtentMap.encode`` with HashInfo), the
+   fractional repair of every chunk from its d=11 helpers' 16 of 64
+   sub-chunks gathered on the card, the CLAY(8,4,d=10) repair of
+   chunks {0, 7, 8, 11} with one aloof helper, the degraded read of
+   shard 9 through ``get_min_avail_to_read_shards`` and
+   ``reconstruct_shards`` (11/32 of a naive decode's bytes), the
+   decode of {0, 8}, the repair time against a naive RS(8,4) decode of
+   the same chunk (``clay_repair_time_vs_naive``), and the clay corpus
+   (v0 and v2): encode and repair of chunks 0 and n-1. Kernels E and F
+   (phase 2) are held against their plain versions over four
+   geometries x five sub-chunk sizes x two stripe counts.
 
 Kernel launch counts and the ``ec_dispatch`` / ``checksum.backends``
 counters are zeroed just before each path and read just after it: every
@@ -81,6 +95,31 @@ LIB_CORPUS = [
     )
 ]
 
+# the CLAY path: 64 RADOS objects of 4 MiB (Ceph's default object size),
+# one stripe each
+CLAY_PROFILE = {"k": "8", "m": "4", "d": "11"}  # q=4 t=3, 64 sub-chunks
+CLAY_GENERAL = {"k": "8", "m": "4", "d": "10"}  # q=3 t=4, one aloof helper
+CLAY_OBJECTS = 64
+OBJECT_BYTES = 4 * MIB
+CLAY_LOST = 9  # the degraded read's shard and the naive comparator's
+CLAY_GENERAL_LOST = (0, 7, 8, 11)
+CLAY_CORPUS = [ROOT / "tests/corpus/v0/clay/clay_d=5_k=4_m=2"] + [
+    ROOT / "tests/corpus/v2/clay" / name for name in (
+        "clay_d=10_k=8_m=4", "clay_d=5_k=4_m=2", "clay_d=6_k=4_m=3",
+        "clay_d=7_k=6_m=3",
+    )
+]
+#: Kernels E and F against their plain versions: (profile, lost chunks)
+#: x sub-chunk bytes x stripes
+CLAY_KERNEL_CASES = [
+    (CLAY_PROFILE, (0, 9)),
+    (CLAY_GENERAL, (0, 8)),
+    ({"k": "6", "m": "3", "d": "7"}, (0, 6)),  # nu = 1: virtual members
+    ({"k": "8", "m": "4", "d": "9"}, (0, 11)),  # two aloof helpers
+]
+CLAY_KERNEL_SC = (8192, 6528, 128, 8, 1003)
+CLAY_KERNEL_B = (64, 3)
+
 KERNEL_INFO = {
     "gf_apply": (
         "ceph_tpu_torch/csrc/gf_apply.cu",
@@ -97,6 +136,14 @@ KERNEL_INFO = {
     "xor_schedule": (
         "ceph_tpu_torch/csrc/xor_schedule.cu",
         "ceph_tpu/ops/xor_schedule.py:460; ceph_tpu/ops/xor_schedule.py:640",
+    ),
+    "clay_uncoupled": (
+        "ceph_tpu_torch/csrc/clay_repair.cu",
+        "ceph_tpu/ops/clay_kernels.py:283",
+    ),
+    "clay_couple_scatter": (
+        "ceph_tpu_torch/csrc/clay_repair.cu",
+        "ceph_tpu/ops/clay_kernels.py:369",
     ),
 }
 
@@ -879,6 +926,328 @@ def schedule_path(rng, dev) -> Counted:
     return counted
 
 
+def clay_repair_plan(codec, lost):
+    """(kernel plan, helper plan) of the repair of chunk ``lost`` from
+    exactly d helpers: the first d survivors, or the last d when those
+    miss a member of the lost chunk's group (the reference tests'
+    choice); the survivors left out are the aloof nodes."""
+    n = codec.get_chunk_count()
+    avail = sorted(set(range(n)) - {lost})[:codec.d]
+    if not codec.is_repair({lost}, set(avail)):
+        avail = sorted(set(range(n)) - {lost})[-codec.d:]
+    helpers = codec.minimum_to_decode({lost}, set(avail))
+    aloof = frozenset(codec._to_node(c) for c in range(n)
+                      if c != lost and c not in helpers)
+    return codec._kernel_plan(codec._to_node(lost), aloof), helpers
+
+
+def gather_subchunks(chunk, runs, sub_chunks: int):
+    """A helper's repair bytes: the (index, count) sub-chunk runs of a
+    [..., chunk] tensor, concatenated in plane order, on its device."""
+    import torch
+
+    lead, n = tuple(chunk.shape[:-1]), int(chunk.shape[-1])
+    planes = torch.tensor([z for i, c in runs for z in range(i, i + c)],
+                          device=chunk.device)
+    view = chunk.reshape(lead + (sub_chunks, n // sub_chunks))
+    return view.index_select(len(lead), planes).reshape(lead + (-1,))
+
+
+def clay_vs_plain(rng, dev) -> dict:
+    """Phase 2, Kernels E and F: each against its plain version, byte for
+    byte, over the plans of CLAY_KERNEL_CASES x CLAY_KERNEL_SC x
+    CLAY_KERNEL_B; then timed at the main path's shape (CLAY(8,4,d=11),
+    lost chunk 9, 64 stripes of 8 KiB sub-chunks)."""
+    from ceph_tpu_torch.codecs import registry
+    from ceph_tpu_torch.ops import clay_repair as cr
+
+    out = {name: {"max_abs_err": 0}
+           for name in ("clay_uncoupled", "clay_couple_scatter")}
+
+    def note(name, got, want, what):
+        err = max((max_err(g, w) for g, w in zip(got, want)), default=0)
+        check(len(got) == len(want), f"{name} {what}: {len(got)} outputs, "
+              f"want {len(want)}")
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+        check(err == 0, f"{name} {what} disagrees with its plain version")
+        return err
+
+    def args(profile, lost, sc, b):
+        codec = registry.factory("clay", profile, device=dev)
+        plan, _ = clay_repair_plan(codec, lost)
+        q, r = codec.q, codec.sub_chunk_no // codec.q
+        x_l = codec._to_node(lost) % q
+        n_real = sum(k == "r" for row in plan["kinds"] for k in row)
+        n_help = sum(1 for x in range(q)
+                     if x != x_l and plan["lost_kinds"][x] == "r")
+        a = (q, plan["strides"], plan["kinds"], plan["pair_fwd"],
+             [rand_on(rng, dev, (b, r * sc)) for _ in range(n_real)], r, sc)
+        c = (q, x_l, plan["lost_kinds"], plan["pair_inv"],
+             [rand_on(rng, dev, (b, r * sc)) for _ in range(q)],
+             [rand_on(rng, dev, (b, r * sc)) for _ in range(n_help)],
+             plan["seq"], r, sc)
+        return a, c
+
+    for profile, losts in CLAY_KERNEL_CASES:
+        for lost in losts:
+            for sc in CLAY_KERNEL_SC:
+                for b in CLAY_KERNEL_B:
+                    a, c = args(profile, lost, sc, b)
+                    what = (f"k={profile['k']} m={profile['m']} "
+                            f"d={profile['d']} lost {lost} sc={sc} B={b}")
+                    e1 = note("clay_uncoupled", cr.uncoupled_rows(*a),
+                              cr.uncoupled_rows_plain(*a), what)
+                    e2 = note("clay_couple_scatter", [cr.couple_scatter(*c)],
+                              [cr.couple_scatter_plain(*c)], what)
+                    print(f"  clay kernels {what}: max_abs_err E {e1}, "
+                          f"F {e2}")
+                    del a, c
+
+    # the main path's shape: E reads 8 helpers and writes 8 U arrays of
+    # [64, 16 x 8192]; F reads 4 U + 3 helpers and writes [64, 64 x 8192]
+    sc = OBJECT_BYTES // int(CLAY_PROFILE["k"]) // 64
+    a, c = args(CLAY_PROFILE, CLAY_LOST, sc, CLAY_OBJECTS)
+    row_bytes = CLAY_OBJECTS * a[5] * sc
+    moved = {
+        "clay_uncoupled": (len(a[4]) + sum(
+            k != "a" for row in a[2] for k in row)) * row_bytes,
+        "clay_couple_scatter": (len(c[4]) + len(c[5]) + c[0]) * row_bytes,
+    }
+    timed = {
+        "clay_uncoupled": (lambda: cr.uncoupled_rows(*a),
+                           lambda: cr.uncoupled_rows_plain(*a),
+                           "clay_uncoupled_kernel"),
+        "clay_couple_scatter": (lambda: cr.couple_scatter(*c),
+                                lambda: cr.couple_scatter_plain(*c),
+                                "clay_couple_scatter_kernel"),
+    }
+    for name, (fn, plain, symbol) in timed.items():
+        out[name].update(
+            ms=kernel_ms(fn, 20, symbol), call_ms=time_ms(fn, 20),
+            plain_ms=time_ms(plain, 3),
+            bound_ms=moved[name] / H100_BYTES_PER_S * 1e3,
+        )
+        row = out[name]
+        print(f"  {name}: {row['ms']:.4f} ms kernel (profiler), "
+              f"{row['call_ms']:.4f} ms a call (events), "
+              f"{row['plain_ms']:.3f} ms plain, bound "
+              f"{row['bound_ms']:.4f} ms (bytes: {moved[name]})")
+    return out
+
+
+def clay_path(rng, dev) -> Counted:
+    """The CLAY path, CLAY(8,4,d=11) over 64 objects of 4 MiB: the
+    device-resident encode, the host-staged write with HashInfo, the
+    fractional repair of every chunk, the general-d (8,4,d=10) repair
+    with an aloof helper, the degraded read of shard 9 through
+    ``reconstruct_shards``, a two-erasure decode, the naive RS(8,4)
+    comparator and the clay corpus, counted; then the outputs checked."""
+    import torch
+
+    from ceph_tpu_torch.checksum.crc32c import crc32c_chain, crc32c_fold_plain
+    from ceph_tpu_torch.codecs import registry
+    from ceph_tpu_torch.pipeline import (
+        ExtentSet,
+        HashInfo,
+        ShardExtentMap,
+        StripeInfo,
+    )
+    from ceph_tpu_torch.pipeline.read import (
+        get_min_avail_to_read_shards,
+        reconstruct_shards,
+    )
+    from ceph_tpu_torch.utils import config
+    from ceph_tpu_torch.utils.device import to_numpy
+
+    cpu = registry.factory("clay", CLAY_PROFILE, device="cpu")
+    k, m, n, d = cpu.k, cpu.m, cpu.k + cpu.m, cpu.d
+    chunk = cpu.get_chunk_size(OBJECT_BYTES)  # 512 KiB
+    subs = cpu.get_sub_chunk_count()
+    objs = CLAY_OBJECTS
+    payload = rng.integers(0, 256, (objs, k, chunk), dtype=np.uint8)
+    by_shard = np.ascontiguousarray(payload.transpose(1, 0, 2))
+    streams = by_shard.reshape(k, objs * chunk)
+    sinfo = StripeInfo(k, m, k * chunk)
+    shard_bytes = objs * chunk
+    object_size = k * shard_bytes
+    dev_data = torch.from_numpy(by_shard).to(dev)  # shard i: [objs, chunk]
+    gen = registry.factory("clay", CLAY_GENERAL, device="cpu")
+    chunk10 = gen.get_chunk_size(OBJECT_BYTES)  # 528,768 B
+    dev10 = torch.from_numpy(rng.integers(
+        0, 256, (k, objs, chunk10), dtype=np.uint8)).to(dev)
+    corpus = []
+    for entry in CLAY_CORPUS:
+        meta = json.loads((entry / "profile.json").read_text())
+        nc = int(meta["profile"]["k"]) + int(meta["profile"]["m"])
+        corpus.append((entry.parent.parent.name + "/" + entry.name, meta,
+                       (entry / "payload.bin").read_bytes(),
+                       {i: (entry / f"chunk.{i}").read_bytes()
+                        for i in range(nc)}))
+
+    with Counted("clay") as counted:
+        codec = registry.factory("clay", CLAY_PROFILE, device="cuda")
+        with Phase("clay_encode_device_resident", object_size):
+            par = codec.encode_chunks({i: dev_data[i] for i in range(k)})
+        full = {**{i: dev_data[i] for i in range(k)}, **par}
+
+        smap = ShardExtentMap(sinfo)
+        for r in range(k):
+            smap.insert(r, 0, streams[r])
+        hinfo = HashInfo(n, device="cuda")
+        with Phase("clay_write_host_staged", object_size):
+            smap.encode(codec, hinfo, csum_block=CSUM_BLOCK)
+        stored = {s: smap.get(s, 0, shard_bytes) for s in range(n)}
+
+        # every chunk lost in turn, its d helpers' sub-chunks gathered on
+        # the card
+        plans, repaired = {}, {}
+        helper9 = None
+        read_bytes = d * objs * chunk // cpu.q
+        with Phase("clay_repair_every_chunk", n * read_bytes):
+            for lost in range(n):
+                plans[lost] = codec.minimum_to_decode(
+                    {lost}, set(range(n)) - {lost})
+                helpers = {s: gather_subchunks(full[s], runs, subs)
+                           for s, runs in plans[lost].items()}
+                repaired[lost] = codec.repair({lost}, helpers)[lost]
+                if lost == CLAY_LOST:
+                    helper9 = helpers
+
+        codec10 = registry.factory("clay", CLAY_GENERAL, device="cuda")
+        with Phase("clay_d10_encode_device_resident", dev10.numel()):
+            par10 = codec10.encode_chunks({i: dev10[i] for i in range(k)})
+        full10 = {**{i: dev10[i] for i in range(k)}, **par10}
+        plans10, repaired10 = {}, {}
+        with Phase("clay_d10_repair_aloof",
+                   len(CLAY_GENERAL_LOST) * codec10.d * objs * chunk10
+                   // codec10.q):
+            for lost in CLAY_GENERAL_LOST:
+                _, plans10[lost] = clay_repair_plan(codec10, lost)
+                helpers = {s: gather_subchunks(full10[s], runs,
+                                               codec10.sub_chunk_no)
+                           for s, runs in plans10[lost].items()}
+                repaired10[lost] = codec10.repair({lost}, helpers)[lost]
+
+        want = {CLAY_LOST: ExtentSet([(0, shard_bytes)])}
+        with Phase("clay_degraded_read_reconstruct", read_bytes):
+            reads, need_decode = get_min_avail_to_read_shards(
+                sinfo, codec, want, set(range(n)) - {CLAY_LOST})
+            result = ShardExtentMap(sinfo)
+            for s, sr in reads.items():
+                for lo, hi in sr.extents:
+                    result.insert(s, lo, smap.get(s, lo, hi - lo))
+            reconstruct_shards(sinfo, codec, result, want, reads,
+                               object_size)
+        rebuilt = result.get(CLAY_LOST, 0, shard_bytes)
+
+        erased = (0, 8)
+        with Phase("clay_decode_two_erasures", object_size):
+            decoded = codec.decode_chunks(
+                set(erased), {i: v for i, v in full.items()
+                              if i not in erased})
+
+        # the naive comparator: RS(8,4) rebuilds chunk 9 from k whole
+        # chunks (bench.py's decode1 against clay_repair_time_vs_naive)
+        rs = registry.factory("jerasure", {"technique": "reed_sol_van",
+                                           "k": "8", "m": "4"}, device="cuda")
+        rs_full = {**{i: dev_data[i] for i in range(k)},
+                   **rs.encode_chunks({i: dev_data[i] for i in range(k)})}
+        rs_in = {i: rs_full[i] for i in range(1, k + 1)}
+        repair_ms = time_ms(lambda: codec.repair({CLAY_LOST}, helper9), 5)
+        naive_ms = time_ms(lambda: rs.decode_chunks({CLAY_LOST}, rs_in), 5)
+        naive = rs.decode_chunks({CLAY_LOST}, rs_in)[CLAY_LOST]
+
+        corpus_out = []
+        with Phase("clay_corpus", sum(len(p) for _, _, p, _ in corpus)):
+            for name, meta, cpay, want_chunks in corpus:
+                cc = registry.factory("clay", meta["profile"], device="cuda")
+                nc = cc.get_chunk_count()
+                have = {i: torch.frombuffer(bytearray(c), dtype=torch.uint8)
+                        .to(dev) for i, c in want_chunks.items()}
+                reps = {}
+                for lost in (0, nc - 1):
+                    plan = cc.minimum_to_decode({lost}, set(range(nc)) - {lost})
+                    reps[lost] = to_numpy(cc.repair({lost}, {
+                        s: gather_subchunks(have[s], runs,
+                                            cc.get_sub_chunk_count())
+                        for s, runs in plan.items()})[lost])
+                corpus_out.append((cc.encode(cpay), reps))
+    counted.check_routes(("clay_uncoupled", "clay_couple_scatter", "gf_apply",
+                          "crc32c_blocks"))
+    check(counted.dispatch["kernel_decode"] > 0,
+          "clay path ec_dispatch kernel_decode did not move")
+    ratio = repair_ms / naive_ms
+    print(f"clay repair of chunk {CLAY_LOST}: {repair_ms:.4f} ms (events), "
+          f"naive RS(8,4) decode {naive_ms:.4f} ms; "
+          f"clay_repair_time_vs_naive = {ratio:.4f}")
+    print(json.dumps({"clay_repair_time_vs_naive": ratio,
+                      "clay_repair_ms": repair_ms,
+                      "naive_decode_ms": naive_ms}))
+
+    # -- the outputs, against the source chunks and the host path -------
+    for j in range(m):
+        dev_par = to_numpy(par[k + j])
+        check(np.array_equal(stored[k + j], dev_par.reshape(-1)),
+              f"host-staged parity {k + j} differs from device-resident")
+    host_objs = 2  # the host path (numpy, host GF tables) on 2 objects
+    with config.override(ec_host_dispatch_bytes=1 << 40):
+        host_par = cpu.encode_chunks(
+            {i: np.ascontiguousarray(payload[:host_objs, i])
+             for i in range(k)})
+    for j in range(m):
+        check(isinstance(host_par[k + j], np.ndarray),
+              "the host check did not take the host path")
+        check(np.array_equal(host_par[k + j],
+                             to_numpy(par[k + j][:host_objs])),
+              f"device parity {k + j} differs from the host path")
+    full_host = np.stack([stored[s] for s in range(n)])
+    full_dev = torch.from_numpy(full_host).to(dev)
+    for s in range(n):
+        c0 = crc32c_fold_plain(full_dev[s].reshape(-1, CSUM_BLOCK), 0)
+        check(hinfo.get_chunk_hash(s) ==
+              crc32c_chain(0xFFFFFFFF, to_numpy(c0), CSUM_BLOCK),
+              f"HashInfo of shard {s} differs from the plain fold")
+    for lost in range(n):
+        runs = plans[lost]
+        check(len(runs) == d and all(
+            sum(c for _, c in r) == subs // cpu.q for r in runs.values()),
+            f"repair plan of {lost}: {len(runs)} helpers, want {d} with "
+            f"{subs // cpu.q} of {subs} sub-chunks each")
+        check(torch.equal(repaired[lost], full[lost]),
+              f"repair of chunk {lost} differs from the source chunk")
+    for lost in CLAY_GENERAL_LOST:
+        check(len(plans10[lost]) == codec10.d and
+              len(set(range(n)) - {lost} - set(plans10[lost])) == 1,
+              f"d=10 repair of {lost} has no aloof helper")
+        check(torch.equal(repaired10[lost], full10[lost]),
+              f"d=10 repair of chunk {lost} differs from the source chunk")
+    runs9 = codec.get_repair_subchunks(codec._to_node(CLAY_LOST))
+    helper_bytes = sum(sr.extents.size() for sr in reads.values())
+    check(need_decode and len(reads) == d and all(
+        sr.subchunks == runs9 for sr in reads.values()),
+        "the degraded read plan carries no repair sub-chunk selectors")
+    check(helper_bytes * 32 == k * shard_bytes * 11,
+          f"degraded read reads {helper_bytes} B, want 11/32 of "
+          f"{k * shard_bytes}")
+    check(np.array_equal(rebuilt, stored[CLAY_LOST]),
+          "reconstruct_shards rebuilt shard 9 wrong")
+    for s in erased:
+        check(torch.equal(decoded[s], full[s]), f"decode of {s} wrong")
+    check(torch.equal(naive, rs_full[CLAY_LOST]), "naive RS decode wrong")
+    for (name, _, _, want_chunks), (now, reps) in zip(corpus, corpus_out):
+        for i, c in want_chunks.items():
+            check(now[i] == c, f"corpus {name} chunk {i} differs")
+        for lost, got in reps.items():
+            check(got.tobytes() == want_chunks[lost],
+                  f"corpus {name} repair of {lost} differs")
+    print(f"clay outputs: encode (device, host-staged, host path), repair of "
+          f"all {n} chunks, d=10 repair of {list(CLAY_GENERAL_LOST)}, "
+          f"reconstruct_shards (reads {helper_bytes} B = 11/32 of naive), "
+          f"decode {list(erased)}, HashInfo and {len(corpus)} corpus entries "
+          "all byte-exact")
+    return counted
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -917,12 +1286,15 @@ def main(argv=None) -> int:
     print("kernel vs plain on the card:")
     rows = kernel_vs_plain(rng, dev)
     rows["xor_schedule"] = xor_vs_plain(rng, dev)
+    rows.update(clay_vs_plain(rng, dev))
     torch.cuda.empty_cache()
 
     # -- 3.. the main paths, each counted --------------------------------
     paths = [isa_path(rng, dev)]
     torch.cuda.empty_cache()
     paths.append(schedule_path(rng, dev))
+    torch.cuda.empty_cache()
+    paths.append(clay_path(rng, dev))
 
     print(json.dumps({"phases": Phase.results}))
     kern_rows = []

@@ -5,11 +5,18 @@ under ``torch.profiler`` (CPU + CUDA activities) and once under
 ``cProfile``: the ISA EC(8,4) host-staged write with fused csums and
 HashInfo, degraded read and verify; the jerasure liberation k=6 w=7
 host-staged write with HashInfo, degraded read of shards {1, 4} and the
-RMW of one chunk; and the LRC xor-local repair of one chunk on CUDA
-tensors. Prints per phase:
+RMW of one chunk; the LRC xor-local repair of one chunk on CUDA
+tensors; and CLAY(8,4,d=11) over 64 objects of 4 MiB: the encode of
+device-resident data (the layered engine, one eager op per pair
+transform), the host-staged write with HashInfo, the repair of chunk 9
+from device-resident helper sub-chunks, the degraded read of shard 9
+through ``reconstruct_shards``, the two-erasure decode {0, 8}, and the
+CLAY(8,4,d=10) repair of chunk 8 with one aloof helper. Prints per
+phase:
 
 - host-clock time, and device busy time summed over kernels and copies
-  (from the profiler's device events), hence the device idle share;
+  (from the profiler's device events), hence the device idle share, and
+  the number of device operations (kernels and copies) the phase ran;
 - the top device operations by total device time;
 - the top host functions by cumulative time (cProfile: it slows every
   Python call, so its shares lean toward call-heavy code).
@@ -39,6 +46,9 @@ LOST = (0, 3, 9, 11)
 LIB = {"technique": "liberation", "k": "6", "m": "2", "w": "7"}
 LIB_K, LIB_N, LIB_STRIPES, LIB_CHUNK = 6, 8, 16, 7 * 147456
 LIB_LOST = (1, 4)
+CLAY = {"k": "8", "m": "4", "d": "11"}
+CLAY_GENERAL = {"k": "8", "m": "4", "d": "10"}
+CLAY_OBJECTS = 64
 
 
 def phases(payload, dev_name="cuda"):
@@ -145,7 +155,94 @@ def schedule_phases(rng, dev_name="cuda"):
             "lib_rmw": lib_rmw, "lrc_local_repair": lrc_local_repair}
 
 
-def device_time_us(prof) -> tuple[float, list]:
+def clay_phases(rng, dev_name="cuda"):
+    """The CLAY path's phases, as ``phases``."""
+    import torch
+
+    from ceph_tpu_torch.codecs import registry
+    from ceph_tpu_torch.pipeline import (
+        ExtentSet,
+        HashInfo,
+        ShardExtentMap,
+        StripeInfo,
+    )
+    from ceph_tpu_torch.pipeline.read import (
+        get_min_avail_to_read_shards,
+        reconstruct_shards,
+    )
+
+    codec = registry.factory("clay", CLAY, device=dev_name)
+    gen = registry.factory("clay", CLAY_GENERAL, device=dev_name)
+    k, n, objs = 8, 12, CLAY_OBJECTS
+    chunk = codec.get_chunk_size(4 << 20)
+    sinfo = StripeInfo(k, n - k, k * chunk)
+    shard_bytes = objs * chunk
+    data = {i: torch.from_numpy(rng.integers(
+        0, 256, (objs, chunk), dtype=np.uint8)).to(dev_name)
+        for i in range(k)}
+    chunk10 = gen.get_chunk_size(4 << 20)
+    data10 = {i: torch.from_numpy(rng.integers(
+        0, 256, (objs, chunk10), dtype=np.uint8)).to(dev_name)
+        for i in range(k)}
+    full = {**data, **codec.encode_chunks(data)}
+    full10 = {**data10, **gen.encode_chunks(data10)}
+
+    def helpers(c, chunks, lost, avail):
+        out = {}
+        z = c.get_sub_chunk_count()
+        for s, runs in c.minimum_to_decode({lost}, avail).items():
+            planes = torch.tensor(
+                [p for i, cnt in runs for p in range(i, i + cnt)],
+                device=dev_name)
+            out[s] = chunks[s].reshape(objs, z, -1).index_select(
+                1, planes).reshape(objs, -1)
+        return out
+
+    help9 = helpers(codec, full, 9, set(range(n)) - {9})
+    help10 = helpers(gen, full10, 8, set(range(n)) - {8, 11})
+    streams = {i: full[i].cpu().numpy().reshape(-1) for i in range(n)}
+    state = {}
+
+    def clay_encode_device():
+        codec.encode_chunks(data)
+
+    def clay_write():
+        smap = ShardExtentMap(sinfo)
+        for r in range(k):
+            smap.insert(r, 0, streams[r])
+        smap.encode(codec, HashInfo(n, device=dev_name), csum_block=CB)
+        state["smap"] = smap
+
+    def clay_repair_device():
+        codec.repair({9}, help9)
+
+    def clay_degraded_read():
+        want = {9: ExtentSet([(0, shard_bytes)])}
+        reads, _ = get_min_avail_to_read_shards(
+            sinfo, codec, want, set(range(n)) - {9})
+        result = ShardExtentMap(sinfo)
+        for s, sr in reads.items():
+            for lo, hi in sr.extents:
+                result.insert(s, lo, state["smap"].get(s, lo, hi - lo))
+        reconstruct_shards(sinfo, codec, result, want, reads,
+                           k * shard_bytes)
+
+    def clay_decode_two():
+        codec.decode_chunks({0, 8}, {i: v for i, v in full.items()
+                                     if i not in (0, 8)})
+
+    def clay_d10_repair_aloof():
+        gen.repair({8}, help10)
+
+    return {"clay_encode_device": clay_encode_device,
+            "clay_write": clay_write,
+            "clay_repair_device": clay_repair_device,
+            "clay_degraded_read": clay_degraded_read,
+            "clay_decode_two": clay_decode_two,
+            "clay_d10_repair_aloof": clay_d10_repair_aloof}
+
+
+def device_time_us(prof) -> tuple[float, list, int]:
     """Sum of device time over the kernels and copies the card ran, and
     the top ones, from a finished torch.profiler run. Only events that
     ran on the device count: a host op's device total (aten::copy_)
@@ -164,7 +261,8 @@ def device_time_us(prof) -> tuple[float, list]:
             rows.append({"name": evt.key, "device_us": float(dev_us),
                          "count": int(evt.count)})
     rows.sort(key=lambda r: -r["device_us"])
-    return sum(r["device_us"] for r in rows), rows[:8]
+    return (sum(r["device_us"] for r in rows), rows[:8],
+            sum(r["count"] for r in rows))
 
 
 def main(argv=None) -> int:
@@ -183,6 +281,7 @@ def main(argv=None) -> int:
     )
     steps = phases(payload)
     steps.update(schedule_phases(np.random.default_rng(args.seed + 1)))
+    steps.update(clay_phases(np.random.default_rng(args.seed + 2)))
     for fn in steps.values():  # warm-up: build, caches, tables
         fn()
     torch.cuda.synchronize()
@@ -198,7 +297,7 @@ def main(argv=None) -> int:
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        busy_us, top_dev = device_time_us(prof)
+        busy_us, top_dev, ops = device_time_us(prof)
         cp = cProfile.Profile()
         cp.enable()
         fn()
@@ -209,10 +308,12 @@ def main(argv=None) -> int:
         report["phases"][name] = {
             "wall_us": wall_us, "device_busy_us": busy_us,
             "device_idle_share": 1.0 - busy_us / wall_us,
+            "device_ops": ops,
             "top_device_ops": top_dev, "cprofile_top": buf.getvalue(),
         }
         print(f"== {name}: {wall_us:.0f} us host clock, {busy_us:.0f} us "
-              f"device busy, idle share {1 - busy_us / wall_us:.3f}")
+              f"device busy, idle share {1 - busy_us / wall_us:.3f}, "
+              f"{ops} device ops")
         for row in top_dev:
             print(f"   device {row['device_us']:9.1f} us x{row['count']:<4} "
                   f"{row['name'][:70]}")

@@ -88,7 +88,8 @@ def test_default_device_entry_points_raise_without_a_card(no_card):
         create_codec("isa", k="4", m="2")
     for plugin, profile in (("jerasure", {"technique": "liberation"}),
                             ("lrc", {"k": "4", "m": "2", "l": "3"}),
-                            ("xor", {"k": "3"})):
+                            ("xor", {"k": "3"}),
+                            ("clay", {"k": "8", "m": "4", "d": "11"})):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             registry.factory(plugin, profile)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -117,7 +118,7 @@ def test_codec_without_device_refuses_host_input():
 def test_kernel_wrappers_never_run_plain_for_a_device_tensor():
     from ceph_tpu_torch.checksum.cuda_crc import crc32c_blocks
     from ceph_tpu_torch.gf import gf_matrix_to_bitmatrix, isa_rs_matrix
-    from ceph_tpu_torch.ops import cuda_encode, cuda_xor
+    from ceph_tpu_torch.ops import clay_repair, cuda_encode, cuda_xor
 
     bm = gf_matrix_to_bitmatrix(isa_rs_matrix(4, 2)[4:])
     rows = ((0, 1), (2, 3))
@@ -130,6 +131,12 @@ def test_kernel_wrappers_never_run_plain_for_a_device_tensor():
         lambda: cuda_xor.xor_schedule_apply(rows, meta),
         lambda: cuda_xor.xor_schedule_apply_shards(
             rows, list(meta.unbind(1)), 1),
+        lambda: clay_repair.uncoupled_rows(
+            2, (1,), (("r", "r"),), ((3, 2), (3, 2)),
+            list(meta[:, :2].unbind(1)), 2, 2048),
+        lambda: clay_repair.couple_scatter(
+            2, 0, ("r", "r"), ((143, 142), (142, 143)),
+            list(meta[:, :2].unbind(1)), [meta[:, 2]], 1, 2, 2048),
     ):
         with pytest.raises(ValueError, match="unsupported device"):
             call()

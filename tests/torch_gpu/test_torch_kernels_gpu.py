@@ -248,3 +248,92 @@ def test_ec_use_sched_off_takes_the_apply_kernel(cuda):
     assert got["sched_encode"] == 1 and got["kernel_encode"] == 1
     assert torch.equal(sched[4], kern[4])
     assert torch.equal(sched[4], data[0] ^ data[1] ^ data[2] ^ data[3])
+
+
+# --------------------------------------------------------- Kernels E, F
+_CLAY_CASES = [
+    ({"k": "8", "m": "4", "d": "11"}, 0), ({"k": "8", "m": "4", "d": "11"}, 9),
+    ({"k": "8", "m": "4", "d": "10"}, 0), ({"k": "8", "m": "4", "d": "10"}, 8),
+    ({"k": "6", "m": "3", "d": "7"}, 0), ({"k": "6", "m": "3", "d": "7"}, 6),
+    ({"k": "8", "m": "4", "d": "9"}, 0), ({"k": "8", "m": "4", "d": "9"}, 11),
+]
+
+
+def _clay_plan(profile, lost):
+    """(codec, kernel plan) of the repair of ``lost`` from the first d
+    survivors (the last d when those miss a member of its group)."""
+    from ceph_tpu_torch.codecs import registry
+
+    codec = registry.factory("clay", profile, device="cpu")
+    n = codec.get_chunk_count()
+    avail = sorted(set(range(n)) - {lost})[:codec.d]
+    if not codec.is_repair({lost}, set(avail)):
+        avail = sorted(set(range(n)) - {lost})[-codec.d:]
+    helpers = codec.minimum_to_decode({lost}, set(avail))
+    aloof = frozenset(codec._to_node(c) for c in range(n)
+                      if c != lost and c not in helpers)
+    return codec, codec._kernel_plan(codec._to_node(lost), aloof)
+
+
+@pytest.mark.parametrize("b", [64, 3])
+@pytest.mark.parametrize("sc", [8192, 6528, 128, 8, 1003])
+@pytest.mark.parametrize("case", range(len(_CLAY_CASES)))
+def test_clay_kernels_match_plain(cuda, case, sc, b):
+    from ceph_tpu_torch.ops import clay_repair as cr
+
+    codec, plan = _clay_plan(*_CLAY_CASES[case])
+    q, r = codec.q, codec.sub_chunk_no // codec.q
+    n_real = sum(k == "r" for row in plan["kinds"] for k in row)
+    hs = [_data((b, r * sc), seed=i).to(cuda) for i in range(n_real)]
+    args = (q, plan["strides"], plan["kinds"], plan["pair_fwd"], hs, r, sc)
+    got, want = cr.uncoupled_rows(*args), cr.uncoupled_rows_plain(*args)
+    assert len(got) == len(want)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    x_l = codec._to_node(_CLAY_CASES[case][1]) % q
+    n_help = sum(1 for x in range(q)
+                 if x != x_l and plan["lost_kinds"][x] == "r")
+    ud = [_data((b, r * sc), seed=50 + i).to(cuda) for i in range(q)]
+    lh = [_data((b, r * sc), seed=90 + i).to(cuda) for i in range(n_help)]
+    args = (q, x_l, plan["lost_kinds"], plan["pair_inv"], ud, lh,
+            plan["seq"], r, sc)
+    assert torch.equal(cr.couple_scatter(*args), cr.couple_scatter_plain(*args))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("profile,lost", [
+    ({"k": "8", "m": "4", "d": "11"}, 9), ({"k": "8", "m": "4", "d": "10"}, 3),
+])
+def test_clay_repair_on_card_moves_counters(cuda, profile, lost):
+    """A CUDA-tensor repair launches Kernels E and F once each and the
+    inner decodes on Kernel A (kernel_decode), to the source chunk."""
+    from ceph_tpu_torch import kernels
+    from ceph_tpu_torch.codecs import registry
+    from ceph_tpu_torch.codecs.matrix_codec import dispatch_counters
+
+    codec = registry.factory("clay", profile, device="cuda")
+    z = codec.get_sub_chunk_count()
+    data = {i: _data((4, z * 256), seed=i).to(cuda) for i in range(codec.k)}
+    full = {**data, **codec.encode_chunks(data)}
+    _, plan = _clay_plan(profile, lost)
+    n = codec.get_chunk_count()
+    avail = sorted(set(range(n)) - {lost})[:codec.d]
+    if not codec.is_repair({lost}, set(avail)):
+        avail = sorted(set(range(n)) - {lost})[-codec.d:]
+    helpers = {}
+    for s, runs in codec.minimum_to_decode({lost}, set(avail)).items():
+        planes = torch.tensor([p for i, c in runs for p in range(i, i + c)],
+                              device=cuda)
+        helpers[s] = full[s].view(4, z, 256).index_select(1, planes).reshape(
+            4, -1)
+    counters = dispatch_counters()
+    counters.reset()
+    before = (kernels.CLAY_UNCOUPLED.launches,
+              kernels.CLAY_COUPLE_SCATTER.launches)
+    out = codec.repair({lost}, helpers)[lost]
+    assert (kernels.CLAY_UNCOUPLED.launches,
+            kernels.CLAY_COUPLE_SCATTER.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    got = counters.dump()
+    assert got["kernel_decode"] == len(plan["groups"])
+    assert got["plain_decode"] == 0 and got["host_decode"] == 0
+    assert torch.equal(out, full[lost])
