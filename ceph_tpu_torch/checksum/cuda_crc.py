@@ -2,9 +2,10 @@
 
 The counterpart of ``ceph_tpu/checksum/pallas_crc.py``
 (``crc32c_fold_pallas``). The kernel (``csrc/crc32c.cu``) hashes
-blocks with a table-driven CRC, one warp per block, and joins its
-lanes' segments with shift matrices built here from
-``zero_gap_matrix``. A CPU tensor takes the plain fold
+blocks with a table-driven CRC, one warp per block, lane i over the
+i-th of 32 equal segments; it joins them by moving each lane's CRC to
+the end of the run with the shift matrix built here from
+``zero_gap_matrix``, then XOR-summing the lanes. A CPU tensor takes the plain fold
 (``crc32c.crc32c_fold_plain``); a CUDA tensor launches the kernel or
 raises.
 """
@@ -20,10 +21,11 @@ from .crc32c import crc32c_fold_plain, crc32c_seed_shift, shift_columns
 
 
 @functools.lru_cache(maxsize=64)
-def lane_join_matrices(seg: int) -> np.ndarray:
-    """[5, 32] uint32: shifts across seg * 2^l bytes, l = 0..4 — the
-    five levels of a warp's shuffle-tree join of 32 lane segments."""
-    return np.stack([shift_columns(seg << lvl) for lvl in range(5)])
+def lane_shift_matrices(seg: int) -> np.ndarray:
+    """[32, 32] uint32: row i shifts across (31 - i) * seg bytes — what
+    moves lane i's segment CRC to the end of a warp's 32 segments
+    before the lanes are XOR-summed."""
+    return np.stack([shift_columns((31 - i) * seg) for i in range(32)])
 
 
 def crc32c_blocks(data: torch.Tensor, init: int) -> torch.Tensor:
@@ -42,7 +44,7 @@ def crc32c_blocks(data: torch.Tensor, init: int) -> torch.Tensor:
     nblocks, block_bytes = data.shape
     out = torch.empty(nblocks, dtype=torch.int32, device=data.device)
     if nblocks:
-        mats = np.ascontiguousarray(lane_join_matrices(block_bytes // 32))
+        mats = np.ascontiguousarray(lane_shift_matrices(block_bytes // 32))
         with torch.cuda.device(data.device):
             CRC32C_BLOCKS(
                 data.data_ptr(), out.data_ptr(), nblocks, block_bytes,

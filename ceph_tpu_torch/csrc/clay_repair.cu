@@ -47,6 +47,7 @@
 #include <cstdint>
 
 #include "bytes16.cuh"
+#include "gf_word.cuh"
 
 namespace {
 
@@ -83,14 +84,6 @@ struct CoupleParams {
   long long r, sc, seq, segs;
   int vec;
 };
-
-__device__ __forceinline__ uint32_t mul2w(uint32_t x) {
-  return ((x & 0x7F7F7F7Fu) << 1) ^ (((x >> 7) & 0x01010101u) * 0x1Du);
-}
-
-__device__ __forceinline__ uint32_t div2w(uint32_t x) {
-  return ((x >> 1) & 0x7F7F7F7Fu) ^ ((x & 0x01010101u) * 0x8Eu);
-}
 
 // Every byte of x times c in GF(2^8)/0x11D.
 __device__ __forceinline__ uint32_t mulw(uint32_t x, uint32_t c) {

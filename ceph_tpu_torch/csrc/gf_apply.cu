@@ -3,42 +3,68 @@
 // ISA-L / gf-complete w=8 field).
 //
 // Kernel A (gf_apply) replaces the Pallas kernels
-//   ceph_tpu/ops/pallas_encode.py::gf_encode_bitplane_pallas (_apply_tiled)
-//   ceph_tpu/ops/pallas_encode.py::gf_encode_bitplane_pallas_shards (_shards_fn)
+//   ceph_tpu/ops/pallas_encode.py:329 gf_encode_bitplane_pallas (_apply_tiled)
+//   ceph_tpu/ops/pallas_encode.py:434 gf_encode_bitplane_pallas_shards (_shards_fn)
 // Kernel B (gf_apply_csum) replaces the fused encode+checksum kernels
-//   ceph_tpu/ops/pallas_encode.py::gf_encode_csum_bitplane_pallas (_apply_tiled_csum)
-//   ceph_tpu/ops/pallas_encode.py::gf_encode_csum_bitplane_pallas_shards (_shards_csum_fn)
+//   ceph_tpu/ops/pallas_encode.py:617 gf_encode_csum_bitplane_pallas (_apply_tiled_csum)
+//   ceph_tpu/ops/pallas_encode.py:791 gf_encode_csum_bitplane_pallas_shards (_shards_csum_fn)
 // One launcher serves the stacked and the per-shard forms: every input
 // and output row is a pointer plus a stripe stride, so a stacked
 // [B, C, N] tensor and C separate [B, N] tensors look alike here.
 //
-// Bound: device memory. The apply moves (C + R) * B * N bytes; the math
-// is R * C table lookups per byte column. The TPU had no byte lookup
-// and ran the apply as a bit-plane matmul; here a multiply by a constant
-// g is two lookups in 16-entry tables (g * low nibble, g * high nibble,
-// the ISA-L split-table form) held in shared memory. A 16-byte table
-// sits in four distinct banks, so a warp's lookups never conflict.
-// Each thread owns 16 contiguous bytes of a stripe (one uint4 per row)
-// and keeps up to four output accumulators in registers.
+// Kernel A. Bound: device memory, (C + R) * B * N bytes; at EC(8,4) the
+// multiply work per byte column (R * C products) keeps it within a
+// factor two of that bound only if each product costs a few ALU ops per
+// four bytes. The TPU ran the apply as a bit-plane matmul; the first
+// port here multiplied through split-nibble tables in shared memory,
+// two byte lookups and about four ALU ops per byte and product, which
+// made it bound by shared-memory lookups at 4.5x its byte bound. Now no
+// table: for each 32-bit word of an input row the kernel walks the
+// xtime ladder x, 2x, 4x, ... 128x on packed words (gf_word.cuh, seven
+// mul2w steps shared by all outputs), and output r takes rung i where
+// bit i of G[r][c] is set. G lies in the __grid_constant__ parameters,
+// so that test is uniform over the grid and costs no per-thread work.
+// A thread owns kVec 16-byte vectors of a stripe per row, spaced a
+// block width apart so each warp load covers 512 contiguous bytes, and
+// loads the next input row while it multiplies the current one. Up to
+// four outputs are accumulated per pass over the inputs.
+// What won, by experiments/torch_kernel_variants.py on an H100 80GB
+// HBM3: two vectors a thread (0.045 ms at EC(8,4), against a 0.030 ms
+// byte bound) over one (0.073 ms: too few bytes in flight) and four
+// (0.050 ms: 128 registers, half the resident warps). What holds it
+// back now is the ladder's integer work, not the loads, so the
+// bulk-copy ring that a memory-bound kernel would call for was not
+// built.
 //
 // Kernel B adds the zero-init CRC32C of every cb-byte window of all
 // C + R rows without a second pass over device memory: a block owns one
 // (stripe, window) and walks it in sub-tiles; each sub-tile's input and
 // output bytes are parked in shared memory, and each warp hashes rows
-// there the way crc32c.cu hashes blocks (lane segments joined by a
-// shuffle tree). Sub-tiles chain with crc(A||B) = A_len(B) crc(A) ^ crc0(B).
-// Lane segments are padded by 16 bytes in shared memory so that the
-// 16-byte reads of a quarter warp fall in distinct banks.
+// there with the slicing-by-8 tables of crc32c_common.cuh (lane segments
+// joined by a shuffle tree). Sub-tiles chain with
+// crc(A||B) = A_len(B) crc(A) ^ crc0(B). Its products still use the
+// split-nibble tables (build_mul_tables, mul_acc). Lane segments are
+// padded by 16 bytes in shared memory so that the 16-byte reads of a
+// quarter warp fall in distinct banks.
 #include <cuda_runtime.h>
 
 #include "bytes16.cuh"
 #include "crc32c_common.cuh"
+#include "gf_word.cuh"
+
+// 16-byte vectors per row a thread of Kernel A owns (the build may
+// override it to compare tile widths)
+#ifndef GF_APPLY_VEC
+#define GF_APPLY_VEC 2
+#endif
 
 namespace {
 
 constexpr int kMaxRows = 32;  // ISA caps k and m at 32 (ErasureCodeIsa.h:48-49)
 constexpr int kThreads = 256;
-constexpr int kRowGroup = 4;  // output accumulators per thread
+constexpr int kRowGroup = 4;  // output rows accumulated per pass
+constexpr int kVec = GF_APPLY_VEC;
+constexpr int kApplyTile = kThreads * 16 * kVec;  // Kernel A columns per block
 
 struct GfApplyParams {
   const uint8_t* in[kMaxRows];
@@ -97,32 +123,82 @@ __device__ __forceinline__ void mul_acc(uint4& acc, const uint8_t* t, uint4 x) {
   acc.w ^= mul_word(t, x.w);
 }
 
-// Kernel A. Block = (stripe, run of kThreads * 16 columns).
+// Kernel A, NR output rows from r0 on: one pass over the C inputs.
+template <int NR>
+__device__ __forceinline__ void apply_rows(const GfApplyParams& p, int r0, long long b,
+                                           long long col0) {
+  constexpr int W = 4 * kVec;  // words per row a thread owns
+  long long col[kVec], avail[kVec];
+  bool vec[kVec];
+#pragma unroll
+  for (int v = 0; v < kVec; ++v) {
+    col[v] = col0 + ((long long)v * kThreads + threadIdx.x) * 16;
+    avail[v] = p.N - col[v];
+    vec[v] = p.aligned && avail[v] >= 16;
+  }
+  uint32_t acc[NR][W];
+#pragma unroll
+  for (int j = 0; j < NR; ++j)
+#pragma unroll
+    for (int w = 0; w < W; ++w) acc[j][w] = 0u;
+  uint4 next[kVec];
+#pragma unroll
+  for (int v = 0; v < kVec; ++v)
+    next[v] = load16(p.in[0] + b * p.in_stride[0] + col[v], vec[v], avail[v]);
+  for (int c = 0; c < p.C; ++c) {
+    uint32_t x[W];
+#pragma unroll
+    for (int v = 0; v < kVec; ++v) {
+      x[4 * v] = next[v].x;
+      x[4 * v + 1] = next[v].y;
+      x[4 * v + 2] = next[v].z;
+      x[4 * v + 3] = next[v].w;
+    }
+    if (c + 1 < p.C) {  // the next row's loads fly during this row's math
+      const uint8_t* row = p.in[c + 1] + b * p.in_stride[c + 1];
+#pragma unroll
+      for (int v = 0; v < kVec; ++v) next[v] = load16(row + col[v], vec[v], avail[v]);
+    }
+    uint32_t g[NR];
+#pragma unroll
+    for (int j = 0; j < NR; ++j) g[j] = p.coef[(r0 + j) * p.C + c];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int j = 0; j < NR; ++j)
+        if ((g[j] >> i) & 1u)
+#pragma unroll
+          for (int w = 0; w < W; ++w) acc[j][w] ^= x[w];
+      if (i < 7)
+#pragma unroll
+        for (int w = 0; w < W; ++w) x[w] = mul2w(x[w]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NR; ++j) {
+    uint8_t* row = p.out[r0 + j] + b * p.out_stride[r0 + j];
+#pragma unroll
+    for (int v = 0; v < kVec; ++v)
+      store16(row + col[v],
+              make_uint4(acc[j][4 * v], acc[j][4 * v + 1], acc[j][4 * v + 2],
+                         acc[j][4 * v + 3]),
+              vec[v], avail[v]);
+  }
+}
+
+// Kernel A. Block = (stripe, run of kApplyTile columns).
 __global__ void __launch_bounds__(kThreads)
 gf_apply_kernel(const __grid_constant__ GfApplyParams p, long long col_blocks) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  build_mul_tables(p, smem);
-  __syncthreads();
-
   const long long b = blockIdx.x / col_blocks;
-  const long long col = ((blockIdx.x % col_blocks) * kThreads + threadIdx.x) * 16;
-  if (col >= p.N) return;
-  const long long avail = p.N - col;
-  const bool vec = p.aligned && avail >= 16;
+  const long long col0 = (blockIdx.x % col_blocks) * kApplyTile;
+  if (col0 + threadIdx.x * 16 >= p.N) return;
   for (int r0 = 0; r0 < p.R; r0 += kRowGroup) {
-    uint4 acc[kRowGroup];
-#pragma unroll
-    for (int j = 0; j < kRowGroup; ++j) acc[j] = make_uint4(0u, 0u, 0u, 0u);
-    for (int c = 0; c < p.C; ++c) {
-      uint4 x = load16(p.in[c] + b * p.in_stride[c] + col, vec, avail);
-#pragma unroll
-      for (int j = 0; j < kRowGroup; ++j)
-        if (r0 + j < p.R) mul_acc(acc[j], smem + ((r0 + j) * p.C + c) * 32, x);
+    switch (p.R - r0) {  // uniform over the grid
+      case 1: apply_rows<1>(p, r0, b, col0); break;
+      case 2: apply_rows<2>(p, r0, b, col0); break;
+      case 3: apply_rows<3>(p, r0, b, col0); break;
+      default: apply_rows<4>(p, r0, b, col0); break;
     }
-#pragma unroll
-    for (int j = 0; j < kRowGroup; ++j)
-      if (r0 + j < p.R)
-        store16(p.out[r0 + j] + b * p.out_stride[r0 + j] + col, acc[j], vec, avail);
   }
 }
 
@@ -229,10 +305,9 @@ extern "C" int gf_apply(const unsigned long long* in_ptrs, const long long* in_s
   if (C < 1 || C > kMaxRows || R < 1 || R > kMaxRows) return (int)cudaErrorInvalidValue;
   GfApplyParams p;
   fill_apply_params(p, in_ptrs, in_strides, C, out_ptrs, out_strides, R, coef, B, N);
-  const long long col_blocks = (N + kThreads * 16 - 1) / (kThreads * 16);
-  const size_t smem = (size_t)R * C * 32;
+  const long long col_blocks = (N + kApplyTile - 1) / kApplyTile;
   if (B * col_blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidConfiguration;
-  gf_apply_kernel<<<(unsigned int)(B * col_blocks), kThreads, smem,
+  gf_apply_kernel<<<(unsigned int)(B * col_blocks), kThreads, 0,
                     static_cast<cudaStream_t>(stream)>>>(p, col_blocks);
   return (int)cudaGetLastError();
 }

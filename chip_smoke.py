@@ -7,10 +7,14 @@ BlueStore's 4 KiB csum block, each counted on its own:
 1. set-up: the card's name and power limit; build every kernel in
    ``ceph_tpu_torch/csrc/`` (all sources in parallel) and print the time;
 2. every kernel against its plain PyTorch version on the card, byte for
-   byte, at the listed shapes (ragged lengths included), timed at the
-   shapes the main paths give it: the kernel's device time per launch
-   (torch.profiler; the ``ms`` of the ``{"kernels": ...}`` line), one
-   wrapper call and the plain version (CUDA events);
+   byte, at the listed shapes (ragged lengths included; Kernels A and C
+   also at the edges of their contracts: lengths around their vectors
+   and passes, C and R up to 32, one or 131 CRC blocks, rows and base
+   pointers one byte off alignment), timed at the shapes the main paths
+   give it: the kernel's device time per launch (torch.profiler; the
+   ``ms`` of the ``{"kernels": ...}`` line), one wrapper call and the
+   plain version (CUDA events); Kernel A also at the CLAY repair's
+   inner-decode shape;
 3. the ISA-L path, ``reed_sol_van`` EC(8,4): the write
    (``ShardExtentMap.encode`` of 8 stripes x 8 x 1 MiB chunks with fused
    csums and HashInfo, then ``encode_chunks_with_csums`` /
@@ -119,6 +123,10 @@ CLAY_KERNEL_CASES = [
 ]
 CLAY_KERNEL_SC = (8192, 6528, 128, 8, 1003)
 CLAY_KERNEL_B = (64, 3)
+
+#: Kernel A and C edge cases (phase 2)
+A_EDGE_N = (1, 15, 16, 17, 4095, MIB + 37)
+C_EDGE_L = (1, 31, 32, 33, 512, 1000, 4096, 65536, MIB)
 
 KERNEL_INFO = {
     "gf_apply": (
@@ -329,9 +337,10 @@ def kernel_vs_plain(rng, dev) -> dict:
     out = {name: {"max_abs_err": 0} for name in
            ("gf_apply", "gf_apply_csum", "crc32c_blocks")}
 
-    def note(name, err, what):
+    def note(name, err, what, quiet=False):
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
-        print(f"  {name} {what}: max_abs_err {err}")
+        if not quiet:
+            print(f"  {name} {what}: max_abs_err {err}")
         check(err == 0, f"{name} {what} disagrees with its plain version")
 
     gen = isa_rs_matrix(K, M)
@@ -361,6 +370,29 @@ def kernel_vs_plain(rng, dev) -> dict:
             got = torch.stack(ce.gf_apply_shards(bm, shards), dim=1)
             note("gf_apply", max_err(got, want), f"{label} N={n} shards")
             del data, want, shards, got
+    # Kernel A at the edges of its contract: lengths around its vectors
+    # and column run, C and R up to 32, rows one byte off alignment
+    edges = 0
+    for n in A_EDGE_N:
+        for c in (1, 12, 32):
+            for r in (1, 32):
+                bm = gf_matrix_to_bitmatrix(
+                    rng.integers(0, 256, (r, c), dtype=np.uint8))
+                for offset in (0, 1):
+                    data = rand((2, c, n + offset))[..., offset:]
+                    want = gf_encode_bitplane(bm, data.contiguous())
+                    what = f"edge C={c} R={r} N={n} offset {offset}"
+                    note("gf_apply", max_err(ce.gf_apply(bm, data), want),
+                         what + " stacked", quiet=True)
+                    got = torch.stack(ce.gf_apply_shards(
+                        bm, [data[:, i] for i in range(c)]), dim=1)
+                    note("gf_apply", max_err(got, want), what + " shards",
+                         quiet=True)
+                    edges += 2
+                    del data, want, got
+    print(f"  gf_apply edges: {edges} cases (N in {A_EDGE_N}, C in "
+          "{1, 12, 32}, R in {1, 32}, offsets 0 and 1, both forms): "
+          f"max_abs_err {out['gf_apply']['max_abs_err']}")
     # Kernel B at cb in {256, 4096, 65536}, stacked and per-shard
     main = rand((STRIPES, K, CHUNK))
     for cb in (256, CSUM_BLOCK, 65536):
@@ -383,6 +415,25 @@ def kernel_vs_plain(rng, dev) -> dict:
                          crc32c_fold_plain(data, init)),
                  f"L={block} init={init:#x}")
         del data
+    # Kernel C at the edges of its contract: lengths around its lane
+    # segments and staged passes, 1 block or 131 (no multiple of a
+    # block's warps), a base pointer one byte off
+    edges = 0
+    for block in C_EDGE_L:
+        for nb in (1, 131):
+            for offset in (0, 1):
+                data = rand((nb * block + offset,))[offset:].view(nb, block)
+                for init in (0, 0xFFFFFFFF, int(rng.integers(0, 1 << 32))):
+                    note("crc32c_blocks",
+                         max_err(crc32c_blocks(data, init),
+                                 crc32c_fold_plain(data, init)),
+                         f"edge L={block} blocks={nb} offset {offset} "
+                         f"init={init:#x}", quiet=True)
+                    edges += 1
+                del data
+    print(f"  crc32c_blocks edges: {edges} cases (L in {C_EDGE_L}, 1 and "
+          "131 blocks, offsets 0 and 1, three inits): max_abs_err "
+          f"{out['crc32c_blocks']['max_abs_err']}")
 
     # times at the shapes the main path gives each kernel: the kernel's
     # device time (profiler), one wrapper call (CUDA events), the plain
@@ -414,6 +465,19 @@ def kernel_vs_plain(rng, dev) -> dict:
               f"{row['call_ms']:.4f} ms a call (events), "
               f"{row['plain_ms']:.3f} ms plain, bound "
               f"{row['bound_ms']:.4f} ms (bytes)")
+    # Kernel A at the CLAY repair's inner decode: 8 U arrays of [64,
+    # 16 x 8 KiB] in, the lost row's 4 out, per-shard
+    width = 16 * (OBJECT_BYTES // int(CLAY_PROFILE["k"]) // 64)
+    clay_in = [rand((CLAY_OBJECTS, width)) for _ in range(8)]
+    dec = cases[1][1]
+    row = out["gf_apply"]
+    row["clay_decode_ms"] = kernel_ms(
+        lambda: ce.gf_apply_shards(dec, clay_in), 20, "gf_apply_kernel")
+    row["clay_decode_bound_ms"] = (12 * CLAY_OBJECTS * width
+                                   / H100_BYTES_PER_S * 1e3)
+    print(f"  gf_apply at the CLAY repair's inner decode [{CLAY_OBJECTS}, "
+          f"8 x {width}] -> 4 rows: {row['clay_decode_ms']:.4f} ms kernel "
+          f"(profiler), bound {row['clay_decode_bound_ms']:.4f} ms (bytes)")
     return out
 
 

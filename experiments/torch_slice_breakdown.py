@@ -17,6 +17,8 @@ phase:
 - host-clock time, and device busy time summed over kernels and copies
   (from the profiler's device events), hence the device idle share, and
   the number of device operations (kernels and copies) the phase ran;
+- the launches of each of the port's kernels in the host-clock run
+  (their ``launches`` counts, zeroed just before the phase);
 - the top device operations by total device time;
 - the top host functions by cumulative time (cProfile: it slows every
   Python call, so its shares lean toward call-heavy code).
@@ -286,13 +288,18 @@ def main(argv=None) -> int:
         fn()
     torch.cuda.synchronize()
 
+    from ceph_tpu_torch import kernels
+
     report = {"device": torch.cuda.get_device_name(0), "phases": {}}
     for name, fn in steps.items():
+        for kern in kernels.ALL:
+            kern.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        launches = {k.symbol: k.launches for k in kernels.ALL if k.launches}
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             fn()
@@ -308,12 +315,12 @@ def main(argv=None) -> int:
         report["phases"][name] = {
             "wall_us": wall_us, "device_busy_us": busy_us,
             "device_idle_share": 1.0 - busy_us / wall_us,
-            "device_ops": ops,
+            "device_ops": ops, "kernel_launches": launches,
             "top_device_ops": top_dev, "cprofile_top": buf.getvalue(),
         }
         print(f"== {name}: {wall_us:.0f} us host clock, {busy_us:.0f} us "
               f"device busy, idle share {1 - busy_us / wall_us:.3f}, "
-              f"{ops} device ops")
+              f"{ops} device ops; kernel launches {launches}")
         for row in top_dev:
             print(f"   device {row['device_us']:9.1f} us x{row['count']:<4} "
                   f"{row['name'][:70]}")

@@ -16,7 +16,7 @@ from ceph_tpu.checksum.pallas_crc import crc32c_fold_pallas  # noqa: E402
 from ceph_tpu_torch.checksum import crc32c as pcrc  # noqa: E402
 from ceph_tpu_torch.checksum.cuda_crc import (  # noqa: E402
     crc32c_blocks,
-    lane_join_matrices,
+    lane_shift_matrices,
 )
 from ceph_tpu_torch.utils import config  # noqa: E402
 
@@ -51,24 +51,22 @@ def test_device_entry_matches_reference(rng, block, init):
 @pytest.mark.parametrize("block", [32, 100, 4096, 65536 + 7])
 @pytest.mark.parametrize("init", INITS)
 def test_lane_join_emulation(rng, block, init):
-    """Kernel C's algorithm in numpy: 32 lane segments hashed zero-init,
-    joined by the five-level shift tree, the tail continued by lane 0,
-    the seed XORed in — equals ceph_crc32c(init, block)."""
+    """Kernel C's join in numpy: 32 lane segments hashed zero-init, each
+    moved to the end of the run by its lane's shift matrix and the lanes
+    XOR-summed, the tail continued by lane 0, the seed XORed in — equals
+    ceph_crc32c(init, block)."""
     buf = rng.integers(0, 256, block, dtype=np.uint8).tobytes()
     seg = block // 32
-    mats = lane_join_matrices(seg)
+    mats = lane_shift_matrices(seg)
 
     def apply(cols, v):
         return int(np.bitwise_xor.reduce(
             [int(cols[j]) for j in range(32) if v >> j & 1] or [0]))
 
-    lanes = [port.crc32c_ref(0, buf[i * seg : (i + 1) * seg])
-             for i in range(32)]
-    for lvl in range(5):
-        step = 1 << lvl
-        for lane in range(0, 32, 2 * step):
-            lanes[lane] = apply(mats[lvl], lanes[lane]) ^ lanes[lane + step]
-    crc = port.crc32c_ref(lanes[0], buf[32 * seg :])
+    crc = 0
+    for i in range(32):
+        crc ^= apply(mats[i], port.crc32c_ref(0, buf[i * seg : (i + 1) * seg]))
+    crc = port.crc32c_ref(crc, buf[32 * seg :])
     crc ^= pcrc.crc32c_seed_shift(block, init)
     assert crc == port.crc32c_ref(init, buf)
 

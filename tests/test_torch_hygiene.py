@@ -1,6 +1,7 @@
 """Import hygiene and device discipline of ceph_tpu_torch.
 
-- No module of the package, and not ``chip_smoke.py``, imports JAX or
+- No module of the package, and not ``chip_smoke.py`` or the port's
+  experiment scripts, imports JAX or
   anything of ceph_tpu: checked on the source (every import statement)
   and in a fresh interpreter (this suite's conftest imports JAX, so
   ``sys.modules`` is only meaningful in a subprocess). ``ceph_tpu_torch``
@@ -24,7 +25,11 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "ceph_tpu_torch"
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PKG.rglob("*.py")) + [
+    ROOT / "chip_smoke.py",
+    ROOT / "experiments" / "torch_slice_breakdown.py",
+    ROOT / "experiments" / "torch_kernel_variants.py",
+]
 
 
 def _forbidden(name: str) -> bool:

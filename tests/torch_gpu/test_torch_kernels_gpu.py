@@ -52,6 +52,25 @@ def test_gf_apply_matches_plain(cuda, c, r, n):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("c,r", [(1, 1), (1, 32), (12, 1), (12, 32), (32, 1),
+                                 (32, 32)])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 4095, (1 << 20) + 37])
+def test_gf_apply_edges(cuda, n, c, r, offset):
+    """Kernel A at the edges of its contract: lengths around its 16-byte
+    vectors and its column run, C and R up to 32, and rows one byte off
+    alignment (offset 1: the byte-load path), both forms."""
+    rng = np.random.default_rng(n + 100 * c + r)
+    bm = gf_matrix_to_bitmatrix(rng.integers(0, 256, (r, c), dtype=np.uint8))
+    base = _data((2, c, n + offset), seed=c + r).to(cuda)
+    data = base[..., offset:]
+    want = gf_encode_bitplane(bm, data.contiguous())
+    assert torch.equal(ce.gf_apply(bm, data), want)
+    got = ce.gf_apply_shards(bm, [data[:, i] for i in range(c)])
+    assert all(torch.equal(g, want[:, j]) for j, g in enumerate(got))
+    torch.cuda.synchronize()
+
+
 def test_gf_apply_decode_matrix(cuda):
     gen = isa_rs_matrix(8, 4)
     present = [1, 2, 4, 5, 6, 7, 8, 10]
@@ -81,6 +100,30 @@ def test_crc32c_blocks_matches_plain(cuda, block, init):
     assert torch.equal(
         crc32c_blocks(data, init), crc32c_fold_plain(data, init)
     )
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("nblocks", [1, 131])
+@pytest.mark.parametrize("block", [1, 31, 32, 33, 512, 1000, 4096, 65536,
+                                   1 << 20])
+def test_crc32c_edges(cuda, block, nblocks, offset):
+    """Kernel C at the edges of its contract: lengths around its lane
+    segments and staged passes, one block or a count that is no multiple
+    of a block's warps, and a base pointer one byte off (offset 1: the
+    direct byte path)."""
+    buf = _data((nblocks * block + offset,), seed=block).to(cuda)
+    data = buf[offset:].view(nblocks, block)
+    for init in (0, 0xFFFFFFFF, 0x1234ABCD):
+        assert torch.equal(crc32c_blocks(data, init),
+                           crc32c_fold_plain(data, init))
+
+
+def test_crc32c_more_blocks_than_resident_warps(cuda):
+    """The persistent grid: far more CRC blocks than warps on the card,
+    and a count no multiple of the block's warps."""
+    data = _data((132 * 16 * 4 + 5, 4096), seed=3).to(cuda)
+    assert torch.equal(crc32c_blocks(data, 0xFFFFFFFF),
+                       crc32c_fold_plain(data, 0xFFFFFFFF))
 
 
 def test_codec_routes_on_the_card(cuda):
