@@ -1,6 +1,8 @@
 // 16-byte row accesses shared by the byte-column kernels (gf_apply.cu,
 // xor_schedule.cu): one uint4 when the row is 16-byte aligned and at
-// least 16 bytes remain, else byte by byte up to the ragged row end.
+// least 16 bytes remain, else byte by byte up to the ragged row end; and
+// the 16-byte asynchronous copy into shared memory (gf_apply.cu,
+// xor_schedule.cu, crc32c.cu), both addresses 16-byte aligned.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -21,4 +23,9 @@ __device__ __forceinline__ void store16(uint8_t* p, uint4 v, bool vec, long long
   }
   const uint32_t w[4] = {v.x, v.y, v.z, v.w};
   for (int i = 0; i < 16 && i < avail; ++i) p[i] = (uint8_t)(w[i >> 2] >> (8 * (i & 3)));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
 }

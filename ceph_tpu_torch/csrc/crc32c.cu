@@ -24,15 +24,14 @@
 //   Pieces are padded by 16 bytes so a quarter warp's 16-byte reads hit
 //   distinct banks. Other blocks (unaligned base, ragged L) load bytes
 //   directly.
-// - Lookups nearly free of conflicts. Slicing-by-4 tables (T_k[e]: the
-//   register after byte e and k zero bytes) are replicated kCopies times,
-//   word ((k*256 + e)*kCopies + lane % kCopies): with 32 copies lane l
-//   always reads bank l whatever the data (128 KB), with 16 copies two
-//   lanes share a bank at most (64 KB).
-// - A one-level join. Lane i moves its segment's CRC to the end of the
-//   32-segment run with one 32x32 GF(2) matrix, A_{(31-i)*seg}, held in
-//   registers (the host builds the matrices), and a five-step XOR
-//   shuffle reduction sums the lanes.
+// - Lookups nearly free of conflicts: crc32c_common.cuh's slicing-by-4
+//   tables replicated kCopies times (with 32 copies lane l always reads
+//   bank l whatever the data, 128 KB; with 16 two lanes share a bank at
+//   most, 64 KB). Kernel B shares these tables and lookups.
+// - A one-level join (crc_lane_join). Lane i moves its segment's CRC to
+//   the end of the 32-segment run with one 32x32 GF(2) matrix,
+//   A_{(31-i)*seg}, held in registers (the host builds the matrices),
+//   and a five-step XOR shuffle reduction sums the lanes.
 // - A persistent grid of as many blocks as fit on the card at once;
 //   warps stride over CRC blocks, so the table fill is paid once per
 //   resident block, not once per eight CRC blocks.
@@ -47,6 +46,7 @@
 // No cross-block state, so blocks run in any order on any SM.
 #include <cuda_runtime.h>
 
+#include "bytes16.cuh"
 #include "crc32c_common.cuh"
 
 // The build may override these to compare designs.
@@ -64,7 +64,7 @@ namespace {
 
 constexpr int kCopies = CRC_TABLE_COPIES;
 constexpr int kWarps = CRC_WARPS;
-constexpr int kTabWords = 4 * 256 * kCopies;
+constexpr int kTabWords = crc_table_words<kCopies>();
 constexpr int kMatPitch = 33;  // padded rows: lane i's reads of row i miss no bank
 constexpr int kMaxPiece = CRC_MAX_PIECE;  // staged bytes per lane segment and pass
 constexpr int kStageBytes = 32 * (kMaxPiece + 16);  // one of a warp's two buffers
@@ -83,20 +83,12 @@ constexpr size_t smem_bytes() {
   return (size_t)kTabWords * 4 + 32 * kMatPitch * 4 + (size_t)kWarps * 2 * kStageBytes;
 }
 
-// t is the lane's copy: tab + lane % kCopies.
-__device__ __forceinline__ uint32_t tab_at(const uint32_t* t, int k, uint32_t e) {
-  return t[(k * 256 + (int)e) * kCopies];
-}
-
-// Four bytes, one little-endian word, into the register.
 __device__ __forceinline__ uint32_t step4(const uint32_t* t, uint32_t crc, uint32_t w) {
-  const uint32_t a = crc ^ w;
-  return tab_at(t, 3, a & 0xFFu) ^ tab_at(t, 2, (a >> 8) & 0xFFu) ^
-         tab_at(t, 1, (a >> 16) & 0xFFu) ^ tab_at(t, 0, a >> 24);
+  return crc_step4<kCopies>(t, crc, w);
 }
 
 __device__ __forceinline__ uint32_t step1(const uint32_t* t, uint32_t crc, uint32_t byte) {
-  return tab_at(t, 0, (crc ^ byte) & 0xFFu) ^ (crc >> 8);
+  return crc_step1<kCopies>(t, crc, byte);
 }
 
 // Continue the register over len bytes at p, loaded one by one.
@@ -107,11 +99,6 @@ __device__ __forceinline__ uint32_t hash_bytes(const uint32_t* t, uint32_t crc,
                             (uint32_t)p[3] << 24);
   for (; len > 0; --len) crc = step1(t, crc, *p++);
   return crc;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
 }
 
 // Copy one pass of the staged path into a buffer, asynchronously: unit
@@ -138,11 +125,7 @@ __device__ __forceinline__ void stage_pass(uint8_t* buf, const uint8_t* src, lon
 __device__ __forceinline__ void finish(const Crc32cParams& p, const uint32_t* t,
                                        const uint32_t (&cols)[32], long long blk,
                                        uint32_t crc) {
-  uint32_t moved = 0u;
-#pragma unroll
-  for (int j = 0; j < 32; ++j) moved ^= cols[j] & (uint32_t)((int32_t)(crc << (31 - j)) >> 31);
-#pragma unroll
-  for (int off = 16; off >= 1; off >>= 1) moved ^= __shfl_xor_sync(0xFFFFFFFFu, moved, off);
+  const uint32_t moved = crc_lane_join(cols, crc);
   if ((threadIdx.x & 31) == 0) {
     const long long seg = p.block_bytes / 32;
     crc = hash_bytes(t, moved, p.data + blk * p.block_bytes + 32 * seg,
@@ -158,20 +141,11 @@ crc32c_blocks_kernel(const __grid_constant__ Crc32cParams p) {
   uint32_t* mats = tab + kTabWords;
   uint8_t* stages = reinterpret_cast<uint8_t*>(mats + 32 * kMatPitch);
 
-  // base tables in the stage buffers, then kCopies copies of each word
-  uint32_t* base_tab = reinterpret_cast<uint32_t*>(stages);
-  for (int f = threadIdx.x; f < 4 * 256; f += blockDim.x) {
-    uint32_t c = f & 0xFF;
-    for (int bit = 0; bit < 8 * (1 + (f >> 8)); ++bit)
-      c = (c >> 1) ^ ((c & 1u) ? kCrc32cPoly : 0u);
-    base_tab[f] = c;
-  }
   for (int f = threadIdx.x; f < 32 * 32; f += blockDim.x)
     mats[(f >> 5) * kMatPitch + (f & 31)] =
         f < 31 * 32 ? p.mats[f >> 5][f & 31] : 1u << (f & 31);
-  __syncthreads();
-  for (int f = threadIdx.x; f < kTabWords; f += blockDim.x) tab[f] = base_tab[f / kCopies];
-  __syncthreads();
+  // base tables in the stage buffers, then kCopies copies of each word
+  crc_fill_tables<kCopies>(tab, reinterpret_cast<uint32_t*>(stages));
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;

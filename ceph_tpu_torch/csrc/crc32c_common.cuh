@@ -1,4 +1,5 @@
-// CRC32C building blocks shared by crc32c.cu and gf_apply.cu.
+// CRC32C building blocks shared by crc32c.cu (Kernel C) and gf_apply.cu
+// (Kernel B).
 //
 // Reflected Castagnoli polynomial, raw register in and out, no final
 // XOR: the ceph_crc32c(init, buf, len) contract. Segments are hashed
@@ -9,71 +10,57 @@
 // where A_n is the 32x32 GF(2) matrix that moves a register across n
 // zero bytes (checksum/crc32c.py::zero_gap_matrix). The host passes
 // each A_n as 32 packed columns: col[j] = A_n * e_j.
+//
+// Lookups go through slicing-by-4 tables (T_k[e]: the register after
+// byte e and k zero bytes) replicated kCopies times in shared memory,
+// word ((k * 256 + e) * kCopies + lane % kCopies): with 16 copies two
+// lanes of a warp share a bank at most, whatever the data.
 #pragma once
 
 #include <cstdint>
 
 constexpr uint32_t kCrc32cPoly = 0x82F63B78u;
-constexpr int kCrcTableWords = 8 * 256;  // slicing-by-8
 
-// Fill the slicing-by-8 tables in shared memory: t[k][i] is the
-// register after byte i followed by k zero bytes. Every thread of the
-// block must call this; it ends with __syncthreads().
-__device__ inline void crc_build_tables(uint32_t* t) {
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) {
-    uint32_t c = i;
-    for (int k = 0; k < 8; ++k) c = (c >> 1) ^ ((c & 1u) ? kCrc32cPoly : 0u);
-    t[i] = c;
+template <int kCopies>
+__host__ __device__ constexpr int crc_table_words() {
+  return 4 * 256 * kCopies;
+}
+
+// Fill the replicated tables `tab`, with `base` (1,024 words that may
+// alias memory the block uses later) as scratch for the four base
+// tables. Every thread of the block must call this; it ends with
+// __syncthreads().
+template <int kCopies>
+__device__ inline void crc_fill_tables(uint32_t* tab, uint32_t* base) {
+  for (int f = threadIdx.x; f < 4 * 256; f += blockDim.x) {
+    uint32_t c = f & 0xFF;
+    for (int bit = 0; bit < 8 * (1 + (f >> 8)); ++bit)
+      c = (c >> 1) ^ ((c & 1u) ? kCrc32cPoly : 0u);
+    base[f] = c;
   }
   __syncthreads();
-  for (int k = 1; k < 8; ++k) {
-    for (int i = threadIdx.x; i < 256; i += blockDim.x) {
-      uint32_t prev = t[(k - 1) * 256 + i];
-      t[k * 256 + i] = (prev >> 8) ^ t[prev & 0xFFu];
-    }
-    __syncthreads();
-  }
+  for (int f = threadIdx.x; f < crc_table_words<kCopies>(); f += blockDim.x)
+    tab[f] = base[f / kCopies];
+  __syncthreads();
 }
 
-// One slicing-by-8 step over 8 bytes given as two little-endian words.
-__device__ __forceinline__ uint32_t crc_step8(const uint32_t* t, uint32_t crc,
-                                              uint32_t lo, uint32_t hi) {
-  uint32_t a = crc ^ lo;
-  return t[7 * 256 + (a & 0xFFu)] ^ t[6 * 256 + ((a >> 8) & 0xFFu)] ^
-         t[5 * 256 + ((a >> 16) & 0xFFu)] ^ t[4 * 256 + (a >> 24)] ^
-         t[3 * 256 + (hi & 0xFFu)] ^ t[2 * 256 + ((hi >> 8) & 0xFFu)] ^
-         t[1 * 256 + ((hi >> 16) & 0xFFu)] ^ t[hi >> 24];
+// t is the lane's copy: tab + lane % kCopies.
+template <int kCopies>
+__device__ __forceinline__ uint32_t crc_tab_at(const uint32_t* t, int k, uint32_t e) {
+  return t[(k * 256 + (int)e) * kCopies];
 }
 
-__device__ __forceinline__ uint32_t crc_step1(const uint32_t* t, uint32_t crc,
-                                              uint32_t byte) {
-  return t[(crc ^ byte) & 0xFFu] ^ (crc >> 8);
+// Four bytes, one little-endian word, into the register.
+template <int kCopies>
+__device__ __forceinline__ uint32_t crc_step4(const uint32_t* t, uint32_t crc, uint32_t w) {
+  const uint32_t a = crc ^ w;
+  return crc_tab_at<kCopies>(t, 3, a & 0xFFu) ^ crc_tab_at<kCopies>(t, 2, (a >> 8) & 0xFFu) ^
+         crc_tab_at<kCopies>(t, 1, (a >> 16) & 0xFFu) ^ crc_tab_at<kCopies>(t, 0, a >> 24);
 }
 
-// Continue register `crc` over len bytes at p. With kAligned, p must be
-// 16-byte aligned: whole 16-byte chunks go through vector loads (two
-// slicing steps each), an 8-byte remainder through one more step, and
-// the rest byte by byte. Without it every byte is loaded on its own.
-template <bool kAligned>
-__device__ inline uint32_t crc_update(const uint32_t* t, uint32_t crc,
-                                      const uint8_t* p, long long len) {
-  if (kAligned) {
-    while (len >= 16) {
-      uint4 v = *reinterpret_cast<const uint4*>(p);
-      crc = crc_step8(t, crc, v.x, v.y);
-      crc = crc_step8(t, crc, v.z, v.w);
-      p += 16;
-      len -= 16;
-    }
-    if (len >= 8) {
-      uint2 v = *reinterpret_cast<const uint2*>(p);
-      crc = crc_step8(t, crc, v.x, v.y);
-      p += 8;
-      len -= 8;
-    }
-  }
-  for (long long i = 0; i < len; ++i) crc = crc_step1(t, crc, p[i]);
-  return crc;
+template <int kCopies>
+__device__ __forceinline__ uint32_t crc_step1(const uint32_t* t, uint32_t crc, uint32_t byte) {
+  return crc_tab_at<kCopies>(t, 0, (crc ^ byte) & 0xFFu) ^ (crc >> 8);
 }
 
 // Multiply register v by the GF(2) matrix given as 32 packed columns.
@@ -84,17 +71,16 @@ __device__ __forceinline__ uint32_t gf2_apply(const uint32_t* cols, uint32_t v) 
   return r;
 }
 
-// Join the zero-init CRCs of the 32 consecutive equal segments a warp's
-// lanes hashed (lane i holds segment i). mats[l] moves a register
-// across seg * 2^l bytes, l = 0..4. Lane 0 returns the zero-init CRC of
-// the whole 32-segment run; the other lanes' results are partial.
-__device__ inline uint32_t crc_warp_join(const uint32_t (*mats)[32], uint32_t crc) {
-  const int lane = threadIdx.x & 31;
+// The one-level join of the zero-init CRCs of 32 consecutive equal
+// segments, lane i holding segment i: each lane moves its CRC to the end
+// of the run with its own shift matrix (cols: A_{(31 - i) * seg}, the
+// identity for lane 31) and one XOR shuffle reduction sums the lanes.
+// Every lane returns the CRC of the whole run.
+__device__ __forceinline__ uint32_t crc_lane_join(const uint32_t (&cols)[32], uint32_t crc) {
+  uint32_t moved = 0u;
 #pragma unroll
-  for (int l = 0; l < 5; ++l) {
-    uint32_t right = __shfl_down_sync(0xFFFFFFFFu, crc, 1 << l);
-    uint32_t shifted = gf2_apply(mats[l], crc);
-    if ((lane & ((2 << l) - 1)) == 0) crc = shifted ^ right;
-  }
-  return crc;
+  for (int j = 0; j < 32; ++j) moved ^= cols[j] & (uint32_t)((int32_t)(crc << (31 - j)) >> 31);
+#pragma unroll
+  for (int off = 16; off >= 1; off >>= 1) moved ^= __shfl_xor_sync(0xFFFFFFFFu, moved, off);
+  return moved;
 }

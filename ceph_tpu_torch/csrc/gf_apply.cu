@@ -37,15 +37,34 @@
 // built.
 //
 // Kernel B adds the zero-init CRC32C of every cb-byte window of all
-// C + R rows without a second pass over device memory: a block owns one
-// (stripe, window) and walks it in sub-tiles; each sub-tile's input and
-// output bytes are parked in shared memory, and each warp hashes rows
-// there with the slicing-by-8 tables of crc32c_common.cuh (lane segments
-// joined by a shuffle tree). Sub-tiles chain with
-// crc(A||B) = A_len(B) crc(A) ^ crc0(B). Its products still use the
-// split-nibble tables (build_mul_tables, mul_acc). Lane segments are
-// padded by 16 bytes in shared memory so that the 16-byte reads of a
-// quarter warp fall in distinct banks.
+// C + R rows without a second pass over device memory. Bound: device
+// memory, (C + R) * B * N bytes plus the csums; on the way stand A's
+// ladder and C's table lookups, which share the integer issue slots. The
+// first port (one block per (stripe, window), split-nibble products, one
+// copy of slicing-by-8 tables) ran at 6.8x its bound and lost to A then C
+// run one after the other: every block rebuilt its tables, lookups
+// collided on banks, and the block loaded, multiplied and hashed in
+// turn with nothing in flight. Now:
+//
+// - A persistent grid, as many blocks as fit at once; a block walks
+//   items (a window, or several windows when cb is below the step) in
+//   steps of `tile` columns and builds its CRC tables once: Kernel C's
+//   slicing-by-4 tables, replicated kCsumCopies times
+//   (crc32c_common.cuh).
+// - Staged inputs, double-buffered: the next step's C input rows are
+//   copied into shared memory by cp.async while this step is multiplied
+//   and hashed. Products by A's ladder (ladder_acc) read them there, a
+//   thread taking kCsumUnit bytes of every row at a time; the R parity
+//   rows go to device memory and into a shared parity tile.
+// - The hash split evenly: each row of a step is cut into pieces of
+//   `piece` bytes, each hashed by one warp as 32 lane segments of
+//   piece / 32 bytes (from 32 bytes up padded by 16 in shared memory, so
+//   a quarter warp's 16-byte reads hit distinct banks); a warp interleaves
+//   kCsumIlp such (row, piece) tasks, lane by lane, to hide the lookup
+//   latency of its CRC registers. Lanes join with C's one-level join
+//   (per-lane shift matrices, one XOR shuffle); thread r then chains
+//   row r's pieces into the window's CRC with the piece shift matrix.
+// The host (ops/cuda_encode.py::csum_plan) picks tile and piece.
 #include <cuda_runtime.h>
 
 #include "bytes16.cuh"
@@ -57,6 +76,22 @@
 #ifndef GF_APPLY_VEC
 #define GF_APPLY_VEC 2
 #endif
+// Kernel B: threads a block, bytes of a product unit (16 or 8), hash
+// tasks a warp interleaves, bytes between padded lane segments.
+// GF_CSUM_NO_HASH / GF_CSUM_NO_PRODUCTS compile a phase out: timing-only
+// builds that say which phase holds the kernel, never used on a path.
+#ifndef GF_CSUM_THREADS
+#define GF_CSUM_THREADS 256
+#endif
+#ifndef GF_CSUM_UNIT
+#define GF_CSUM_UNIT 16
+#endif
+#ifndef GF_CSUM_PAD
+#define GF_CSUM_PAD 16  // bytes between lane segments in shared memory
+#endif
+#ifndef GF_CSUM_ILP
+#define GF_CSUM_ILP 3
+#endif
 
 namespace {
 
@@ -65,6 +100,14 @@ constexpr int kThreads = 256;
 constexpr int kRowGroup = 4;  // output rows accumulated per pass
 constexpr int kVec = GF_APPLY_VEC;
 constexpr int kApplyTile = kThreads * 16 * kVec;  // Kernel A columns per block
+constexpr int kCsumThreads = GF_CSUM_THREADS;
+constexpr int kCsumWarps = kCsumThreads / 32;
+constexpr int kCsumUnit = GF_CSUM_UNIT;
+constexpr int kCsumWords = kCsumUnit / 4;
+constexpr int kCsumCopies = 16;  // CRC table copies: two lanes a bank at most
+constexpr int kCsumIlp = GF_CSUM_ILP;
+constexpr int kCsumTabBytes = crc_table_words<kCsumCopies>() * 4;
+constexpr int kCsumPad = GF_CSUM_PAD;
 
 struct GfApplyParams {
   const uint8_t* in[kMaxRows];
@@ -79,48 +122,38 @@ struct GfApplyParams {
 
 struct GfCsumParams {
   GfApplyParams g;
-  uint32_t* csum;       // [B, C + R, N / cb] zero-init CRC32C
-  long long cb;         // csum window, a power of two >= 256 dividing N
-  int tile;             // sub-tile bytes, a power of two dividing cb
-  uint32_t mats[6][32]; // shifts across seg * 2^l bytes (l = 0..4), then tile
+  uint32_t* csum;              // [B, C + R, N / cb] zero-init CRC32C
+  const uint32_t* lane_mats;   // [32][32] device: lane i shifts across (31 - i) * piece / 32
+  long long cb;                // csum window, a power of two >= 256 dividing N
+  int steps;                   // B * N / tile, below 2^31
+  int per_stripe;              // N / tile
+  int tile;                    // columns a step: a power of two >= 256 dividing N,
+                               // a multiple or a divisor of cb
+  int piece;                   // bytes of a row one warp task hashes (divides tile and cb)
+  int lg_item_steps;           // log2 of the consecutive steps a block takes:
+                               // max(cb, tile) / tile
+  int lg_cb;
+  uint32_t piece_mat[32];      // shift across piece bytes
 };
 
-__device__ __forceinline__ uint8_t gf_mul(uint8_t a, uint8_t b) {
-  uint8_t p = 0;
-  for (int i = 0; i < 8; ++i) {
-    if (b & 1) p ^= a;
-    b >>= 1;
-    a = (uint8_t)((a << 1) ^ ((a & 0x80) ? 0x1D : 0));
-  }
-  return p;
-}
-
-// Split-nibble product tables: tab[(r*C + c)*32 + j] = G[r][c] * j for
-// j < 16 and G[r][c] * ((j - 16) << 4) for j >= 16.
-__device__ inline void build_mul_tables(const GfApplyParams& p, uint8_t* tab) {
-  const int n = p.R * p.C * 32;
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    int j = e & 31;
-    uint8_t v = (uint8_t)(j < 16 ? j : (j - 16) << 4);
-    tab[e] = gf_mul(p.coef[e >> 5], v);
-  }
-}
-
-__device__ __forceinline__ uint32_t mul_word(const uint8_t* t, uint32_t w) {
-  uint32_t r = 0;
+// acc[j] ^= g[j] * x for the W packed words x, by the xtime ladder: x,
+// 2x, ... 128x, seven mul2w steps shared by every output; output j takes
+// rung i where bit i of g[j] is set. g is uniform over the grid, so the
+// bit tests cost no divergence.
+template <int NR, int W>
+__device__ __forceinline__ void ladder_acc(uint32_t (&acc)[NR][W], uint32_t (&x)[W],
+                                           const uint32_t (&g)[NR]) {
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    uint32_t b = (w >> (8 * k)) & 0xFFu;
-    r |= (uint32_t)(t[b & 15u] ^ t[16 + (b >> 4)]) << (8 * k);
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int j = 0; j < NR; ++j)
+      if ((g[j] >> i) & 1u)
+#pragma unroll
+        for (int w = 0; w < W; ++w) acc[j][w] ^= x[w];
+    if (i < 7)
+#pragma unroll
+      for (int w = 0; w < W; ++w) x[w] = mul2w(x[w]);
   }
-  return r;
-}
-
-__device__ __forceinline__ void mul_acc(uint4& acc, const uint8_t* t, uint4 x) {
-  acc.x ^= mul_word(t, x.x);
-  acc.y ^= mul_word(t, x.y);
-  acc.z ^= mul_word(t, x.z);
-  acc.w ^= mul_word(t, x.w);
 }
 
 // Kernel A, NR output rows from r0 on: one pass over the C inputs.
@@ -162,17 +195,7 @@ __device__ __forceinline__ void apply_rows(const GfApplyParams& p, int r0, long 
     uint32_t g[NR];
 #pragma unroll
     for (int j = 0; j < NR; ++j) g[j] = p.coef[(r0 + j) * p.C + c];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-#pragma unroll
-      for (int j = 0; j < NR; ++j)
-        if ((g[j] >> i) & 1u)
-#pragma unroll
-          for (int w = 0; w < W; ++w) acc[j][w] ^= x[w];
-      if (i < 7)
-#pragma unroll
-        for (int w = 0; w < W; ++w) x[w] = mul2w(x[w]);
-    }
+    ladder_acc<NR, W>(acc, x, g);
   }
 #pragma unroll
   for (int j = 0; j < NR; ++j) {
@@ -202,75 +225,234 @@ gf_apply_kernel(const __grid_constant__ GfApplyParams p, long long col_blocks) {
   }
 }
 
-// Byte offset of byte i of a sub-tile row in shared memory: lane
-// segments of `seg` bytes are spaced `spad` apart (spad = seg + 16 for
-// seg >= 16, else seg: unpadded, and a 16-byte group never straddles a
-// padded segment because seg is then a multiple of 16).
-__device__ __forceinline__ int tile_off(int i, int seg, int spad) {
-  return (i / seg) * spad + (i % seg);
+// Kernel B's shared-memory rows: byte i of a step's row lies at
+// (i / seg) * spad + i % seg, lane segments of seg = piece / 32 bytes
+// spaced spad apart: seg + 16 from 32 bytes up (an odd number of 16-byte
+// units, so the lanes of a quarter warp read distinct banks), unpadded
+// below (16: already odd; 8: a 16-byte unit spans two contiguous
+// segments).
+struct CsumLayout {
+  int seg, lg_seg, spad, tpad, pieces, lg_pieces, lg_units;
+  __device__ __forceinline__ CsumLayout(int tile, int piece) {
+    seg = piece >> 5;
+    lg_seg = __ffs(seg) - 1;
+    spad = seg >= 32 ? seg + kCsumPad : seg;
+    tpad = (tile >> lg_seg) * spad;
+    pieces = tile / piece;
+    lg_pieces = __ffs(pieces) - 1;
+    lg_units = __ffs(tile >> 4) - 1;  // 16-byte staging units a row
+  }
+  __device__ __forceinline__ int off(int i) const {
+    return (i >> lg_seg) * spad + (i & (seg - 1));
+  }
+};
+
+// The step a block takes k-th: items blockIdx.x, + gridDim.x, ..., each
+// item_steps consecutive steps (>= steps: the block is done).
+__device__ __forceinline__ int csum_step(const GfCsumParams& q, int k) {
+  const long long s = (blockIdx.x + (long long)(k >> q.lg_item_steps) * gridDim.x)
+                          << q.lg_item_steps;
+  return s < q.steps ? (int)s + (k & ((1 << q.lg_item_steps) - 1)) : q.steps;
 }
 
-// Kernel B. Block = (stripe, csum window).
-__global__ void __launch_bounds__(kThreads)
-gf_apply_csum_kernel(const __grid_constant__ GfCsumParams q, long long windows) {
+// Copy the C input rows of step s into buf (cp.async on aligned rows,
+// loads and shared stores otherwise); one commit group.
+__device__ __forceinline__ void csum_stage(const GfCsumParams& q, const CsumLayout& L,
+                                           uint8_t* buf, int s) {
+  const GfApplyParams& p = q.g;
+  const int b = s / q.per_stripe;
+  const long long col0 = (long long)(s - b * q.per_stripe) * q.tile;
+  for (int u = threadIdx.x; u < p.C << L.lg_units; u += blockDim.x) {
+    const int c = u >> L.lg_units;
+    const int i = (u - (c << L.lg_units)) << 4;
+    uint8_t* dst = buf + c * L.tpad + L.off(i);
+    const uint8_t* src = p.in[c] + b * p.in_stride[c] + col0 + i;
+    if (p.aligned)
+      cp_async16(dst, src);
+    else
+      *reinterpret_cast<uint4*>(dst) = load16(src, false, 16);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// W packed words at p (16 or 8 bytes, aligned).
+template <int W>
+__device__ __forceinline__ void load_words(const uint8_t* p, uint32_t (&x)[W]) {
+  if constexpr (W == 4) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+  } else {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    x[0] = v.x, x[1] = v.y;
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void store_words(uint8_t* p, const uint32_t (&x)[W], bool vec) {
+  if (!vec) {
+#pragma unroll
+    for (int i = 0; i < 4 * W; ++i) p[i] = (uint8_t)(x[i >> 2] >> (8 * (i & 3)));
+  } else if constexpr (W == 4) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(x[0], x[1], x[2], x[3]);
+  } else {
+    *reinterpret_cast<uint2*>(p) = make_uint2(x[0], x[1]);
+  }
+}
+
+// Output rows r0 .. r0 + NR - 1 of the kCsumUnit-byte unit at shared
+// offset off of a step (stripe column col).
+template <int NR>
+__device__ __forceinline__ void csum_products(const GfApplyParams& p, const CsumLayout& L,
+                                              int r0, const uint8_t* buf, uint8_t* par,
+                                              long long b, long long col, int off) {
+  constexpr int W = kCsumWords;
+  uint32_t acc[NR][W];
+#pragma unroll
+  for (int j = 0; j < NR; ++j)
+#pragma unroll
+    for (int w = 0; w < W; ++w) acc[j][w] = 0u;
+  for (int c = 0; c < p.C; ++c) {
+    uint32_t x[W];
+    load_words<W>(buf + c * L.tpad + off, x);
+    uint32_t g[NR];
+#pragma unroll
+    for (int j = 0; j < NR; ++j) g[j] = p.coef[(r0 + j) * p.C + c];
+    ladder_acc<NR, W>(acc, x, g);
+  }
+#pragma unroll
+  for (int j = 0; j < NR; ++j) {
+    const int r = r0 + j;
+    store_words<W>(p.out[r] + b * p.out_stride[r] + col, acc[j], p.aligned);
+    store_words<W>(par + r * L.tpad + off, acc[j], true);
+  }
+}
+
+// N hash tasks of this warp at once, tasks task0 + n * kCsumWarps: task
+// = row * pieces + piece. Each lane hashes its segment of every task,
+// the N registers interleaved; then the lanes are joined and lane 0
+// writes the piece's zero-init CRC to pcrc[task].
+template <int N>
+__device__ __forceinline__ void csum_hash(const GfCsumParams& q, const CsumLayout& L,
+                                          const uint32_t* t, const uint32_t (&cols)[32],
+                                          const uint8_t* buf, const uint8_t* par,
+                                          uint32_t* pcrc, int task0, int ntasks) {
+  const int lane = threadIdx.x & 31;
+  const int C = q.g.C;
+  const uint8_t* src[N];
+  uint32_t crc[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    int task = task0 + n * kCsumWarps;
+    if (task >= ntasks) task = task0;  // a spare register: hashed, never written
+    const int row = task >> L.lg_pieces;
+    const int pc = task - (row << L.lg_pieces);
+    src[n] = (row < C ? buf + row * L.tpad : par + (row - C) * L.tpad) +
+             (pc * 32 + lane) * L.spad;
+    crc[n] = 0u;
+  }
+  if (L.seg >= 16) {
+    for (int o = 0; o < L.seg; o += 16) {
+      uint4 v[N];
+#pragma unroll
+      for (int n = 0; n < N; ++n) v[n] = *reinterpret_cast<const uint4*>(src[n] + o);
+#pragma unroll
+      for (int n = 0; n < N; ++n) crc[n] = crc_step4<kCsumCopies>(t, crc[n], v[n].x);
+#pragma unroll
+      for (int n = 0; n < N; ++n) crc[n] = crc_step4<kCsumCopies>(t, crc[n], v[n].y);
+#pragma unroll
+      for (int n = 0; n < N; ++n) crc[n] = crc_step4<kCsumCopies>(t, crc[n], v[n].z);
+#pragma unroll
+      for (int n = 0; n < N; ++n) crc[n] = crc_step4<kCsumCopies>(t, crc[n], v[n].w);
+    }
+  } else {  // 8-byte segments
+    uint2 v[N];
+#pragma unroll
+    for (int n = 0; n < N; ++n) v[n] = *reinterpret_cast<const uint2*>(src[n]);
+#pragma unroll
+    for (int n = 0; n < N; ++n) crc[n] = crc_step4<kCsumCopies>(t, crc[n], v[n].x);
+#pragma unroll
+    for (int n = 0; n < N; ++n) crc[n] = crc_step4<kCsumCopies>(t, crc[n], v[n].y);
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    const uint32_t moved = crc_lane_join(cols, crc[n]);
+    if (lane == 0 && task0 + n * kCsumWarps < ntasks) pcrc[task0 + n * kCsumWarps] = moved;
+  }
+}
+
+// Kernel B. A persistent grid; see the notes at the top.
+__global__ void __launch_bounds__(kCsumThreads)
+gf_apply_csum_kernel(const __grid_constant__ GfCsumParams q) {
   const GfApplyParams& p = q.g;
   extern __shared__ __align__(16) uint8_t smem[];
-  uint32_t* crc_tab = reinterpret_cast<uint32_t*>(smem);       // 8 KB
-  uint32_t* carry = crc_tab + kCrcTableWords;                   // 2 * kMaxRows words
-  uint8_t* mul_tab = reinterpret_cast<uint8_t*>(carry + 2 * kMaxRows);
+  const CsumLayout L(q.tile, q.piece);
+  uint32_t* tab = reinterpret_cast<uint32_t*>(smem);
+  uint8_t* bufs = smem + kCsumTabBytes;  // two buffers of C rows
+  uint8_t* par = bufs + 2 * p.C * L.tpad;
+  uint32_t* pcrc = reinterpret_cast<uint32_t*>(par + p.R * L.tpad);
   const int rows = p.C + p.R;
-  const int seg = q.tile / 32;
-  const int spad = seg >= 16 ? seg + 16 : seg;
-  const int pitch = 32 * spad;
-  uint8_t* tile = mul_tab + ((p.R * p.C * 32 + 15) & ~15);
+  const int ntasks = rows * L.pieces;
+  const long long windows = p.N >> q.lg_cb;
 
-  build_mul_tables(p, mul_tab);
-  for (int r = threadIdx.x; r < rows; r += blockDim.x) carry[r] = 0u;
-  crc_build_tables(crc_tab);  // ends with __syncthreads()
-
-  const long long b = blockIdx.x / windows;
-  const long long w = blockIdx.x % windows;
-  const int warp = threadIdx.x >> 5;
+  crc_fill_tables<kCsumCopies>(tab, reinterpret_cast<uint32_t*>(bufs));
   const int lane = threadIdx.x & 31;
-  const int groups = q.tile / 16;  // 16-byte column groups per sub-tile
-  for (long long s0 = 0; s0 < q.cb; s0 += q.tile) {
-    const long long col0 = w * q.cb + s0;
-    for (int t = threadIdx.x; t < groups; t += blockDim.x) {
-      const long long col = col0 + 16 * t;
-      const int off = tile_off(16 * t, seg, spad);
-      for (int c = 0; c < p.C; ++c) {
-        *reinterpret_cast<uint4*>(tile + c * pitch + off) =
-            load16(p.in[c] + b * p.in_stride[c] + col, p.aligned, 16);
-      }
+  const int warp = threadIdx.x >> 5;
+  const uint32_t* t = tab + lane % kCsumCopies;
+  uint32_t cols[32];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) cols[j] = __ldg(q.lane_mats + lane * 32 + j);
+  uint32_t carry = 0u;  // thread r < rows: row r's window CRC so far
+
+  int k = 0;
+  int s = csum_step(q, 0);
+  if (s < q.steps) csum_stage(q, L, bufs, s);
+  for (int cur = 0; s < q.steps; cur ^= 1) {
+    const int ns = csum_step(q, ++k);
+    uint8_t* buf = bufs + cur * p.C * L.tpad;
+    if (ns < q.steps)
+      csum_stage(q, L, bufs + (cur ^ 1) * p.C * L.tpad, ns);
+    else
+      asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();  // this step's inputs are in; the last step's hash is done
+    const int b = s / q.per_stripe;
+    const long long col0 = (long long)(s - b * q.per_stripe) * q.tile;
+#ifndef GF_CSUM_NO_PRODUCTS
+    for (int u = threadIdx.x; u < q.tile / kCsumUnit; u += blockDim.x) {
+      const int off = L.off(u * kCsumUnit);
+      const long long col = col0 + u * kCsumUnit;
       for (int r0 = 0; r0 < p.R; r0 += kRowGroup) {
-        uint4 acc[kRowGroup];
-#pragma unroll
-        for (int j = 0; j < kRowGroup; ++j) acc[j] = make_uint4(0u, 0u, 0u, 0u);
-        for (int c = 0; c < p.C; ++c) {
-          const uint4 x = *reinterpret_cast<const uint4*>(tile + c * pitch + off);
-#pragma unroll
-          for (int j = 0; j < kRowGroup; ++j)
-            if (r0 + j < p.R) mul_acc(acc[j], mul_tab + ((r0 + j) * p.C + c) * 32, x);
-        }
-#pragma unroll
-        for (int j = 0; j < kRowGroup; ++j) {
-          if (r0 + j >= p.R) continue;
-          const int r = r0 + j;
-          store16(p.out[r] + b * p.out_stride[r] + col, acc[j], p.aligned, 16);
-          *reinterpret_cast<uint4*>(tile + (p.C + r) * pitch + off) = acc[j];
+        switch (p.R - r0) {  // uniform over the grid
+          case 1: csum_products<1>(p, L, r0, buf, par, b, col, off); break;
+          case 2: csum_products<2>(p, L, r0, buf, par, b, col, off); break;
+          case 3: csum_products<3>(p, L, r0, buf, par, b, col, off); break;
+          default: csum_products<4>(p, L, r0, buf, par, b, col, off); break;
         }
       }
     }
-    __syncthreads();
-    for (int row = warp; row < rows; row += kThreads / 32) {
-      uint32_t crc = crc_update<true>(crc_tab, 0u, tile + row * pitch + lane * spad, seg);
-      crc = crc_warp_join(q.mats, crc);
-      if (lane == 0) carry[row] = gf2_apply(q.mats[5], carry[row]) ^ crc;
+#endif
+    __syncthreads();  // the parity tile is in
+#ifndef GF_CSUM_NO_HASH
+    int task0 = warp;
+    for (; task0 + (kCsumIlp - 1) * kCsumWarps < ntasks; task0 += kCsumIlp * kCsumWarps)
+      csum_hash<kCsumIlp>(q, L, t, cols, buf, par, pcrc, task0, ntasks);
+    for (; task0 < ntasks; task0 += kCsumWarps)
+      csum_hash<1>(q, L, t, cols, buf, par, pcrc, task0, ntasks);
+#endif
+    __syncthreads();  // every piece's CRC is in
+    if (threadIdx.x < rows) {
+      const int r = threadIdx.x;
+      for (int pc = 0; pc < L.pieces; ++pc) {
+        const long long pos = col0 + (long long)pc * q.piece;
+        const uint32_t v = pcrc[r * L.pieces + pc];
+        carry = (pos & (q.cb - 1)) == 0 ? v : gf2_apply(q.piece_mat, carry) ^ v;
+        if (((pos + q.piece) & (q.cb - 1)) == 0)
+          q.csum[(b * rows + r) * windows + (pos >> q.lg_cb)] = carry;
+      }
     }
-    __syncthreads();
+    s = ns;
   }
-  for (int r = threadIdx.x; r < rows; r += blockDim.x)
-    q.csum[(b * rows + r) * windows + w] = carry[r];
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 void fill_apply_params(GfApplyParams& p, const unsigned long long* in_ptrs,
@@ -312,37 +494,67 @@ extern "C" int gf_apply(const unsigned long long* in_ptrs, const long long* in_s
   return (int)cudaGetLastError();
 }
 
-extern "C" int gf_apply_csum_smem_bytes(int C, int R, int tile) {
-  const int seg = tile / 32;
-  const int spad = seg >= 16 ? seg + 16 : seg;
-  return kCrcTableWords * 4 + 2 * kMaxRows * 4 + ((R * C * 32 + 15) & ~15) +
-         (C + R) * 32 * spad;
+// Shared memory of a Kernel B block (ops/cuda_encode.py::csum_smem
+// mirrors it): the tables, two buffers of C rows, R parity rows, the
+// pieces' CRCs; at least 4 KB past the tables, the fill's scratch.
+extern "C" long long gf_apply_csum_smem_bytes(int C, int R, int tile, int piece) {
+  const int seg = piece / 32;
+  const long long spad = seg >= 32 ? seg + kCsumPad : seg;
+  const long long tpad = tile / seg * spad;
+  long long rest = (2LL * C + R) * tpad + 4LL * (C + R) * (tile / piece);
+  if (rest < 4096) rest = 4096;
+  return kCsumTabBytes + rest;
 }
+
+static bool pow2(long long x) { return x > 0 && (x & (x - 1)) == 0; }
 
 extern "C" int gf_apply_csum(const unsigned long long* in_ptrs, const long long* in_strides,
                              int C, const unsigned long long* out_ptrs,
                              const long long* out_strides, int R,
                              const unsigned char* coef, long long B, long long N,
-                             void* csum, long long cb, int tile, const unsigned int* mats,
+                             void* csum, long long cb, int tile, int piece,
+                             const void* lane_mats, const unsigned int* piece_mat,
                              void* stream) {
-  if (C < 1 || C > kMaxRows || R < 1 || R > kMaxRows || C + R > 2 * kMaxRows ||
-      tile < 256 || cb % tile || N % cb)
+  if (C < 1 || C > kMaxRows || R < 1 || R > kMaxRows || B < 0 || !pow2(cb) || cb < 256 ||
+      N % cb || !pow2(tile) || tile < 256 || N % tile || (tile % cb && cb % tile) ||
+      !pow2(piece) || piece < 256 || tile % piece || cb % piece)
     return (int)cudaErrorInvalidValue;
+  if (B == 0 || N == 0) return (int)cudaSuccess;
   GfCsumParams q;
   fill_apply_params(q.g, in_ptrs, in_strides, C, out_ptrs, out_strides, R, coef, B, N);
   q.csum = static_cast<uint32_t*>(csum);
+  q.lane_mats = static_cast<const uint32_t*>(lane_mats);
   q.cb = cb;
+  q.lg_cb = 0;
+  while ((1LL << q.lg_cb) < cb) ++q.lg_cb;
   q.tile = tile;
-  for (int l = 0; l < 6; ++l)
-    for (int j = 0; j < 32; ++j) q.mats[l][j] = mats[l * 32 + j];
-  const int smem = gf_apply_csum_smem_bytes(C, R, tile);
+  q.piece = piece;
+  if (B * (N / tile) > 0x7FFFFFFFLL) return (int)cudaErrorInvalidConfiguration;
+  q.steps = (int)(B * (N / tile));
+  q.per_stripe = (int)(N / tile);
+  q.lg_item_steps = 0;
+  while ((tile << q.lg_item_steps) < cb) ++q.lg_item_steps;
+  for (int j = 0; j < 32; ++j) q.piece_mat[j] = piece_mat[j];
+  const long long smem = gf_apply_csum_smem_bytes(C, R, tile, piece);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      gf_apply_csum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      gf_apply_csum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const long long windows = N / cb;
-  if (B * windows > 0x7FFFFFFFLL) return (int)cudaErrorInvalidConfiguration;
-  gf_apply_csum_kernel<<<(unsigned int)(B * windows), kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(q, windows);
+  // a persistent grid: as many blocks as are resident at once, at most
+  // one per item
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gf_apply_csum_kernel,
+                                                           kCsumThreads, (size_t)smem)) !=
+      cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long items = q.steps >> q.lg_item_steps;
+  const long long grid = items < (long long)sms * per_sm ? items : (long long)sms * per_sm;
+  gf_apply_csum_kernel<<<(unsigned int)grid, kCsumThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(q);
   return (int)cudaGetLastError();
 }
 

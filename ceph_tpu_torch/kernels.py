@@ -147,7 +147,7 @@ GF_APPLY = Kernel(
 #: Kernel B — matrix apply fused with per-window CRC32C (csrc/gf_apply.cu)
 GF_APPLY_CSUM = Kernel(
     "gf_apply", "gf_apply_csum",
-    [_P, _P, _I, _P, _P, _I, _P, _L, _L, _P, _L, _I, _P, _P],
+    [_P, _P, _I, _P, _P, _I, _P, _L, _L, _P, _L, _I, _I, _P, _P, _P],
 )
 #: Kernel C — batched per-block CRC32C (csrc/crc32c.cu)
 CRC32C_BLOCKS = Kernel(
@@ -157,7 +157,7 @@ CRC32C_BLOCKS = Kernel(
 #: Kernel D — XOR-schedule apply, stacked and per-shard (csrc/xor_schedule.cu)
 XOR_SCHEDULE = Kernel(
     "xor_schedule", "xor_schedule",
-    [_P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _L, _L],
+    [_P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _L, _L, _I, _I, _I, _I, _P],
 )
 
 #: Kernel E — CLAY repair stage a, uncoupled values (csrc/clay_repair.cu)

@@ -22,18 +22,31 @@ length N >= 1 and mask the ragged tail, so there is no tiling gate.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ceph_tpu_torch.checksum.crc32c import crc32c_fold_plain, shift_columns
+from ceph_tpu_torch.checksum.cuda_crc import lane_shift_matrices
 from ceph_tpu_torch.gf.tables import MUL_BITMATRIX
 
 from .bitplane import gf_encode_bitplane
 
 MAX_ROWS = 32  # ISA caps k and m at 32; the kernels size their params by it
-#: shared-memory budget for one sub-tile of Kernel B's rows
-CSUM_TILE_BUDGET = 64 * 1024
+#: Kernel B: the widest step (columns of every row a block stages at once),
+#: warps a block (``GF_CSUM_THREADS`` / 32), bytes of its replicated CRC
+#: tables (``kCsumCopies`` = 16 copies), the per-block shared-memory cap
+CSUM_TILE_MAX = 4096
+CSUM_WARPS = 8
+CSUM_TABLE_BYTES = 4 * 256 * 16 * 4
+SMEM_MAX = 232448
+#: bytes between lane segments of 32 bytes up in shared memory
+#: (``GF_CSUM_PAD``)
+CSUM_PAD = 16
+#: a lane join (32 masked XORs, five shuffles) costs about what hashing
+#: this many more bytes of a piece does
+CSUM_JOIN_BYTES = 128
 
 
 @functools.lru_cache(maxsize=256)
@@ -119,25 +132,61 @@ def _launch_apply(coef, ins, outs, b: int, n: int) -> None:
                  ost.ctypes.data, r, cf.ctypes.data, b, n)
 
 
-def csum_tile(c: int, r: int, csum_block: int) -> int:
-    """Kernel B's sub-tile: the largest power of two <= min(cb, 4096)
-    whose C+R shared-memory rows (padded 16 bytes per lane segment)
-    fit ``CSUM_TILE_BUDGET``; at least 256."""
-    t = min(csum_block, 4096)
-    while t > 256 and (c + r) * (t + 512) > CSUM_TILE_BUDGET:
-        t //= 2
-    return t
+class CsumPlan(NamedTuple):
+    tile: int  # columns a step
+    piece: int  # bytes of a row one warp task hashes
+    smem: int  # bytes a block
+
+
+def csum_smem(c: int, r: int, tile: int, piece: int) -> int:
+    """Kernel B's shared memory a block (``gf_apply_csum_smem_bytes``):
+    the tables, two buffers of C rows and R parity rows (lane segments
+    of piece / 32 bytes padded by 16 from 32 bytes up), the pieces'
+    CRCs; at least 4 KB past the tables."""
+    seg = piece // 32
+    spad = seg + CSUM_PAD if seg >= 32 else seg
+    rest = (2 * c + r) * (tile // seg * spad) + 4 * (c + r) * (tile // piece)
+    return CSUM_TABLE_BYTES + max(rest, 4096)
+
+
+def csum_plan(c: int, r: int, n: int, cb: int) -> CsumPlan:
+    """Kernel B's step and hash split for C inputs, R outputs, rows of
+    N bytes and cb-byte windows (``csum_supported``).
+
+    The step is the widest power of two up to ``CSUM_TILE_MAX`` that
+    divides N and is a multiple or a divisor of cb, narrowed until a
+    block fits shared memory. The piece (power of two, 256 bytes up,
+    dividing the step and cb) spreads the (C + R) * step / piece hash
+    tasks over the warps with the least work on the busiest warp (its
+    tasks' bytes, and a join each); ties go to the larger piece."""
+    tile = min(cb, CSUM_TILE_MAX)
+    while tile < CSUM_TILE_MAX and n % (2 * tile) == 0:
+        tile *= 2
+    while True:
+        pieces = [min(tile, cb) >> i for i in range(64)
+                  if min(tile, cb) >> i >= 256]
+        fits = [CsumPlan(tile, pc, csum_smem(c, r, tile, pc)) for pc in pieces]
+        fits = [plan for plan in fits if plan.smem <= SMEM_MAX]
+        if fits:
+            return min(fits, key=lambda plan: -(-(c + r) * (tile // plan.piece)
+                                                // CSUM_WARPS)
+                       * (plan.piece + CSUM_JOIN_BYTES))
+        tile //= 2
 
 
 @functools.lru_cache(maxsize=32)
-def csum_shift_matrices(tile: int) -> np.ndarray:
-    """[6, 32] uint32: lane-join shifts across seg * 2^l bytes
-    (seg = tile / 32, l = 0..4), then the sub-tile shift."""
-    seg = tile // 32
-    return np.stack(
-        [shift_columns(seg << lvl) for lvl in range(5)]
-        + [shift_columns(tile)]
-    )
+def csum_piece_matrix(piece: int) -> np.ndarray:
+    """[32] uint32: the shift across one piece, which chains a row's
+    pieces into its window's CRC."""
+    return np.ascontiguousarray(shift_columns(piece))
+
+
+@functools.lru_cache(maxsize=32)
+def _lane_matrices_on(seg: int, device: torch.device) -> torch.Tensor:
+    """Kernel B's [32, 32] lane join matrices for seg-byte lane segments
+    (lane 31's the identity), uploaded once per (seg, device)."""
+    mats = lane_shift_matrices(seg).astype(np.uint32).view(np.int32)
+    return torch.from_numpy(np.ascontiguousarray(mats)).to(device)
 
 
 def csum_supported(n: int, csum_block: int) -> bool:
@@ -154,15 +203,17 @@ def _launch_apply_csum(coef, ins, outs, b, n, csums, cb) -> None:
 
     r, c = coef.shape
     _check_dims(c, r)
-    tile = csum_tile(c, r, cb)
-    mats = np.ascontiguousarray(csum_shift_matrices(tile))
+    plan = csum_plan(c, r, n, cb)
+    lanes = _lane_matrices_on(plan.piece // 32, ins[0].device)
+    piece_mat = csum_piece_matrix(plan.piece)
     ip, ist = _ptr_rows(ins)
     op, ost = _ptr_rows(outs)
     cf = np.ascontiguousarray(coef)
     with torch.cuda.device(ins[0].device):
         GF_APPLY_CSUM(ip.ctypes.data, ist.ctypes.data, c, op.ctypes.data,
                       ost.ctypes.data, r, cf.ctypes.data, b, n,
-                      csums.data_ptr(), cb, tile, mats.ctypes.data)
+                      csums.data_ptr(), cb, plan.tile, plan.piece,
+                      lanes.data_ptr(), piece_mat.ctypes.data)
 
 
 # ---------------------------------------------------------- plain forms

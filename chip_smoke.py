@@ -7,14 +7,17 @@ BlueStore's 4 KiB csum block, each counted on its own:
 1. set-up: the card's name and power limit; build every kernel in
    ``ceph_tpu_torch/csrc/`` (all sources in parallel) and print the time;
 2. every kernel against its plain PyTorch version on the card, byte for
-   byte, at the listed shapes (ragged lengths included; Kernels A and C
-   also at the edges of their contracts: lengths around their vectors
-   and passes, C and R up to 32, one or 131 CRC blocks, rows and base
-   pointers one byte off alignment), timed at the shapes the main paths
-   give it: the kernel's device time per launch (torch.profiler; the
-   ``ms`` of the ``{"kernels": ...}`` line), one wrapper call and the
-   plain version (CUDA events); Kernel A also at the CLAY repair's
-   inner-decode shape;
+   byte, at the listed shapes (ragged lengths included; Kernels A-D
+   also at the edges of their contracts: lengths around their vectors,
+   columns and passes, C and R up to 32, one or 131 CRC blocks, windows
+   of 256 B to 64 KiB spanning one to 131 of a row, a schedule at the
+   kernel's scratch-slot limit and one past it, rows and base pointers
+   one byte off alignment), timed at the shapes the main paths give it:
+   the kernel's device time per launch (torch.profiler; the ``ms`` of
+   the ``{"kernels": ...}`` line), one wrapper call and the plain
+   version (CUDA events); Kernel A also at the CLAY repair's
+   inner-decode shape, Kernel B beside Kernel A then Kernel C over the
+   same stripes (``unfused_ms``);
 3. the ISA-L path, ``reed_sol_van`` EC(8,4): the write
    (``ShardExtentMap.encode`` of 8 stripes x 8 x 1 MiB chunks with fused
    csums and HashInfo, then ``encode_chunks_with_csums`` /
@@ -124,9 +127,13 @@ CLAY_KERNEL_CASES = [
 CLAY_KERNEL_SC = (8192, 6528, 128, 8, 1003)
 CLAY_KERNEL_B = (64, 3)
 
-#: Kernel A and C edge cases (phase 2)
+#: Kernel A, B, C and D edge cases (phase 2)
 A_EDGE_N = (1, 15, 16, 17, 4095, MIB + 37)
+B_EDGE_CR = (1, 12, 32)  # C and R, each pair with C + R <= 64
+B_EDGE_CB = (256, 4096, 65536)
+B_EDGE_WINDOWS = (1, 3, 131)  # N = cb x windows
 C_EDGE_L = (1, 31, 32, 33, 512, 1000, 4096, 65536, MIB)
+D_EDGE_P = (1, 15, 16, 17, 2048, LIB_P)
 
 KERNEL_INFO = {
     "gf_apply": (
@@ -194,25 +201,27 @@ def kernel_ms(fn, iters: int, kernel: str) -> float:
     """Mean device time of one launch of the CUDA kernel whose symbol
     contains ``kernel``, from torch.profiler over ``iters`` calls after
     one warm-up: the kernel alone, without the host time of its
-    wrapper."""
+    wrapper. A session that lost events is taken again, twice at most."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for evt in prof.key_averages():
-        if kernel in evt.key:
-            total_us += getattr(evt, "self_device_time_total", None) or \
-                getattr(evt, "self_cuda_time_total", 0)
-            count += evt.count
-    check(count == iters and total_us > 0,
-          f"profiler saw {count} launches of {kernel}, want {iters}")
-    return total_us / count / 1e3
+    for _ in range(3):  # a profiler session now and then loses events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us, count = 0.0, 0
+        for evt in prof.key_averages():
+            if kernel in evt.key:
+                total_us += getattr(evt, "self_device_time_total", None) or \
+                    getattr(evt, "self_cuda_time_total", 0)
+                count += evt.count
+        if count == iters and total_us > 0:
+            return total_us / count / 1e3
+    raise AssertionError(f"profiler saw {count} launches of {kernel} in "
+                         f"three sessions, want {iters}")
 
 
 class Phase:
@@ -406,6 +415,40 @@ def kernel_vs_plain(rng, dev) -> dict:
              max(max_err(torch.stack(sp, 1), wp), max_err(sc, wc)),
              f"C=8 R=4 cb={cb} shards")
         del wp, wc, gp, gc, shards, sp, sc
+    # Kernel B at the edges of its contract: C and R up to 32, windows
+    # from 256 B to 64 KiB, one, three or 131 windows a row (steps that
+    # cover several windows, or one window in several steps; items that
+    # do not divide evenly over the grid), rows one byte off alignment
+    # (the load path), both forms
+    edges = 0
+    for c in B_EDGE_CR:
+        for r in B_EDGE_CR:
+            bm = gf_matrix_to_bitmatrix(
+                rng.integers(0, 256, (r, c), dtype=np.uint8))
+            for cb in B_EDGE_CB:
+                for nw in B_EDGE_WINDOWS:
+                    n, b = cb * nw, (1 if cb * nw > MIB else 2)
+                    for offset in (0, 1):
+                        data = rand((b, c, n + offset))[..., offset:]
+                        wp, wc = ce.gf_apply_csum_plain(bm, data.contiguous(),
+                                                        cb)
+                        what = (f"edge C={c} R={r} cb={cb} N={n} offset "
+                                f"{offset}")
+                        gp, gc = ce.gf_apply_csum(bm, data, cb)
+                        note("gf_apply_csum",
+                             max(max_err(gp, wp), max_err(gc, wc)),
+                             what + " stacked", quiet=True)
+                        sp, sc = ce.gf_apply_csum_shards(
+                            bm, [data[:, i] for i in range(c)], cb)
+                        note("gf_apply_csum",
+                             max(max_err(torch.stack(sp, 1), wp),
+                                 max_err(sc, wc)), what + " shards",
+                             quiet=True)
+                        edges += 2
+                        del data, wp, wc, gp, gc, sp, sc
+    print(f"  gf_apply_csum edges: {edges} cases (C, R in {B_EDGE_CR}, cb "
+          f"in {B_EDGE_CB}, N = cb x {B_EDGE_WINDOWS}, offsets 0 and 1, "
+          f"both forms): max_abs_err {out['gf_apply_csum']['max_abs_err']}")
     # Kernel C at 4/16/64 KiB blocks, three inits
     for block in (4096, 16384, 65536):
         data = rand(((32 * MIB) // block, block))
@@ -465,6 +508,16 @@ def kernel_vs_plain(rng, dev) -> dict:
               f"{row['call_ms']:.4f} ms a call (events), "
               f"{row['plain_ms']:.3f} ms plain, bound "
               f"{row['bound_ms']:.4f} ms (bytes)")
+    # Kernel B's yardstick: Kernel A then Kernel C over the same stripes
+    # (the 12 rows' 4 KiB windows, zero-init), device time
+    rows12 = torch.cat([main, ce.gf_apply(enc, main)], 1).reshape(
+        -1, CSUM_BLOCK)
+    row = out["gf_apply_csum"]
+    row["unfused_ms"] = out["gf_apply"]["ms"] + kernel_ms(
+        lambda: crc32c_blocks(rows12, 0), 20, "crc32c_blocks_kernel")
+    print(f"  gf_apply_csum {row['ms']:.4f} ms against A then C over the "
+          f"same stripes (unfused_ms) {row['unfused_ms']:.4f} ms")
+    del rows12
     # Kernel A at the CLAY repair's inner decode: 8 U arrays of [64,
     # 16 x 8 KiB] in, the lost row's 4 out, per-shard
     width = 16 * (OBJECT_BYTES // int(CLAY_PROFILE["k"]) // 64)
@@ -524,6 +577,69 @@ def xor_cases(rng):
     return cases
 
 
+def slot_schedule(n_slots: int):
+    """A Schedule whose program needs exactly ``n_slots`` scratch slots:
+    intermediates t_i = packet i ^ packet i+1, all read by output 0 (so
+    all live together before it), outputs 1-3 single packets; a multiple
+    of 4 input packets and 4 outputs, so w = 4 gives whole shards."""
+    from ceph_tpu_torch.ops import xor_schedule as xs
+
+    n_in = -(-(n_slots + 5) // 4) * 4
+    temps = tuple((i, i + 1) for i in range(n_slots))
+    outputs = (tuple(n_in + t for t in range(n_slots)), (0,), (1,), (n_in - 1,))
+    return xs.Schedule(n_in, temps, outputs)
+
+
+def xor_edges(rng, dev) -> int:
+    """Kernel D at the edges of its contract, both forms, byte for byte:
+    packet lengths around its 16-byte columns and tiles (D_EDGE_P), base
+    pointers one byte off (the direct form), w = 1, and a schedule at
+    MAX_SLOTS scratch slots and one past it (flattened to selection
+    rows). Returns the largest error."""
+    import torch
+
+    from ceph_tpu_torch.codecs import registry
+    from ceph_tpu_torch.ops import cuda_xor
+    from ceph_tpu_torch.ops import xor_schedule as xs
+
+    enc = registry.factory("jerasure", LIB_PROFILE, device="cuda"
+                           ).coding_bitmatrix
+    cases = [("liberation encode", xs.optimize_schedule(enc), 7, 42, p, 4)
+             for p in D_EDGE_P]
+    cases += [("w=1 row", xs.optimize_schedule(np.ones((1, 5), np.uint8)),
+               1, 5, p, 4) for p in (1, 17, 4096 + 16)]
+    for n in (cuda_xor.MAX_SLOTS, cuda_xor.MAX_SLOTS + 1):
+        sched = slot_schedule(n)
+        words, slots = cuda_xor.encode_program(sched, 4, 4)
+        check(slots == (n if n <= cuda_xor.MAX_SLOTS else 0),
+              f"a {n}-slot schedule runs with {slots} slots")
+        cases.append((f"{n} slots", sched, 4, sched.n_in, 2048, 2))
+    err, count = 0, 0
+    for label, sched, w, cols, p, b in cases:
+        rows = xs._n_rows(sched)
+        for offset in (0, 1):
+            base = rand_on(rng, dev, (b * cols * p + offset,))
+            packets = base[offset:].view(b, cols, p)
+            want = xs.xor_schedule_plain(sched, packets)
+            e1 = max_err(cuda_xor.xor_schedule_apply(sched, packets), want)
+            sbase = rand_on(rng, dev, (cols // w * b * w * p + offset,))
+            shards = [sbase[offset + i * b * w * p:offset + (i + 1) * b * w * p]
+                      .view(b, w * p) for i in range(cols // w)]
+            for i, sh in enumerate(shards):
+                sh.copy_(packets[:, i * w:(i + 1) * w].reshape(b, w * p))
+            got = cuda_xor.xor_schedule_apply_shards(sched, shards, w)
+            e2 = max_err(torch.stack(got, 1), want.reshape(b, rows // w, w * p))
+            check(e1 == 0 and e2 == 0, f"xor_schedule edge {label} P={p} "
+                  f"offset {offset} disagrees with its plain version")
+            err = max(err, e1, e2)
+            count += 2
+            del base, packets, want, sbase, shards, got
+    print(f"  xor_schedule edges: {count} cases (P in {D_EDGE_P}, w = 1, "
+          f"{cuda_xor.MAX_SLOTS} and {cuda_xor.MAX_SLOTS + 1} slots, offsets "
+          f"0 and 1, both forms): max_abs_err {err}")
+    return err
+
+
 def xor_vs_plain(rng, dev) -> dict:
     """Phase 2, Kernel D: both forms against the plain version, byte for
     byte, at P = 147,456 (the main path's packet), 2,048 and a ragged
@@ -554,6 +670,8 @@ def xor_vs_plain(rng, dev) -> dict:
             err = max(err, e1, e2)
             del packets, want, shards, got
 
+    err = max(err, xor_edges(rng, dev))
+
     # the main path's shape: the liberation encode's CSE'd schedule
     from ceph_tpu_torch.codecs import registry
 
@@ -570,7 +688,7 @@ def xor_vs_plain(rng, dev) -> dict:
     def per_shard():
         return cuda_xor.xor_schedule_apply_shards(sched, shards, LIB_W)
 
-    symbol = "xor_schedule_kernel"
+    symbol = "xor_schedule_"  # the staged or the direct form
     row = {
         "max_abs_err": err,
         "ms": kernel_ms(stacked, 20, symbol),

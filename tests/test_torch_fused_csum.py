@@ -11,6 +11,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from ceph_tpu.ops import pallas_encode as pe  # noqa: E402
+from ceph_tpu_torch.checksum.cuda_crc import lane_shift_matrices  # noqa: E402
 from ceph_tpu_torch.checksum.reference import crc32c_ref  # noqa: E402
 from ceph_tpu_torch.gf import (  # noqa: E402
     gf_matrix_to_bitmatrix,
@@ -76,23 +77,32 @@ def test_csum_contract_refuses_bad_blocks(rng, cb):
 
 
 @pytest.mark.parametrize("c,r,cb,tile", [
-    (8, 4, 256, 256), (8, 4, 4096, 4096), (8, 4, 65536, 4096),
-    (32, 32, 65536, 512), (10, 4, 1024, 1024),
+    (8, 4, 256, 4096), (8, 4, 4096, 4096), (8, 4, 65536, 4096),
+    (32, 32, 65536, 1024), (10, 4, 1024, 4096),
 ])
 def test_csum_tile_fits_budget(c, r, cb, tile):
-    got = cuda_encode.csum_tile(c, r, cb)
-    assert got == tile and cb % got == 0
-    assert got == 256 or (c + r) * (got + 512) <= cuda_encode.CSUM_TILE_BUDGET
+    """Kernel B's step over 1 MiB rows: the widest power of two up to
+    CSUM_TILE_MAX whose block fits shared memory, a multiple or a divisor
+    of the window."""
+    plan = cuda_encode.csum_plan(c, r, 1 << 20, cb)
+    assert plan.tile == tile and (cb % tile == 0 or tile % cb == 0)
+    assert plan.smem <= cuda_encode.SMEM_MAX
+    assert plan.smem == cuda_encode.csum_smem(c, r, plan.tile, plan.piece)
+    if tile < cuda_encode.CSUM_TILE_MAX:
+        wider = cuda_encode.csum_smem(c, r, 2 * tile, plan.piece)
+        assert wider > cuda_encode.SMEM_MAX
 
 
 def test_subtile_chain_emulation(rng):
-    """Kernel B's per-window CRC as the kernel computes it — 32 lane
-    segments per sub-tile joined by the shift tree, sub-tiles chained by
-    the tile shift — equals the window's zero-init CRC."""
-    cb, tile = 8192, 2048
-    mats = cuda_encode.csum_shift_matrices(tile)
+    """Kernel B's per-window CRC as the kernel computes it — each piece
+    as 32 lane segments joined in one level (lane i's CRC moved to the
+    piece's end by its shift matrix, the lanes XOR-summed), pieces
+    chained by the piece shift — equals the window's zero-init CRC."""
+    cb, piece = 8192, 2048
+    seg = piece // 32
+    lanes_mats = lane_shift_matrices(seg)
+    piece_mat = cuda_encode.csum_piece_matrix(piece)
     window = rng.integers(0, 256, cb, dtype=np.uint8).tobytes()
-    seg = tile // 32
 
     def apply(cols, v):
         out = 0
@@ -102,13 +112,10 @@ def test_subtile_chain_emulation(rng):
         return out
 
     carry = 0
-    for s0 in range(0, cb, tile):
-        lanes = [crc32c_ref(0, window[s0 + i * seg : s0 + (i + 1) * seg])
-                 for i in range(32)]
-        for lvl in range(5):
-            step = 1 << lvl
-            for lane in range(0, 32, 2 * step):
-                lanes[lane] = (apply(mats[lvl], lanes[lane])
-                               ^ lanes[lane + step])
-        carry = apply(mats[5], carry) ^ lanes[0]
+    for p0 in range(0, cb, piece):
+        moved = 0
+        for i in range(32):
+            lane = crc32c_ref(0, window[p0 + i * seg:p0 + (i + 1) * seg])
+            moved ^= apply(lanes_mats[i], lane)
+        carry = moved if p0 == 0 else apply(piece_mat, carry) ^ moved
     assert carry == crc32c_ref(0, window)

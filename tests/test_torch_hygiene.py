@@ -10,10 +10,15 @@
 - Entry points default to the card: without one they raise instead of
   running on the CPU; ``device="cpu"`` is the only way onto the plain
   path.
+- Every kernel binding's ctypes signature (``kernels.py``) matches its C
+  entry point in ``csrc/``, the stream included: a pointer or 64-bit
+  integer passed without its type reaches C as a truncated int.
 """
 
 import ast
+import ctypes
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -145,3 +150,31 @@ def test_kernel_wrappers_never_run_plain_for_a_device_tensor():
     ):
         with pytest.raises(ValueError, match="unsupported device"):
             call()
+
+
+def _c_params(source: str, symbol: str) -> list[str]:
+    text = (PKG / "csrc" / f"{source}.cu").read_text()
+    m = re.search(r'extern "C" int ' + symbol + r"\((.*?)\)\s*\{", text, re.S)
+    assert m, f"no C entry point {symbol} in {source}.cu"
+    return [" ".join(p.split()) for p in m.group(1).split(",")]
+
+
+def _ctype(param: str):
+    if "*" in param:
+        return ctypes.c_void_p
+    kind = param.rsplit(" ", 1)[0]
+    return {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+            "unsigned int": ctypes.c_uint}[kind]
+
+
+def _bindings():
+    from ceph_tpu_torch import kernels
+
+    return kernels.ALL
+
+
+@pytest.mark.parametrize("kern", _bindings(), ids=lambda k: k.symbol)
+def test_kernel_bindings_match_the_sources(kern):
+    params = _c_params(kern.source, kern.symbol)
+    assert params[-1] == "void* stream"
+    assert [_ctype(p) for p in params] == list(kern.argtypes)

@@ -252,30 +252,39 @@ def test_empty_and_single_rows(rng):
 
 
 # ------------------------------------------- Kernel D's program on CPU
-def run_program(words, n_slots, ins, in_w, n_out, out_w, p):
-    """Execute an encoded program the way csrc/xor_schedule.cu does:
-    input packet j at shard j // in_w, offset (j % in_w) * p; outputs
-    likewise with out_w; sources < 0 read scratch slot -1 - s."""
+def run_program(words, n_slots, ins, n_out, out_w, p):
+    """Execute an encoded program the way csrc/xor_schedule.cu does: the
+    header names the used input packets by code (shard << 24 | packet
+    within the shard, at byte offset packet * p); an op's input sources
+    index that list, its slot sources follow; a destination >= 0 is an
+    output packet's code, < 0 scratch slot -1 - dst."""
     b = ins[0].shape[0]
     outs = [np.full((b, out_w * p), 0xA5, np.uint8) for _ in range(n_out)]
+    mask = (1 << cuda_xor.CODE_BITS) - 1
+    n_used = int(words[0])
+    rows = []
+    for code in (int(x) for x in words[1:1 + n_used]):
+        sh, t = code >> cuda_xor.CODE_BITS, code & mask
+        rows.append(ins[sh][:, t * p:(t + 1) * p])
     slots: dict[int, np.ndarray] = {}
-    pc = 0
+    pc = 1 + n_used
     while pc < len(words):
-        kind, dst, ns = (int(x) for x in words[pc:pc + 3])
-        pc += 3
+        w0, dst = int(words[pc]), int(words[pc + 1])
+        n_in, n_slot = w0 & 0xFFFF, w0 >> 16
+        pc += 2
         acc = np.zeros((b, p), np.uint8)
-        for s in (int(x) for x in words[pc:pc + ns]):
-            if s >= 0:
-                sh, t = divmod(s, in_w)
-                acc ^= ins[sh][:, t * p:(t + 1) * p]
-            else:
-                acc ^= slots[-1 - s]
-        pc += ns
-        if kind == 0:
-            assert 0 <= dst < n_slots
-            slots[dst] = acc
+        for i in (int(x) for x in words[pc:pc + n_in]):
+            assert 0 <= i < n_used
+            acc ^= rows[i]
+        pc += n_in
+        for s in (int(x) for x in words[pc:pc + n_slot]):
+            acc ^= slots[s]
+        pc += n_slot
+        if dst < 0:
+            assert 0 <= -1 - dst < n_slots
+            slots[-1 - dst] = acc
         else:
-            sh, t = divmod(dst, out_w)
+            sh, t = dst >> cuda_xor.CODE_BITS, dst & mask
             outs[sh][:, t * p:(t + 1) * p] = acc
     return outs
 
@@ -293,14 +302,15 @@ def test_program_matches_plain(seed):
     pk = np.stack(shards, -2).reshape(3, k * w, p)
     for sched in (xs.optimize_schedule(m), xs.schedule_rows(m)):
         want = plain(sched, pk)
-        words, n_slots = cuda_xor.encode_program(sched)
+        words, n_slots = cuda_xor.encode_program(sched, w, w)
         assert words.dtype == np.int32
-        got = run_program(words, n_slots, shards, w, mo, w, p)
+        got = run_program(words, n_slots, shards, mo, w, p)
         for j in range(mo):
             assert np.array_equal(got[j].reshape(3, w, p),
                                   want[:, j * w:(j + 1) * w])
+        words, n_slots = cuda_xor.encode_program(sched, k * w, mo * w)
         (stacked,) = run_program(words, n_slots, [pk.reshape(3, -1)],
-                                 k * w, 1, mo * w, p)
+                                 1, mo * w, p)
         assert np.array_equal(stacked.reshape(3, mo * w, p), want)
 
 
@@ -316,10 +326,10 @@ def test_oversized_scratch_runs_as_selection_rows(monkeypatch):
     sched = xs.optimize_schedule(m)
     assert xs._linearize(sched)[1] > 0
     monkeypatch.setattr(cuda_xor, "MAX_SLOTS", 0)
-    words, n_slots = cuda_xor.encode_program(sched)
+    words, n_slots = cuda_xor.encode_program(sched, 24, 24)
     assert n_slots == 0
     assert np.array_equal(
-        words, cuda_xor.encode_program(xs.schedule_rows(m))[0])
+        words, cuda_xor.encode_program(xs.schedule_rows(m), 24, 24)[0])
 
 
 def test_wrappers_check_the_schedule(rng):

@@ -93,6 +93,33 @@ def test_gf_apply_csum_matches_plain(cuda, c, r, cb):
     assert torch.equal(sc, want_c)
 
 
+_CR = [(c, r) for c in (1, 12, 32) for r in (1, 12, 32)]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("windows", [1, 3, 131])
+@pytest.mark.parametrize("cb", [256, 4096, 65536])
+@pytest.mark.parametrize("c,r", _CR)
+def test_gf_apply_csum_edges(cuda, c, r, cb, windows, offset):
+    """Kernel B at the edges of its contract: C and R up to 32, windows
+    of 256 B to 64 KiB, one, three or 131 windows a row (a step over
+    several windows, a window over several steps, items that do not
+    divide evenly over the persistent grid), and rows one byte off
+    alignment (offset 1: the load path), both forms."""
+    rng = np.random.default_rng(c + 100 * r + cb + windows)
+    bm = gf_matrix_to_bitmatrix(rng.integers(0, 256, (r, c), dtype=np.uint8))
+    n = cb * windows
+    b = 1 if n > (1 << 20) else 2
+    data = _data((b, c, n + offset), seed=c + r).to(cuda)[..., offset:]
+    want_p, want_c = ce.gf_apply_csum_plain(bm, data.contiguous(), cb)
+    got_p, got_c = ce.gf_apply_csum(bm, data, cb)
+    assert torch.equal(got_p, want_p) and torch.equal(got_c, want_c)
+    sp, sc = ce.gf_apply_csum_shards(bm, [data[:, i] for i in range(c)], cb)
+    assert all(torch.equal(sp[j], want_p[:, j]) for j in range(r))
+    assert torch.equal(sc, want_c)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("block", [1, 31, 512, 4096, 65536, 1000])
 @pytest.mark.parametrize("init", [0, 0xFFFFFFFF, 0x1234ABCD])
 def test_crc32c_blocks_matches_plain(cuda, block, init):
@@ -209,6 +236,70 @@ def test_xor_schedule_matches_plain(cuda, p, case, opt):
     for j, o in enumerate(got):
         assert torch.equal(o, want[:, j * w:(j + 1) * w].reshape(3, w * p))
     torch.cuda.synchronize()
+
+
+def _slot_schedule(n_slots):
+    """A Schedule needing exactly ``n_slots`` scratch slots (intermediates
+    t_i = packet i ^ packet i+1, all read by output 0), with a multiple of
+    4 inputs and 4 outputs."""
+    from ceph_tpu_torch.ops import xor_schedule as xs
+
+    n_in = -(-(n_slots + 5) // 4) * 4
+    temps = tuple((i, i + 1) for i in range(n_slots))
+    outputs = (tuple(n_in + t for t in range(n_slots)), (0,), (1,), (n_in - 1,))
+    return xs.Schedule(n_in, temps, outputs)
+
+
+def _xor_both_forms(cuda, sched, w, cols, p, b, offset, seed):
+    """Stacked and per-shard applies of ``sched`` on packets (and shards)
+    starting ``offset`` bytes past an allocation, against the plain form."""
+    from ceph_tpu_torch.ops import cuda_xor
+    from ceph_tpu_torch.ops import xor_schedule as xs
+
+    rows = xs._n_rows(sched)
+    packets = _data((b * cols * p + offset,), seed=seed).to(cuda)[offset:].view(
+        b, cols, p)
+    want = xs.xor_schedule_plain(sched, packets)
+    assert torch.equal(cuda_xor.xor_schedule_apply(sched, packets), want)
+    size = b * w * p
+    sbase = torch.empty(cols // w * size + offset, dtype=torch.uint8,
+                        device=cuda)
+    shards = [sbase[offset + i * size:offset + (i + 1) * size].view(b, w * p)
+              for i in range(cols // w)]
+    for i, sh in enumerate(shards):
+        sh.copy_(packets[:, i * w:(i + 1) * w].reshape(b, w * p))
+    got = cuda_xor.xor_schedule_apply_shards(sched, shards, w)
+    for j, o in enumerate(got):
+        assert torch.equal(o, want[:, j * w:(j + 1) * w].reshape(b, w * p))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("p", [1, 15, 16, 17, 2048, 147456])
+def test_xor_schedule_edges(cuda, p, offset):
+    """Kernel D at the edges of its contract: packet lengths around its
+    16-byte columns and tiles, base pointers one byte off (offset 1: the
+    direct form), the liberation encode and a w = 1 row, both forms."""
+    from ceph_tpu_torch.ops import xor_schedule as xs
+
+    enc = _xor_cases()[0][1]
+    _xor_both_forms(cuda, xs.optimize_schedule(enc), 7, 42, p, 3, offset, p)
+    _xor_both_forms(cuda, xs.optimize_schedule(np.ones((1, 5), np.uint8)), 1,
+                    5, p, 3, offset, p + 1)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("extra", [0, 1])
+def test_xor_schedule_at_max_slots(cuda, extra, offset):
+    """A schedule at the kernel's MAX_SLOTS scratch slots (the direct form
+    at the shared-memory limit) and one past it (run as the selection
+    rows it computes)."""
+    from ceph_tpu_torch.ops import cuda_xor
+
+    sched = _slot_schedule(cuda_xor.MAX_SLOTS + extra)
+    _, slots = cuda_xor.encode_program(sched, 4, 4)
+    assert slots == (0 if extra else cuda_xor.MAX_SLOTS)
+    _xor_both_forms(cuda, sched, 4, sched.n_in, 2048, 2, offset, extra)
 
 
 def test_xor_schedule_unaligned_views(cuda):
