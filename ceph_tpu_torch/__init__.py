@@ -7,11 +7,13 @@ Hopper card:
 - GF(2^8) math: host tables and generator matrices (``gf``), the plain
   PyTorch bit-plane engine (``ops.bitplane``) and the hand-written CUDA
   matrix-apply kernels (``ops.cuda_encode``, ``csrc/gf_apply.cu``);
-- ISA-L Reed-Solomon codecs behind the plugin registry (``codecs``);
-- per-block CRC32C: host reference, plain fold and the CUDA kernel
-  (``checksum``, ``csrc/crc32c.cu``);
-- the per-op EC pipeline slice: stripe geometry, shard extent maps,
-  HashInfo (``pipeline``).
+- the erasure-code families behind the plugin registry (``codecs``);
+- per-block checksums: CRC32C (host reference, plain fold and the CUDA
+  kernel, ``csrc/crc32c.cu``) and xxhash32/64 (``checksum``);
+- the OSD EC backend on the per-op path: stripe geometry, shard extent
+  maps, HashInfo, the RMW write, the read pipeline, recovery and deep
+  scrub (``pipeline``) over MemStore shards (``store``), with the
+  runtime pieces they use (``utils``).
 
 Entry points run on the card unless the caller passes
 ``device="cpu"``; without a card they raise instead of running on the

@@ -9,7 +9,8 @@ CRC32C is GF(2)-linear in the message bits: the plain PyTorch version
 folds a batch of blocks with one einsum against precomputed matrices
 (``crc32c.py``); the CUDA kernel (``cuda_crc.py``, ``csrc/crc32c.cu``)
 hashes each block with shared-memory tables and joins lane segments
-with the same matrices.
+with the same matrices. xxhash32/64 (``xxhash.py``) run as PyTorch ops
+across a batch of blocks.
 """
 
 from . import backends
@@ -21,7 +22,8 @@ from .crc32c import (
     crc32c_seed_shift,
     crc32c_stream,
 )
-from .reference import crc32c_ref
+from .reference import crc32c_ref, xxh32_ref, xxh64_ref
+from .xxhash import xxh32_device, xxh64_device
 
 __all__ = [
     "CSUM_ALGORITHMS",
@@ -34,4 +36,8 @@ __all__ = [
     "crc32c_seed_shift",
     "crc32c_stream",
     "csum_value_size",
+    "xxh32_device",
+    "xxh32_ref",
+    "xxh64_device",
+    "xxh64_ref",
 ]

@@ -9,6 +9,8 @@ Backends:
 - ``plain``  — the plain PyTorch fold (checksum/crc32c.py), on a CPU
   tensor, or on a CUDA tensor with ``ec_use_kernels`` off
 - ``host``   — the host scalar path (checksum/host.py)
+- ``device`` — xxhash's PyTorch ops on the blocks' device
+  (checksum/xxhash.py; no hand kernel, as ``ceph_tpu`` has none)
 """
 
 from __future__ import annotations

@@ -5,8 +5,7 @@ per-block value array for a [offset, offset+length) range of a buffer;
 ``verify`` recomputes and returns the first bad byte offset (or -1)
 plus the bad computed checksum. The crc32c family with the reference's
 exact value widths (Checksummer.h:63-73): crc32c (u32), crc32c_16
-(u16), crc32c_8 (u8). xxhash32 and xxhash64 are named but raise
-NotImplementedError until their port (ROADMAP.md, queue 1 item 4).
+(u16), crc32c_8 (u8), xxhash32 (u32) and xxhash64 (u64).
 
 Defaults match the reference: init_value -1 → all-ones register for
 CRC (the BlueStore convention) and all-ones seed for xxhash.
@@ -17,7 +16,9 @@ larger ones go to the Checksummer's device. Tensors are hashed where
 they lie: on the card through the CUDA kernel (``csrc/crc32c.cu``), on
 the CPU through the plain fold. Every call records which backend
 served it (``checksum.backends``); ``Checksummer.last_backend`` exposes
-the choice per instance. The write path does not pass through here
+the choice per instance. xxhash has no hand kernel (it is XLA work in
+``ceph_tpu``): its PyTorch ops run on the blocks' device, recorded as
+``device``. The write path does not pass through here
 when the fused encode+csum kernel runs: blob and HashInfo csums then
 arrive with the parity, and this facade is the verify tier.
 """
@@ -29,6 +30,13 @@ import torch
 
 from . import backends
 from .crc32c import crc32c_device
+from .xxhash import xxh32_device, xxh64_device
+
+
+def _nbytes(blocks) -> int:
+    if isinstance(blocks, torch.Tensor):
+        return blocks.numel() * blocks.element_size()
+    return blocks.nbytes
 
 
 class _Alg:
@@ -84,9 +92,9 @@ class _XxHash32(_Alg):
     value_dtype = np.dtype("<u4")
 
     def digest_blocks(self, blocks, init_value, device):
-        raise NotImplementedError(
-            "xxhash32 is not ported yet (ROADMAP.md, queue 1 item 4)"
-        )
+        seed = init_value & 0xFFFFFFFF
+        backends.record("device", _nbytes(blocks))
+        return xxh32_device(blocks, seed, device).astype(self.value_dtype)
 
 
 class _XxHash64(_Alg):
@@ -94,9 +102,12 @@ class _XxHash64(_Alg):
     value_dtype = np.dtype("<u8")
 
     def digest_blocks(self, blocks, init_value, device):
-        raise NotImplementedError(
-            "xxhash64 is not ported yet (ROADMAP.md, queue 1 item 4)"
-        )
+        seed = init_value & 0xFFFFFFFFFFFFFFFF
+        backends.record("device", _nbytes(blocks))
+        hi, lo = xxh64_device(blocks, seed, device)
+        return (
+            (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+        ).astype(self.value_dtype)
 
 
 CSUM_ALGORITHMS: dict[str, _Alg] = {

@@ -12,8 +12,7 @@ GF(2^8) matrix engine (``matrix_codec``), the packet bit-matrix engine
 - ``xor``: single XOR parity
 - ``lrc``: layered locally repairable codes (kml and explicit layers)
 - ``clay``: coupled-layer MSR codes with fractional single-chunk repair
-
-shec is still to be ported (ROADMAP.md).
+- ``shec``: shingled erasure codes (non-MDS, fewer reads per repair)
 """
 
 from .interface import (  # noqa: F401
@@ -34,4 +33,5 @@ from . import clay as _clay  # noqa: E402,F401
 from . import isa as _isa  # noqa: E402,F401
 from . import jerasure as _jerasure  # noqa: E402,F401
 from . import lrc as _lrc  # noqa: E402,F401
+from . import shec as _shec  # noqa: E402,F401
 from . import xor_codec as _xor  # noqa: E402,F401

@@ -103,12 +103,9 @@ class ClayCodec(ErasureCodeBase):
                 f"scalar_mds {scalar_mds!r} is not supported, use one of "
                 f"{self.SCALAR_MDS}"
             )
-        if scalar_mds == "shec":
-            raise NotImplementedError(
-                "scalar_mds=shec needs the shec plugin, which is not "
-                "ported yet (ROADMAP.md queue 1 item 13)"
-            )
-        technique = profile.get("technique") or "reed_sol_van"
+        technique = profile.get("technique") or (
+            "reed_sol_van" if scalar_mds in ("jerasure", "isa") else "single"
+        )
         self.q = self.d - self.k + 1
         self.nu = (
             0
@@ -125,6 +122,8 @@ class ClayCodec(ErasureCodeBase):
             "technique": technique,
             "w": "8",
         }
+        if scalar_mds == "shec":
+            mds_profile["c"] = "2"
         self.mds = registry.factory(
             scalar_mds, mds_profile, device=self._target_device()
         )
@@ -466,6 +465,25 @@ class ClayCodec(ErasureCodeBase):
                 val = to_numpy(val)
             U[node][..., zsel, :] = val
 
+    def _inner_decode_shards(self, present: list, want: list,
+                             shards: list) -> list:
+        """Inner-MDS decode of the ``want`` nodes from the ``present``
+        nodes' shards, one output per wanted node. A Reed-Solomon inner
+        code applies its cached decode bit-matrix to the shards; a SHEC
+        inner code runs its own decode, whose shingle search picks the
+        survivors it reads. Both are one GF(2^8) apply (Kernel A on the
+        card)."""
+        if self.scalar_mds == "shec":
+            out = self.mds.decode_chunks(
+                set(want), dict(zip(present, shards))
+            )
+            return [out[nd] for nd in want]
+        key = (tuple(present), tuple(want))
+        bmat_np = self.mds._tables.get(
+            key, lambda: self.mds._build_decode_bmat(present, want)
+        )
+        return self.mds._dispatch_bitmatrix_shards(bmat_np, shards, "decode")
+
     # -- fractional repair ---------------------------------------------
     def repair(
         self,
@@ -670,12 +688,8 @@ class ClayCodec(ErasureCodeBase):
         stack = torch.cat(row_u, dim=-3)  # [.., (t-1)q, P, sc]
         lead = stack.shape[:-3]
         ks = stack.reshape(lead + (len(present), P * sc))
-        key = (tuple(present), tuple(want))
-        bmat_np = self.mds._tables.get(
-            key, lambda: self.mds._build_decode_bmat(present, want)
-        )
-        dec = self.mds._dispatch_bitmatrix_shards(
-            bmat_np, [ks[..., i, :] for i in range(len(present))], "decode"
+        dec = self._inner_decode_shards(
+            present, want, [ks[..., i, :] for i in range(len(present))]
         )
         U = {node: dec[i].reshape(lead + (P, sc))
              for i, node in enumerate(want)}
@@ -845,14 +859,10 @@ class ClayCodec(ErasureCodeBase):
         # stage b: inner-MDS decode of lost row + aloof, one apply per
         # intersection-score group (aloof-free: exactly one).
         present, want = plan["present"], plan["want"]
-        key = (tuple(present), tuple(want))
-        bmat_np = self.mds._tables.get(
-            key, lambda: self.mds._build_decode_bmat(present, want)
-        )
         groups = plan["groups"]
         if len(groups) == 1:
-            dec = self.mds._dispatch_bitmatrix_shards(
-                bmat_np, [U[nd] for nd in present], "decode"
+            dec = self._inner_decode_shards(
+                present, want, [U[nd] for nd in present]
             )
             Uw = dict(zip(want, dec))
         else:
@@ -875,9 +885,7 @@ class ClayCodec(ErasureCodeBase):
                     Uv[nd].index_select(1, zsel).reshape(b, -1)
                     for nd in present
                 ]
-                dec = self.mds._dispatch_bitmatrix_shards(
-                    bmat_np, known, "decode"
-                )
+                dec = self._inner_decode_shards(present, want, known)
                 for i, nd in enumerate(want):
                     Uwb[nd].index_copy_(
                         1, zsel, dec[i].reshape(b, len(groups[s]), sc))

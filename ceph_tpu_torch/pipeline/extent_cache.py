@@ -1,0 +1,249 @@
+"""Write-back stripe cache for partial-write RMW — the ``ECExtentCache``
+analog (osd/ECExtentCache.h:4-74, 863 LoC).
+
+Semantics kept from the reference's design note:
+
+- Per-object cached shard extents, organised into fixed-size cache
+  *lines* (32K per shard) tracked by a shared LRU; lines referenced by
+  in-flight ops are pinned and unevictable.
+- At most ONE outstanding backend read at a time (per PG in the
+  reference; per cache instance here) — reads for later ops queue.
+- IO is never reordered: an op's ready callback fires only after every
+  earlier op on the same object has fired, even if its data arrived
+  first.
+- ``write_done`` publishes the just-written buffers back into the cache
+  so immediately-following partial writes of the same stripe hit.
+
+Event-driven and single-threaded by design: the reference drives this
+from the PG's event loop; this pipeline drives it from the host
+dispatch loop between device launches. No locks needed.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from collections.abc import Callable
+
+from .extents import ExtentSet
+from .shard_map import ShardExtentMap
+from .stripe import StripeInfo
+
+LINE_SIZE = 32768  # bytes per shard per cache line (ECExtentCache.h)
+
+
+class CacheOp:
+    """One prepared RMW op: pinned lines + a promise of read data."""
+
+    def __init__(
+        self,
+        oid: str,
+        to_read: dict[int, ExtentSet],
+        to_write: dict[int, ExtentSet],
+        object_size: int,
+        cb: Callable[["CacheOp"], None],
+    ) -> None:
+        self.oid = oid
+        self.to_read = to_read
+        self.to_write = to_write
+        self.object_size = object_size
+        self.cb = cb
+        self.result: ShardExtentMap | None = None
+        self.invoked = False
+        self.done = False
+
+    def lines(self) -> set[int]:
+        out: set[int] = set()
+        for es in list(self.to_read.values()) + list(self.to_write.values()):
+            for start, end in es:
+                out.update(range(start // LINE_SIZE, (end - 1) // LINE_SIZE + 1))
+        return out
+
+
+class ECExtentCache:
+    """LRU of cache lines + FIFO op queues per object + one-at-a-time
+    backend reads."""
+
+    def __init__(
+        self,
+        sinfo: StripeInfo,
+        backend_read: Callable[[str, dict[int, ExtentSet]], None],
+        capacity_lines: int = 1024,
+    ) -> None:
+        self.sinfo = sinfo
+        self.backend_read = backend_read
+        self.capacity_lines = capacity_lines
+        # (oid, line_no) -> pin count; OrderedDict doubles as LRU order.
+        self._lines: OrderedDict[tuple[str, int], int] = OrderedDict()
+        self._data: dict[str, ShardExtentMap] = {}
+        self._present: dict[str, dict[int, ExtentSet]] = {}
+        self._ops: dict[str, list[CacheOp]] = {}
+        self._read_queue: list[CacheOp] = []
+        self._active_read: CacheOp | None = None
+        # counters (perf-counter hookup later)
+        self.stat_hits = 0
+        self.stat_misses = 0
+        self.stat_evictions = 0
+
+    # -- client API (prepare/execute/read_done/write_done) -------------
+    def prepare(
+        self,
+        oid: str,
+        to_read: dict[int, ExtentSet] | None,
+        to_write: dict[int, ExtentSet],
+        object_size: int,
+        cb: Callable[[CacheOp], None],
+    ) -> CacheOp:
+        op = CacheOp(oid, to_read or {}, to_write, object_size, cb)
+        for line in op.lines():
+            key = (oid, line)
+            self._lines[key] = self._lines.get(key, 0) + 1
+            self._lines.move_to_end(key)
+        return op
+
+    def execute(self, ops: list[CacheOp]) -> None:
+        for op in ops:
+            self._ops.setdefault(op.oid, []).append(op)
+            missing = self._missing(op)
+            if missing:
+                self.stat_misses += 1
+                self._read_queue.append(op)
+            else:
+                self.stat_hits += 1
+        self._maybe_issue_read()
+        self._progress()
+
+    def read_done(self, oid: str, smap: ShardExtentMap) -> None:
+        """Backend read completed: publish data, continue the queue."""
+        data = self._data.setdefault(oid, ShardExtentMap(self.sinfo))
+        present = self._present.setdefault(oid, {})
+        for shard in smap.shards():
+            for start, end in smap.get_extent_set(shard):
+                data.insert(shard, start, smap.get(shard, start, end - start))
+                present.setdefault(shard, ExtentSet()).insert(start, end - start)
+        if self._active_read is not None and self._active_read.oid == oid:
+            self._active_read = None
+        self._maybe_issue_read()
+        self._progress()
+
+    def write_done(self, op: CacheOp, written: ShardExtentMap) -> None:
+        """Op complete: publish written buffers, unpin, evict as needed."""
+        data = self._data.setdefault(op.oid, ShardExtentMap(self.sinfo))
+        present = self._present.setdefault(op.oid, {})
+        for shard in written.shards():
+            for start, end in written.get_extent_set(shard):
+                data.insert(shard, start, written.get(shard, start, end - start))
+                present.setdefault(shard, ExtentSet()).insert(start, end - start)
+        op.done = True
+        for line in op.lines():
+            key = (op.oid, line)
+            if key in self._lines:
+                self._lines[key] -= 1
+        q = self._ops.get(op.oid, [])
+        if op in q:
+            q.remove(op)
+        if not q:
+            self._ops.pop(op.oid, None)
+        self._evict()
+        self._progress()
+        # reads queued while this op held the FIFO (e.g. a truncate's
+        # invalidation re-queuing a former cache hit) issue now
+        self._maybe_issue_read()
+
+    def on_change(self) -> None:
+        """Drop everything not pinned (PG interval change analog)."""
+        self._read_queue.clear()
+        self._active_read = None
+        self._evict(force_all=True)
+
+    def invalidate_object(self, oid: str) -> None:
+        """Drop one object's cached CONTENT (truncate invalidation):
+        later ops re-read from the backend. Pins/line bookkeeping
+        stay — they only gate eviction. Ops already queued as HITS
+        must re-enter the read queue, or they would wait forever for
+        extents nothing will produce; the read issues only after the
+        invalidating op's write_done, so it sees post-truncate
+        stores."""
+        self._data.pop(oid, None)
+        self._present.pop(oid, None)
+        for op in self._ops.get(oid, []):
+            if (
+                not op.invoked
+                and not op.done
+                and op not in self._read_queue
+                and self._missing(op)
+            ):
+                self._read_queue.append(op)
+
+    # -- internals ------------------------------------------------------
+    def _present_set(self, oid: str, shard: int) -> ExtentSet:
+        return self._present.get(oid, {}).get(shard, ExtentSet())
+
+    def _missing(self, op: CacheOp) -> dict[int, ExtentSet]:
+        out: dict[int, ExtentSet] = {}
+        for shard, es in op.to_read.items():
+            miss = es.difference(self._present_set(op.oid, shard))
+            if miss:
+                out[shard] = miss
+        return out
+
+    def _maybe_issue_read(self) -> None:
+        while self._active_read is None and self._read_queue:
+            op = self._read_queue.pop(0)
+            if op.done:
+                continue
+            missing = self._missing(op)
+            if not missing:
+                continue  # satisfied by an earlier op's read
+            self._active_read = op
+            self.backend_read(op.oid, missing)
+            # backend_read may call read_done synchronously (memstore),
+            # clearing _active_read — loop handles that.
+
+    def _progress(self) -> None:
+        """Fire ready callbacks strictly FIFO per object."""
+        for oid, q in list(self._ops.items()):
+            for op in list(q):
+                if op.invoked:
+                    # Invoked but still in the queue = its write hasn't
+                    # landed (write_done removes completed ops). A later
+                    # op must NOT proceed against pre-write cache state
+                    # — that encodes stale data into parity. Serialize.
+                    break
+                if self._missing(op):
+                    break  # never reorder: stop at first unready op
+                op.result = self._snapshot(op)
+                op.invoked = True
+                op.cb(op)
+
+    def _snapshot(self, op: CacheOp) -> ShardExtentMap:
+        smap = ShardExtentMap(self.sinfo)
+        data = self._data.get(op.oid)
+        if data is None:
+            return smap
+        for shard, es in op.to_read.items():
+            for start, end in es:
+                smap.insert(shard, start, data.get(shard, start, end - start))
+        return smap
+
+    def _evict(self, force_all: bool = False) -> None:
+        limit = 0 if force_all else self.capacity_lines
+        unpinned = [k for k, pins in self._lines.items() if pins <= 0]
+        excess = len(self._lines) - limit
+        for key in unpinned:
+            if excess <= 0:
+                break
+            oid, line = key
+            del self._lines[key]
+            excess -= 1
+            self.stat_evictions += 1
+            start = line * LINE_SIZE
+            data = self._data.get(oid)
+            if data is not None:
+                for shard in list(data.shards()):
+                    data.erase(shard, start, LINE_SIZE)
+                    pres = self._present.get(oid, {}).get(shard)
+                    if pres is not None:
+                        pres.erase(start, LINE_SIZE)
+
+    def lru_size(self) -> int:
+        return len(self._lines)

@@ -1,32 +1,37 @@
-"""Read pipeline, the reconstruct half — the ``ECCommon::ReadPipeline``
-planning and reconstruction analog.
+"""Read pipeline — the ``ECCommon::ReadPipeline`` analog.
 
 Behavioral mirror of the reference's degraded-read path
-(osd/ECCommon.cc: ``get_min_avail_to_read_shards`` :198, reconstruction
-in ``complete_read_op`` :90):
+(osd/ECCommon.cc: ``get_min_avail_to_read_shards`` :198, ``do_read_op``
+:387, ``get_remaining_shards`` retry :312, ``complete_read_op`` :90;
+client entry osd/ECBackend.cc ``objects_read_and_reconstruct`` :1725):
 
 1. Plan: if every wanted shard is available, read exactly the wanted
    extents (fast path, no decode). Otherwise apply the codec's
    ``minimum_to_decode`` (with sub-chunk selectors — the CLAY fractional
    repair plan rides the same ``shard_read_t`` seam, ECCommon.h:83-133)
    over the chunk-aligned window.
-2. Reconstruct the wanted shards from the survivors' bytes: CLAY
+2. Dispatch per-shard sub-reads (the ECSubRead fan-out seam).
+3. On a shard EIO, retry from the remaining survivors: re-plan with the
+   failed shard excluded and issue only the still-missing reads
+   (``get_remaining_shards``); if no plan exists, the client gets EIO.
+4. Reconstruct the wanted shards from the survivors' bytes: CLAY
    fractional repair when the plan carried sub-chunk selectors and
    exactly one shard is lost, windowed decode otherwise. This is also
    how shard recovery reaches ``codec.repair``.
+5. Client reads complete strictly in submission order regardless of
+   backend completion order (``in_progress_client_reads``,
+   ECBackend.h:131-148).
 
 The reconstruction is one batched codec call over the whole window. The
 repair's helper bytes go to the codec's device as tensors, so on the
 card a fractional repair runs on the repair kernels.
-
-Not ported yet: ``ReadPipeline`` and ``ClientReadOp`` (sub-read
-fan-out, EIO retry from the remaining survivors, in-order client
-completion) need rmw's ``ShardBackend`` and an object store, ROADMAP.md
-queue 1 items 7 and 8.
 """
 
 from __future__ import annotations
 
+import time
+from collections import OrderedDict
+from collections.abc import Callable
 from dataclasses import dataclass
 
 import numpy as np
@@ -258,3 +263,262 @@ def _repair_fractional(
         end = min(hi, shard_size)
         if end > lo:
             result.insert(shard, lo, buf[: end - lo])
+
+
+class ClientReadOp:
+    """One in-flight client read (ECCommon::ClientAsyncReadStatus +
+    read_request_t rolled together)."""
+
+    def __init__(
+        self,
+        rid: int,
+        oid: str,
+        ro_offset: int,
+        length: int,
+        on_complete: Callable[["ClientReadOp"], None] | None,
+    ) -> None:
+        self.rid = rid
+        self.oid = oid
+        self.ro_offset = ro_offset
+        self.length = length
+        self.on_complete = on_complete
+        self.want: dict[int, ExtentSet] = {}
+        self.shard_reads: dict[int, ShardRead] = {}
+        self.need_decode = False
+        self.result: ShardExtentMap | None = None
+        self.error_shards: set[int] = set()
+        # shard -> outstanding sub-read count (a retry can widen a
+        # shard's window while its first sub-read is still in flight).
+        self.pending: dict[int, int] = {}
+        self.done = False
+        self.data: bytes | None = None
+        self.error: Exception | None = None
+        self.t_submit: float | None = None
+
+
+class ReadPipeline:
+    """plan → sub-reads → (decode) → in-order client completion."""
+
+    def __init__(
+        self,
+        sinfo: StripeInfo,
+        codec,
+        backend,
+        size_fn: Callable[[str], int],
+        perf_name: str = "ec_read",
+    ) -> None:
+        self.sinfo = sinfo
+        self.codec = codec
+        self.backend = backend
+        self.size_fn = size_fn
+        self._next_rid = 1
+        self._inflight: "OrderedDict[int, ClientReadOp]" = OrderedDict()
+        from ceph_tpu_torch.utils import PerfCountersBuilder, perf_collection
+
+        # The io_counters read_cnt/read_bytes analog (ECBackend.cc:
+        # 1797-1823) plus reconstruct/retry visibility.
+        self.perf = (
+            PerfCountersBuilder(perf_collection, perf_name)
+            .add_u64_counter("read_ops", "client reads submitted")
+            .add_u64_counter("read_bytes", "client bytes returned")
+            .add_u64_counter("reconstruct_ops", "reads that decoded")
+            .add_u64_counter(
+                "helper_read_bytes",
+                "bytes requested from shard stores by sub-reads (the "
+                "MSR observable: CLAY fractional repair keeps this "
+                "below the k-full-chunk bytes a naive decode reads)",
+            )
+            .add_u64_counter("retries", "sub-read retries after errors")
+            .add_u64_counter("errors", "reads failed after retry")
+            .add_avg("read_lat", "submit-to-complete seconds")
+            .create_perf_counters()
+        )
+
+    # -- client entry (objects_read_and_reconstruct analog) ------------
+    def submit(
+        self,
+        oid: str,
+        ro_offset: int,
+        length: int,
+        on_complete: Callable[[ClientReadOp], None] | None = None,
+    ) -> int:
+        op = ClientReadOp(self._next_rid, oid, ro_offset, length, on_complete)
+        op.t_submit = time.perf_counter()
+        self._next_rid += 1
+        self._inflight[op.rid] = op
+        self.perf.inc("read_ops")
+
+        # Reads past EOF are trimmed (objects_read_sync semantics).
+        size = self.size_fn(oid)
+        if ro_offset >= size:
+            op.length = 0
+        else:
+            op.length = min(length, size - ro_offset)
+        if op.length <= 0:
+            op.data = b""
+            self._finish(op)
+            return op.rid
+
+        op.want = self.sinfo.ro_range_to_shard_extent_set(
+            op.ro_offset, op.length
+        )
+        op.result = ShardExtentMap(self.sinfo)
+        try:
+            op.shard_reads, op.need_decode = get_min_avail_to_read_shards(
+                self.sinfo, self.codec, op.want, self._avail()
+            )
+        except ValueError as e:
+            op.error = e
+            self._finish(op)
+            return op.rid
+        self._issue(op, op.shard_reads)
+        return op.rid
+
+    def read_sync(self, oid: str, ro_offset: int, length: int) -> bytes:
+        """Synchronous wrapper (ECBackend::objects_read_sync analog).
+        Backends with a ``drain_until`` event loop (the networked one)
+        are drained on this thread until the read completes."""
+        out: dict[str, ClientReadOp] = {}
+        self.submit(oid, ro_offset, length, lambda op: out.update(op=op))
+        drain = getattr(self.backend, "drain_until", None)
+        if drain is not None and "op" not in out:
+            drain(lambda: "op" in out)
+        op = out["op"]
+        if op.error is not None:
+            raise op.error
+        return op.data
+
+    # -- internals ------------------------------------------------------
+    def _avail(self) -> set[int]:
+        return self.backend.avail_shards()
+
+    def _issue(self, op: ClientReadOp, reads: dict[int, ShardRead]) -> None:
+        for shard in reads:
+            op.pending[shard] = op.pending.get(shard, 0) + 1
+        self.perf.inc(
+            "helper_read_bytes",
+            sum(
+                end - start
+                for sr in reads.values()
+                for start, end in sr.extents
+            ),
+        )
+        for sr in list(reads.values()):
+            self.backend.read_shard_async(
+                sr.shard,
+                op.oid,
+                sr.extents,
+                lambda shard, result, _op=op: self._sub_read_done(
+                    _op, shard, result
+                ),
+            )
+
+    def _sub_read_done(self, op: ClientReadOp, shard: int, result) -> None:
+        left = op.pending.get(shard, 0) - 1
+        if left > 0:
+            op.pending[shard] = left
+        else:
+            op.pending.pop(shard, None)
+        if isinstance(result, Exception):
+            op.error_shards.add(shard)
+            self._retry(op)
+        else:
+            for start, buf in result.items():
+                op.result.insert(shard, start, buf)
+            if not op.pending:
+                self._complete(op)
+
+    def _retry(self, op: ClientReadOp) -> None:
+        """Re-plan from the remaining survivors (get_remaining_shards,
+        ECCommon.cc:312): issue only byte ranges not already read or
+        requested. A still-pending shard can be widened — the extra
+        sub-read just bumps its pending count."""
+        self.perf.inc("retries")
+        avail = self._avail() - op.error_shards
+        try:
+            reads, need_decode = get_min_avail_to_read_shards(
+                self.sinfo, self.codec, op.want, avail
+            )
+        except ValueError as e:
+            op.error = e
+            if not op.pending:
+                self._complete(op)
+            return
+        op.need_decode = op.need_decode or need_decode
+        fresh: dict[int, ShardRead] = {}
+        for shard, sr in reads.items():
+            if shard in op.error_shards:
+                continue
+            already = op.result.get_extent_set(shard)
+            prior = op.shard_reads.get(shard)
+            if prior is not None:
+                already = already.copy()
+                already.union(prior.extents)
+            missing = sr.extents.difference(already)
+            if missing:
+                fresh[shard] = ShardRead(shard, missing, sr.subchunks)
+        # Refresh the sub-chunk selectors to the CURRENT plan: a retry
+        # that fell back from fractional repair to full decode must not
+        # leave stale selectors steering _reconstruct into codec.repair
+        # with too few helpers.
+        for shard, sr in op.shard_reads.items():
+            new = reads.get(shard)
+            sr.subchunks = new.subchunks if new is not None else None
+        for shard, sr in fresh.items():
+            if shard in op.shard_reads:
+                op.shard_reads[shard].extents.union(sr.extents)
+            else:
+                op.shard_reads[shard] = ShardRead(
+                    shard, sr.extents.copy(), sr.subchunks
+                )
+        if fresh:
+            self._issue(op, fresh)
+        elif not op.pending:
+            self._complete(op)
+
+    def _complete(self, op: ClientReadOp) -> None:
+        if op.error is None and op.need_decode:
+            from ceph_tpu_torch.utils import tracer
+
+            self.perf.inc("reconstruct_ops")
+            try:
+                with tracer.span("ec_reconstruct", oid=op.oid, rid=op.rid):
+                    self._reconstruct(op)
+            except ValueError as e:
+                op.error = e
+        if op.error is None:
+            op.data = gather_ro_range(
+                self.sinfo, op.result, op.ro_offset, op.length
+            )
+            self.perf.inc("read_bytes", len(op.data))
+        else:
+            self.perf.inc("errors")
+        self._finish(op)
+
+    def _reconstruct(self, op: ClientReadOp) -> None:
+        """Decode missing wanted shards from the survivors in
+        ``op.result`` (complete_read_op → shard_extent_map_t::decode)."""
+        reconstruct_shards(
+            self.sinfo,
+            self.codec,
+            op.result,
+            op.want,
+            op.shard_reads,
+            self.size_fn(op.oid),
+            op.error_shards,
+        )
+
+    def _finish(self, op: ClientReadOp) -> None:
+        """In-order completion (in_progress_client_reads semantics)."""
+        op.done = True
+        while self._inflight:
+            rid, front = next(iter(self._inflight.items()))
+            if not front.done:
+                return
+            self._inflight.pop(rid)
+            if front.t_submit is not None:
+                self.perf.ainc(
+                    "read_lat", time.perf_counter() - front.t_submit
+                )
+            if front.on_complete is not None:
+                front.on_complete(front)

@@ -1,0 +1,519 @@
+"""Shard recovery + deep scrub — the ``ECBackend::RecoveryBackend`` and
+``be_deep_scrub`` analogs.
+
+Recovery mirrors the reference's backfill of a failed shard
+(osd/ECBackend.h:191-198 RecoveryOp FSM IDLE→READING→WRITING→COMPLETE,
+ECBackend.cc:298-530 ``continue_recovery_op``): plan the minimum read
+set over the survivors (CLAY's fractional-repair sub-chunk plan rides
+the same seam — reads only ``(d·chunk)/(d-k+1)`` bytes), reconstruct
+the lost shard in one batched device dispatch, then push it to the
+replacement store together with the restored ``hinfo`` attr (the Push
+message analog).
+
+Deep scrub mirrors ECBackend::be_deep_scrub (osd/ECBackend.cc:1769,
+CRC check :1829-1869): every shard's stored bytes are CRC32C'd from the
+seed and compared against the object's persisted ``HashInfo``; a
+mismatched shard is reported so recovery can rebuild it. The CRC rides
+``checksum.crc32c_stream`` — device-batched fold above the
+``csum_device_min_bytes`` threshold, host scalar below — so scrubbing
+a large object no longer serializes through the host hash. Recovery
+verifies fully reconstructed shards against the persisted HashInfo the
+same way (``ec_recovery_verify``) BEFORE pushing them: a miscomputed
+or bit-flipped rebuild can never silently replace a shard.
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from ceph_tpu_torch.checksum import crc32c_stream
+from ceph_tpu_torch.store import Transaction
+
+from .extents import ExtentSet
+from .hashinfo import SEED, HashInfo
+from .read import (
+    ShardRead,
+    get_min_avail_to_read_shards,
+    reconstruct_shards,
+)
+from .rmw import HINFO_KEY, OI_KEY, SI_KEY, pack_oi
+from .shard_map import ShardExtentMap
+from .stripe import StripeInfo
+
+
+class RecoveryState(enum.Enum):
+    """ECBackend.h:191-198."""
+
+    IDLE = "IDLE"
+    READING = "READING"
+    WRITING = "WRITING"
+    COMPLETE = "COMPLETE"
+
+
+class RecoveryOp:
+    """One object's recovery (the RecoveryBackend::RecoveryOp analog)."""
+
+    def __init__(self, oid: str, missing: set[int]) -> None:
+        self.oid = oid
+        self.missing = set(missing)
+        self.state = RecoveryState.IDLE
+        self.want: dict[int, ExtentSet] = {}
+        self.shard_reads: dict[int, ShardRead] = {}
+        self.result: ShardExtentMap | None = None
+        self.error_shards: set[int] = set()
+        self.pending_reads: set[int] = set()
+        self.pending_pushes: set[int] = set()
+        self.recovered_bytes = 0
+        self.read_bytes = 0
+        self.error: Exception | None = None
+        # Optional per-shard extent restriction (delta recovery).
+        self.extent_override: dict[int, ExtentSet] | None = None
+        # Optional object-size override (peer-reported size).
+        self.size_override: int | None = None
+
+
+class RecoveryBackend:
+    """Rebuild missing shards of an object onto their (replacement)
+    stores; drive with ``recover_object`` or step the FSM manually via
+    ``continue_recovery_op``."""
+
+    def __init__(
+        self,
+        sinfo: StripeInfo,
+        codec,
+        backend,
+        size_fn,
+        hinfo_fn,
+        perf_name: str = "ec_recovery",
+        user_attrs_fn=None,
+        eversion_fn=None,
+    ) -> None:
+        self.sinfo = sinfo
+        self.codec = codec
+        self.backend = backend
+        self.size_fn = size_fn
+        self.hinfo_fn = hinfo_fn
+        #: oid -> authoritative (epoch, tid) to stamp into pushed OI
+        #: attrs (None = stamp the null eversion)
+        self.eversion_fn = eversion_fn
+        #: oid -> {attr name: bytes} of USER attrs to restore with a
+        #: push (the primary's copy — user xattrs replicate everywhere)
+        self.user_attrs_fn = user_attrs_fn
+        from ceph_tpu_torch.utils import PerfCountersBuilder, perf_collection
+
+        self.perf = (
+            PerfCountersBuilder(perf_collection, perf_name)
+            .add_u64_counter("recovery_ops", "objects recovered")
+            .add_u64_counter("recovery_read_bytes",
+                             "survivor bytes read for recovery")
+            .add_u64_counter("recovered_bytes", "bytes pushed to targets")
+            .add_u64_counter("errors", "recoveries failed")
+            .create_perf_counters()
+        )
+
+    # -- FSM -------------------------------------------------------------
+    def open_recovery_op(self, oid: str, missing: set[int]) -> RecoveryOp:
+        return RecoveryOp(oid, missing)
+
+    def continue_recovery_op(self, op: RecoveryOp) -> RecoveryState:
+        """Advance one state (continue_recovery_op, ECBackend.cc:298)."""
+        if op.state is RecoveryState.IDLE:
+            self._start_reads(op)
+        elif op.state is RecoveryState.READING:
+            if not op.pending_reads and op.error is None:
+                self._start_writes(op)
+            elif op.error is not None:
+                op.state = RecoveryState.COMPLETE
+        elif op.state is RecoveryState.WRITING:
+            if not op.pending_pushes:
+                op.state = RecoveryState.COMPLETE
+        return op.state
+
+    def recover_object(
+        self,
+        oid: str,
+        missing: set[int],
+        extents: "dict[int, ExtentSet] | None" = None,
+        size: int | None = None,
+    ) -> RecoveryOp:
+        """Run the FSM to completion. Backends with a ``drain_until``
+        event loop (the networked one) are drained between states.
+        ``extents`` restricts the rebuild per shard — the log-driven
+        delta-recovery path (see ``recover_from_log``). ``size``
+        overrides size_fn when the caller knows the object size from a
+        source the local state doesn't reflect (a peer's report)."""
+        from ceph_tpu_torch.utils import tracer
+        from ceph_tpu_torch.utils.optracker import op_tracker
+
+        drain = getattr(self.backend, "drain_until", None)
+        op = self.open_recovery_op(oid, missing)
+        op.extent_override = extents
+        op.size_override = size
+        tracked = op_tracker.register(
+            "recovery_push", daemon=self.perf.name, oid=oid,
+            missing=sorted(missing),
+        )
+        try:
+            with tracer.span(
+                "ec_recover", oid=oid, missing=sorted(missing)
+            ):
+                while op.state is not RecoveryState.COMPLETE:
+                    before = op.state
+                    self.continue_recovery_op(op)
+                    if op.state is not before:
+                        tracked.mark_event(op.state.value.lower())
+                    if op.state is before and op.error is not None:
+                        break
+                    if op.state is before:
+                        if drain is not None and op.pending_reads:
+                            drain(
+                                lambda: not op.pending_reads or op.error
+                            )
+                        elif drain is not None and op.pending_pushes:
+                            drain(lambda: not op.pending_pushes)
+                        else:
+                            raise RuntimeError(
+                                f"recovery stalled in {op.state} "
+                                f"for {oid!r}"
+                            )
+        except BaseException as e:
+            tracked.finish(f"error:{type(e).__name__}")
+            raise
+        if op.error is not None:
+            tracked.finish(f"error:{type(op.error).__name__}")
+            self.perf.inc("errors")
+            raise op.error
+        tracked.finish("done")
+        self.perf.inc("recovery_ops")
+        self.perf.inc("recovery_read_bytes", op.read_bytes)
+        self.perf.inc("recovered_bytes", op.recovered_bytes)
+        return op
+
+    def _op_size(self, op: RecoveryOp) -> int:
+        return (
+            op.size_override if op.size_override is not None
+            else self.size_fn(op.oid)
+        )
+
+    def _start_reads(self, op: RecoveryOp) -> None:
+        size = self._op_size(op)
+        op.want = {}
+        for shard in op.missing:
+            ssize = self.sinfo.object_size_to_exact_shard_size(size, shard)
+            if ssize <= 0:
+                continue
+            if op.extent_override is not None:
+                es = op.extent_override.get(shard, ExtentSet())
+                clipped = ExtentSet()
+                for start, end in es:
+                    if start < ssize:
+                        clipped.insert(start, min(end, ssize) - start)
+                if clipped:
+                    op.want[shard] = clipped
+            else:
+                op.want[shard] = ExtentSet([(0, ssize)])
+        op.result = ShardExtentMap(self.sinfo)
+        op.state = RecoveryState.READING
+        if not op.want:
+            return  # no bytes to read; WRITING still restores the
+            # object's existence + attrs on the missing shards
+        avail = self.backend.avail_shards() - op.missing
+        try:
+            op.shard_reads, _ = get_min_avail_to_read_shards(
+                self.sinfo, self.codec, op.want, avail
+            )
+        except ValueError as e:
+            op.error = e
+            return
+        op.pending_reads = set(op.shard_reads)
+        for sr in list(op.shard_reads.values()):
+            self.backend.read_shard_async(
+                sr.shard,
+                op.oid,
+                sr.extents,
+                lambda shard, result, _op=op: self._read_done(
+                    _op, shard, result
+                ),
+            )
+
+    def _read_done(self, op: RecoveryOp, shard: int, result) -> None:
+        op.pending_reads.discard(shard)
+        if isinstance(result, Exception):
+            # Recovery retry policy mirrors reads: drop the shard and
+            # re-plan; a second loss during recovery is still decodable
+            # while survivors >= k.
+            op.error_shards.add(shard)
+            avail = (
+                self.backend.avail_shards() - op.missing - op.error_shards
+            )
+            try:
+                reads, _ = get_min_avail_to_read_shards(
+                    self.sinfo, self.codec, op.want, avail
+                )
+            except ValueError as e:
+                op.error = e
+                return
+            for s, sr in op.shard_reads.items():
+                new = reads.get(s)
+                sr.subchunks = new.subchunks if new is not None else None
+            fresh = {
+                s: sr
+                for s, sr in reads.items()
+                if s not in op.shard_reads and s not in op.error_shards
+            }
+            op.shard_reads.update(fresh)
+            op.pending_reads.update(fresh)
+            for sr in list(fresh.values()):
+                self.backend.read_shard_async(
+                    sr.shard,
+                    op.oid,
+                    sr.extents,
+                    lambda s2, r2, _op=op: self._read_done(_op, s2, r2),
+                )
+        else:
+            for start, buf in result.items():
+                op.result.insert(shard, start, buf)
+                op.read_bytes += len(buf)
+
+    def _start_writes(self, op: RecoveryOp) -> None:
+        size = self._op_size(op)
+        try:
+            reconstruct_shards(
+                self.sinfo,
+                self.codec,
+                op.result,
+                op.want,
+                op.shard_reads,
+                size,
+                op.error_shards,
+            )
+        except ValueError as e:
+            op.error = e
+            op.state = RecoveryState.COMPLETE
+            return
+        op.state = RecoveryState.WRITING
+        hinfo = self.hinfo_fn(op.oid)
+        err = self._verify_reconstructed(op, hinfo)
+        if err is not None:
+            op.error = err
+            op.state = RecoveryState.COMPLETE
+            return
+        hinfo_bytes = hinfo.to_bytes() if hinfo is not None else None
+        # Every missing shard gets a push: zero-length tail shards
+        # still carry the object (touch) and its hinfo attr, exactly
+        # as the original write's per-shard transaction did.
+        op.pending_pushes = set(op.missing)
+        user_attrs = (
+            self.user_attrs_fn(op.oid)
+            if self.user_attrs_fn is not None else {}
+        )
+        for shard in sorted(op.missing):
+            txn = Transaction().touch(op.oid)
+            # Truncate to the authoritative shard length: a DIVERGENT
+            # target (eversion rollback) may hold a LONGER stale copy
+            # whose garbage tail would otherwise survive the rebuild
+            # (absent-shard pushes truncate to a no-op).
+            txn.truncate(
+                op.oid,
+                max(
+                    self.sinfo.object_size_to_exact_shard_size(size, shard),
+                    0,
+                ),
+            )
+            for start, end in op.want.get(shard, ExtentSet()):
+                buf = bytes(op.result.get(shard, start, end - start))
+                txn.write(op.oid, start, buf)
+                op.recovered_bytes += len(buf)
+            if hinfo_bytes is not None:
+                txn.setattr(op.oid, HINFO_KEY, hinfo_bytes)
+            # identity attrs, as the original write txn carried them:
+            # size for new-primary takeover, shard index for the
+            # misplacement guard
+            ev = (
+                self.eversion_fn(op.oid) if self.eversion_fn else None
+            ) or (0, 0)
+            txn.setattr(op.oid, OI_KEY, pack_oi(size, ev))
+            txn.setattr(op.oid, SI_KEY, str(shard).encode())
+            for aname, aval in user_attrs.items():
+                txn.setattr(op.oid, aname, aval)
+            self.backend.submit_shard_txn(
+                shard,
+                txn,
+                lambda s=shard, o=op: o.pending_pushes.discard(s),
+            )
+        if not op.pending_pushes:
+            op.state = RecoveryState.COMPLETE
+
+    def _verify_reconstructed(
+        self, op: RecoveryOp, hinfo
+    ) -> "Exception | None":
+        """Check a FULL rebuild against the persisted cumulative shard
+        crcs before anything is pushed (be_deep_scrub applied to the
+        decode output, device-batched via crc32c_stream). Skipped for
+        delta recovery (partial extents can't reproduce a cumulative
+        hash) and for objects whose hashes were invalidated by an
+        overwrite — exactly the windows deep scrub skips too."""
+        from ceph_tpu_torch.utils import config
+
+        if (
+            not config.get("ec_recovery_verify")
+            or hinfo is None
+            or op.extent_override is not None
+        ):
+            return None
+        hashed = hinfo.get_total_chunk_size()
+        if hashed == 0:
+            return None
+        for shard in sorted(op.missing):
+            if shard not in op.want:
+                continue  # zero-length tail shard: nothing rebuilt
+            # absent bytes read as zeros — the encode-time zero-pad
+            # convention the cumulative hashes were built under
+            got = crc32c_stream(
+                op.result.get(shard, 0, hashed), SEED, self.codec.device
+            )
+            want = hinfo.get_chunk_hash(shard)
+            if got != want:
+                return IOError(
+                    f"reconstructed shard {shard} of {op.oid!r} fails "
+                    f"HashInfo verify: got {got:#x} want {want:#x}"
+                )
+        return None
+
+    # -- log-driven delta recovery (PGLog missing-set replay) ----------
+    def recover_from_log(self, pglog, shard: int) -> dict[str, RecoveryOp]:
+        """Catch a lagging shard up from the op log: rebuild ONLY the
+        extents written past its contiguous frontier — the delta
+        recovery PGLog exists for, vs. full backfill (osd/PGLog.h
+        missing-set semantics). Marks the shard recovered on success."""
+        head = pglog.head()
+        ops: dict[str, RecoveryOp] = {}
+        # deletes first: a shard that missed a remove still holds the
+        # object's stale bytes — resurrection unless replayed
+        drain = getattr(self.backend, "drain_until", None)
+        pending: set[str] = set()
+        for oid in sorted(pglog.dirty_deletes(shard)):
+            pending.add(oid)
+            self.backend.submit_shard_txn(
+                shard,
+                Transaction().touch(oid).remove(oid),
+                lambda o=oid: pending.discard(o),
+            )
+        if pending and drain is not None:
+            drain(lambda: not pending)
+        for oid, extents in sorted(pglog.dirty_extents(shard).items()):
+            ops[oid] = self.recover_object(
+                oid, {shard}, extents={shard: extents}
+            )
+        # user-xattr replay: push the FINAL attr state the shard missed
+        # (tombstones as tolerant rmattrs — it may never have had them)
+        xdirty = pglog.dirty_xattrs(shard)
+        xpending: set[str] = set()
+        for oid, attrs in sorted(xdirty.items()):
+            txn = Transaction().touch(oid)
+            for name, val in sorted(attrs.items()):  # FULL attr keys
+                if val is None:
+                    txn.rmattr(oid, name, ignore_missing=True)
+                else:
+                    txn.setattr(oid, name, val)
+            xpending.add(oid)
+            self.backend.submit_shard_txn(
+                shard, txn, lambda o=oid: xpending.discard(o)
+            )
+        if xpending and drain is not None:
+            drain(lambda: not xpending)
+        pglog.mark_recovered(shard, head)
+        return ops
+
+
+# -- deep scrub ---------------------------------------------------------
+
+
+@dataclass
+class ScrubError:
+    shard: int
+    kind: str  # "missing_attr" | "crc_mismatch" | "read_error"
+    detail: str = ""
+
+
+@dataclass
+class ScrubResult:
+    oid: str
+    errors: list[ScrubError] = field(default_factory=list)
+    repaired: bool = False
+
+    @property
+    def ok(self) -> bool:
+        return not self.errors
+
+
+def be_deep_scrub(
+    sinfo: StripeInfo,
+    backend,
+    oid: str,
+    hinfo: HashInfo | None = None,
+    device="cuda",
+) -> ScrubResult:
+    """Verify every shard's stored bytes against the persisted HashInfo
+    CRCs (ECBackend.cc:1829-1869). Strides at or above
+    ``csum_device_min_bytes`` hash on ``device`` (``"cuda"`` unless the
+    caller asks for the CPU).
+
+    ``hinfo`` defaults to the attr stored on shard 0 (all shards carry
+    the same copy — written transactionally with the data). Shards
+    whose hashes were invalidated by an overwrite (cleared hinfo) scrub
+    as OK with zero coverage, mirroring the reference's skip.
+    """
+    result = ScrubResult(oid)
+    if hinfo is None:
+        for shard in sorted(backend.avail_shards()):
+            try:
+                raw = backend.stores[shard].getattr(oid, HINFO_KEY)
+                hinfo = HashInfo.from_bytes(raw, device)
+                break
+            except (FileNotFoundError, KeyError):
+                continue
+        if hinfo is None:
+            result.errors.append(ScrubError(-1, "missing_attr"))
+            return result
+    hashed = hinfo.get_total_chunk_size()
+    if hashed == 0:
+        return result  # cleared / empty: nothing to verify
+    from ceph_tpu_torch.utils import config
+
+    stride = max(int(config.get("osd_deep_scrub_stride")), 4096)
+    for shard in sorted(backend.avail_shards()):
+        store = backend.stores[shard]
+        # Stride-bounded reads (osd_deep_scrub_stride): the CRC chains
+        # across pieces, so scrub memory/latency stays bounded no
+        # matter the object size (ECBackend.cc:1793-1795).
+        crc = SEED
+        missing = False
+        for off in range(0, hashed, stride):
+            want_len = min(stride, hashed - off)
+            try:
+                buf = store.read(oid, off, want_len)
+            except FileNotFoundError:
+                result.errors.append(
+                    ScrubError(shard, "read_error", "missing")
+                )
+                missing = True
+                break
+            # Ragged tails: stored bytes short of the hashed window
+            # were hashed as zeros at encode time (zero-padding).
+            if len(buf) < want_len:
+                buf = buf + b"\0" * (want_len - len(buf))
+            crc = crc32c_stream(buf, crc, device)
+        if missing:
+            continue
+        want = hinfo.get_chunk_hash(shard)
+        if crc != want:
+            result.errors.append(
+                ScrubError(
+                    shard, "crc_mismatch", f"got {crc:#x} want {want:#x}"
+                )
+            )
+    return result

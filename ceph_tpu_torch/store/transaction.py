@@ -1,0 +1,214 @@
+"""Atomic store transactions — the ``ceph::os::Transaction`` analog.
+
+Mirrors src/os/Transaction.h: an ordered op list applied atomically by
+a store. The op vocabulary is the subset the EC pipeline emits from
+``generate_transactions`` (osd/ECTransaction.cc:916): touch, write,
+zero, truncate, remove, setattr, rmattr. Each op is a plain record;
+the store interprets them (src/os/memstore/MemStore.cc
+``_do_transaction`` pattern).
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass, field
+
+
+class OpKind(enum.Enum):
+    TOUCH = "touch"
+    WRITE = "write"
+    ZERO = "zero"
+    TRUNCATE = "truncate"
+    REMOVE = "remove"
+    SETATTR = "setattr"
+    RMATTR = "rmattr"
+    #: rmattr that no-ops when the attr is absent — the xattr-
+    #: tombstone replay path, where the target may never have had it
+    RMATTR_TOLERANT = "rmattr_tolerant"
+
+
+@dataclass
+class Op:
+    kind: OpKind
+    oid: str
+    offset: int = 0
+    length: int = 0
+    data: bytes = b""
+    name: str = ""
+    #: optional kernel-produced ZERO-INIT per-block crc32c values for
+    #: WRITE ops (the fused encode+csum output riding the sub-write);
+    #: stores that keep blob csums may adopt them instead of
+    #: re-hashing, others ignore them. Advisory: they must describe
+    #: ``data`` exactly (csum_block-aligned offset and length).
+    csums: "tuple[int, ...] | None" = None
+    csum_block: int = 0
+
+
+@dataclass
+class Transaction:
+    """Ordered op list; built fluently, applied atomically."""
+
+    ops: list[Op] = field(default_factory=list)
+
+    def touch(self, oid: str) -> "Transaction":
+        self.ops.append(Op(OpKind.TOUCH, oid))
+        return self
+
+    def write(
+        self, oid: str, offset: int, data: bytes,
+        csums=None, csum_block: int = 0,
+    ) -> "Transaction":
+        """``csums``/``csum_block``: optional zero-init per-block
+        crc32c of ``data`` from the fused encode+csum kernel — see
+        ``Op.csums``."""
+        self.ops.append(
+            Op(OpKind.WRITE, oid, offset=offset, length=len(data),
+               data=bytes(data),
+               csums=tuple(int(v) for v in csums) if csums is not None
+               else None,
+               csum_block=int(csum_block) if csums is not None else 0)
+        )
+        return self
+
+    def zero(self, oid: str, offset: int, length: int) -> "Transaction":
+        self.ops.append(Op(OpKind.ZERO, oid, offset=offset, length=length))
+        return self
+
+    def truncate(self, oid: str, size: int) -> "Transaction":
+        self.ops.append(Op(OpKind.TRUNCATE, oid, offset=size))
+        return self
+
+    def remove(self, oid: str) -> "Transaction":
+        self.ops.append(Op(OpKind.REMOVE, oid))
+        return self
+
+    def setattr(self, oid: str, name: str, value: bytes) -> "Transaction":
+        self.ops.append(Op(OpKind.SETATTR, oid, name=name, data=bytes(value)))
+        return self
+
+    def rmattr(
+        self, oid: str, name: str, ignore_missing: bool = False
+    ) -> "Transaction":
+        """Remove an attr; strict by default (KeyError when absent).
+        ``ignore_missing`` emits RMATTR_TOLERANT: a no-op on absence."""
+        kind = OpKind.RMATTR_TOLERANT if ignore_missing else OpKind.RMATTR
+        self.ops.append(Op(kind, oid, name=name))
+        return self
+
+    def append(self, other: "Transaction") -> "Transaction":
+        """Concatenate another transaction's ops (Transaction::append)."""
+        self.ops.extend(other.ops)
+        return self
+
+    # -- wire serialization (Transaction::encode/decode analog) --------
+    # Explicit stable codes, independent of OpKind declaration order:
+    # these live in persisted FileStore journals and ECSubWrite
+    # payloads, so renumbering silently corrupts replay. New kinds
+    # append new codes; never reuse one.
+    _KIND_CODE = {
+        OpKind.TOUCH: 0,
+        OpKind.WRITE: 1,
+        OpKind.ZERO: 2,
+        OpKind.TRUNCATE: 3,
+        OpKind.REMOVE: 4,
+        OpKind.SETATTR: 5,
+        OpKind.RMATTR: 6,
+        OpKind.RMATTR_TOLERANT: 7,
+    }
+    assert len(_KIND_CODE) == len(OpKind), "every OpKind needs a wire code"
+    assert len(set(_KIND_CODE.values())) == len(_KIND_CODE), "codes must be unique"
+
+    def to_bytes(self) -> bytes:
+        """Compact binary encoding for ECSubWrite payloads: version
+        byte, op count, then per op kind/oid/offset/length/name/data
+        with u32 length prefixes (the versioned encode/decode pattern
+        of src/os/Transaction.h). Transactions carrying kernel csums
+        encode as v2 (each op appends csum_block + u32 csum list);
+        csum-free transactions stay byte-identical v1, so the frozen
+        golden payloads and mixed-version peers are both safe."""
+        import struct
+
+        ver = 2 if any(op.csums is not None for op in self.ops) else 1
+        out = bytearray()
+        out += struct.pack("<BI", ver, len(self.ops))
+        for op in self.ops:
+            oid = op.oid.encode()
+            name = op.name.encode()
+            out += struct.pack(
+                "<BI", self._KIND_CODE[op.kind], len(oid)
+            )
+            out += oid
+            out += struct.pack("<QQI", op.offset, op.length, len(name))
+            out += name
+            out += struct.pack("<I", len(op.data))
+            out += op.data
+            if ver >= 2:
+                csums = op.csums or ()
+                out += struct.pack("<II", op.csum_block, len(csums))
+                for v in csums:
+                    out += struct.pack("<I", v)
+        return bytes(out)
+
+    @classmethod
+    def from_bytes(cls, raw: bytes) -> "Transaction":
+        import struct
+
+        pos = 0
+
+        def take(n: int) -> bytes:
+            nonlocal pos
+            if pos + n > len(raw):
+                raise ValueError(
+                    f"truncated transaction encoding at byte {pos}+{n}"
+                )
+            out = raw[pos : pos + n]
+            pos += n
+            return out
+
+        kinds = list(OpKind)
+        ver, count = struct.unpack("<BI", take(5))
+        if ver not in (1, 2):
+            raise ValueError(f"unsupported transaction encoding v{ver}")
+        txn = cls()
+        for _ in range(count):
+            code, oid_len = struct.unpack("<BI", take(5))
+            if code >= len(kinds):
+                raise ValueError(f"unknown op kind code {code}")
+            oid = take(oid_len).decode()
+            offset, length, name_len = struct.unpack("<QQI", take(20))
+            name = take(name_len).decode()
+            (data_len,) = struct.unpack("<I", take(4))
+            data = bytes(take(data_len))
+            csums, csum_block = None, 0
+            if ver >= 2:
+                csum_block, n_csums = struct.unpack("<II", take(8))
+                if n_csums:
+                    csums = struct.unpack(
+                        f"<{n_csums}I", take(4 * n_csums)
+                    )
+                else:
+                    csum_block = 0
+            txn.ops.append(
+                Op(kinds[code], oid, offset=offset, length=length,
+                   data=data, name=name, csums=csums,
+                   csum_block=csum_block)
+            )
+        if pos != len(raw):
+            raise ValueError(
+                f"{len(raw) - pos} trailing bytes after transaction ops"
+            )
+        return txn
+
+    def oids(self) -> list[str]:
+        """Distinct objects touched, in first-touch order."""
+        seen: list[str] = []
+        for op in self.ops:
+            if op.oid not in seen:
+                seen.append(op.oid)
+        return seen
+
+    def empty(self) -> bool:
+        return not self.ops
+
+    def __len__(self) -> int:
+        return len(self.ops)

@@ -1,3 +1,33 @@
-"""Host runtime helpers: layered config, perf counters, device choice."""
+"""Runtime utilities: perf counters, config, tracing, the op tracker and
+cluster log — the ``src/common/`` analog layer — plus device choice
+(``device``). Crash points (``crash_points``) and the lock-order checker
+(``lockdep``) are imported from their modules."""
 
-from .config import config  # noqa: F401
+from .perf_counters import (
+    PerfCounters,
+    PerfCountersBuilder,
+    PerfCountersCollection,
+    perf_collection,
+)
+from .config import ConfigProxy, Option, config
+from .trace import Tracer, tracer
+from .optracker import NULL_OP, OpTracker, TrackedOp, op_tracker
+from .cluster_log import ClusterLog, cluster_log
+
+__all__ = [
+    "PerfCounters",
+    "PerfCountersBuilder",
+    "PerfCountersCollection",
+    "perf_collection",
+    "ConfigProxy",
+    "Option",
+    "config",
+    "Tracer",
+    "tracer",
+    "NULL_OP",
+    "OpTracker",
+    "TrackedOp",
+    "op_tracker",
+    "ClusterLog",
+    "cluster_log",
+]

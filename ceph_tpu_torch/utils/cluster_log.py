@@ -1,0 +1,210 @@
+"""Cluster-wide structured event log — the ``ceph.log`` analog.
+
+The reference aggregates health-relevant events from every daemon into
+one monitor-held log (``mon/LogMonitor.cc``, the ``ceph log last``
+surface): OSD down/up marks, slow-op complaints, scrub errors, peering
+stalls.  Per-daemon ``dout`` rings (utils/log.py) answer "what was
+THIS daemon doing"; this module answers "what happened to the
+CLUSTER" — the first file a red soak run is triaged from.
+
+Here the daemons share one process, so the aggregation point is a
+process-global bounded ring of structured events.  Each event carries:
+
+- ``ts``        wall-clock stamp (merging across DCN host processes
+                aligns on wall time)
+- ``daemon``    the reporting daemon ("mon", "osd.3", ...)
+- ``type``      a stable event-type slug ("osd_down", "slow_op",
+                "scrub_error", "peering_stalled", "net_fault_armed",
+                "crash_point", ...)
+- ``severity``  DBG < INF < WRN < ERR
+- ``message``   human-readable one-liner
+- ``epoch``     osdmap epoch when the reporter knows it
+- ``trace_id``  the CURRENT trace id when the event fired inside a
+                span — a slow-op complaint links straight to the op's
+                assembled trace (tools/trace_tool.py)
+- extra keyword fields, JSON-serializable
+
+Query via ``cluster_log.last(n)`` or the admin socket's ``log last``
+(the ``ceph log last N`` analog); ``cli health`` summarizes recent
+warnings.  An optional JSONL sink (``cluster_log_file`` config, or
+``set_sink``) persists events for the soak forensics bundle.
+
+Event counts ride the ``cluster_log`` perf-counter set (``events``,
+``events_warn``, ``events_error``) — on ``perf dump`` and the
+Prometheus exporter like every other set.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+from collections import deque
+
+SEVERITIES = ("DBG", "INF", "WRN", "ERR")
+
+#: ring capacity — the reference keeps a few thousand ceph.log lines
+#: in the mon store; a soak forensics tail wants hours of churn
+MAX_EVENTS = 8192
+
+
+#: ONE process-wide counter set shared by every ClusterLog instance
+#: (tests build private rings; their events still count here instead
+#: of re-registering and orphaning the global set)
+_PERF = None
+
+
+def _get_perf():
+    global _PERF
+    if _PERF is None:
+        from .perf_counters import PerfCountersBuilder, perf_collection
+
+        _PERF = (
+            PerfCountersBuilder(perf_collection, "cluster_log")
+            .add_u64_counter("events", "cluster-log events recorded")
+            .add_u64_counter("events_warn", "events at WRN severity")
+            .add_u64_counter("events_error", "events at ERR severity")
+            .create_perf_counters()
+        )
+    return _PERF
+
+
+class ClusterLog:
+    """Process-global structured event ring (+ optional JSONL sink)."""
+
+    def __init__(self, max_events: int = MAX_EVENTS) -> None:
+        self._lock = threading.Lock()
+        self._ring: deque[dict] = deque(maxlen=max_events)
+        self._sink = None
+        self._sink_path: str | None = None
+        #: True when the open sink came from the ``cluster_log_file``
+        #: config (only then may a config change replace/close it —
+        #: an explicit set_sink always wins)
+        self._sink_from_cfg = False
+
+    # -- sink management -----------------------------------------------
+    def set_sink(self, path: "str | None") -> None:
+        """Point the JSONL sink at ``path`` (None closes it)."""
+        with self._lock:
+            self._set_sink_locked(path)
+            self._sink_from_cfg = False
+
+    def _set_sink_locked(self, path: "str | None") -> None:
+        if self._sink is not None:
+            try:
+                self._sink.close()
+            except Exception:
+                pass
+            self._sink = None
+        self._sink_path = path or None
+        if path:
+            try:
+                self._sink = open(path, "a", encoding="utf-8")
+            except OSError:
+                self._sink = None  # a bad sink must not kill logging
+
+    def _maybe_refresh_sink(self) -> None:
+        """Honor ``cluster_log_file`` lazily (checked per event under
+        the lock; the config get is a handful of dict lookups).  Only
+        ever replaces a sink the config itself opened."""
+        from .config import config
+
+        want = config.get("cluster_log_file") or None
+        if want is not None and want != self._sink_path:
+            self._set_sink_locked(want)
+            self._sink_from_cfg = True
+        elif (
+            want is None and self._sink_from_cfg
+            and self._sink_path is not None
+        ):
+            self._set_sink_locked(None)
+            self._sink_from_cfg = False
+
+    # -- submission -----------------------------------------------------
+    def log(
+        self,
+        daemon: str,
+        type: str,
+        message: str,
+        severity: str = "INF",
+        epoch: "int | None" = None,
+        trace_id: "str | None" = None,
+        **fields,
+    ) -> dict:
+        """Record one cluster event.  ``trace_id`` defaults to the
+        calling thread's current span's trace id, so events fired from
+        inside the pipeline correlate with the op's assembled trace."""
+        if severity not in SEVERITIES:
+            severity = "INF"
+        if trace_id is None:
+            from .trace import tracer
+
+            trace_id = tracer.current()[0]
+        event = {
+            "ts": time.time(),
+            "daemon": str(daemon),
+            "type": str(type),
+            "severity": severity,
+            "message": str(message),
+            "epoch": epoch,
+            "trace_id": trace_id,
+        }
+        if fields:
+            event.update(fields)
+        line = None
+        with self._lock:
+            self._ring.append(event)
+            self._maybe_refresh_sink()
+            if self._sink is not None:
+                try:
+                    line = json.dumps(event, default=str)
+                    self._sink.write(line + "\n")
+                    self._sink.flush()
+                except Exception:
+                    pass  # the ring is the source of truth
+        perf = _get_perf()
+        perf.inc("events")
+        if severity == "WRN":
+            perf.inc("events_warn")
+        elif severity == "ERR":
+            perf.inc("events_error")
+        return event
+
+    # -- query ----------------------------------------------------------
+    def last(
+        self, n: int = 20, daemon: "str | None" = None,
+        severity: "str | None" = None,
+    ) -> list[dict]:
+        """The newest ``n`` events, oldest first (``ceph log last``).
+        ``severity`` filters at-or-above ("WRN" = WRN + ERR)."""
+        with self._lock:
+            events = list(self._ring)
+        if daemon is not None:
+            events = [e for e in events if e["daemon"] == daemon]
+        if severity is not None:
+            floor = SEVERITIES.index(severity)
+            events = [
+                e for e in events
+                if SEVERITIES.index(e["severity"]) >= floor
+            ]
+        return events[-int(n):] if n else events
+
+    def summary(self) -> dict:
+        """Counts + the most recent warnings — the ``cli health``
+        digest."""
+        with self._lock:
+            events = list(self._ring)
+        warn = [e for e in events if e["severity"] in ("WRN", "ERR")]
+        return {
+            "events": len(events),
+            "warnings": len(warn),
+            "recent_warnings": warn[-8:],
+        }
+
+    def clear(self) -> None:
+        with self._lock:
+            self._ring.clear()
+
+
+#: the process cluster log, like the reference's mon-held ceph.log
+cluster_log = ClusterLog()

@@ -133,6 +133,70 @@ OPTIONS: tuple[Option, ...] = (
              "(0 = always use the device)",
         min=0,
     ),
+    # -- the EC pipeline, stores and runtime (ceph_tpu's texts) ------
+    Option(
+        "csum_block_size", int, 4096,
+        desc="bytes per checksum block", min=16,
+    ),
+    Option(
+        "ec_extent_cache_lines", int, 1024,
+        desc="LRU lines kept by the write-back extent cache "
+             "(ECExtentCache LRU analog)", min=0,
+    ),
+    Option(
+        "ec_recovery_verify", bool, True,
+        desc="verify fully reconstructed shards against the persisted "
+             "HashInfo cumulative crcs (device-batched) before "
+             "pushing them to the replacement store",
+    ),
+    Option(
+        "osd_deep_scrub_stride", int, 524288,
+        desc="bytes read per shard per step during deep scrub "
+             "(bounds scrub memory/latency; osd_deep_scrub_stride)",
+        min=4096,
+    ),
+    Option(
+        "lockdep", bool, False,
+        desc="arm the runtime lock-order / blocking-under-lock "
+             "detector (utils/lockdep.py, the common/lockdep.cc + "
+             "mutex_debug analog): DebugLock/DebugRLock construct "
+             "tracked wrappers that record every acquire into a "
+             "process-global lock-dependency graph, report order-"
+             "inversion cycles and rank violations (cluster-log ERR "
+             "+ `lockdep` perf counters + the admin-socket `lockdep` "
+             "dump) WITHOUT deadlocking, and blocking_region() "
+             "checkpoints flag blocking calls made while an op-"
+             "serializing lock is held. Off (the default) the "
+             "constructors hand back plain threading primitives — "
+             "the flag is read once per lock construction, so arming "
+             "applies to daemons built after the flip",
+        level="dev",
+    ),
+    Option(
+        "osd_enable_op_tracker", bool, True,
+        desc="register every live operation (client op, RMW op, peer "
+             "sub-op, peering pass, recovery push, backfill item) "
+             "with the process OpTracker: dump_ops_in_flight shows "
+             "age-sorted live ops with their event timelines and the "
+             "slow-op watchdog complains past osd_op_complaint_time. "
+             "Off = register() hands back a null op whose marks are "
+             "one attribute access (the bench A/B's untracked arm)",
+    ),
+    Option(
+        "osd_op_complaint_time", float, 30.0,
+        desc="seconds a tracked op may stay live before the watchdog "
+             "flags it slow: bumps the owning daemon's slow_ops "
+             "counters (gauge + age histogram on perf dump and the "
+             "exporter) and posts a WRN complaint to the cluster log "
+             "(osd_op_complaint_time analog)",
+        min=0.01,
+    ),
+    Option(
+        "cluster_log_file", str, "",
+        desc="JSONL sink for cluster-log events (the ceph.log file "
+             "role); empty = in-memory ring only. Applied when the "
+             "first event lands after the value changes",
+    ),
 )
 
 

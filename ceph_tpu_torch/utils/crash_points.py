@@ -1,0 +1,181 @@
+"""Crash-point fault injection — named yield points inside critical
+transitions (peering AND the RMW commit path), armable by tests.
+
+Grown out of ``cluster/peering.py`` (round 12) where the registry
+covered only peering transitions; it now lives in the neutral utils
+layer so the RMW pipeline (``pipeline/rmw.py``) and the OSD daemon's
+sub-write apply/ack/commit hops can fire points without a
+pipeline→cluster import inversion. The spirit is loadgen's
+op-offset fault hooks applied to INTERLEAVINGS: a test arms a point
+to pause (and later release), fail the transition, kill the firing
+daemon, or run a callback — turning 1-in-20 thread races into pinned,
+repeatable regression tests.
+
+Named points (the registry itself is name-agnostic):
+
+- ``peering.<state>.<point>`` / ``catchup.*`` — peering transitions
+  (see cluster/peering.py's state diagram).
+- ``rmw.prepare_done`` — primary: write planned, encoded, journaled;
+  no sub-write dispatched yet.
+- ``rmw.subwrite_applied_before_ack`` — receiving OSD: the sub-write
+  txn is durable in its store, the ack not yet on the wire.
+- ``rmw.primary_before_commit`` — primary: the LAST sub-write ack
+  arrived, the op not yet marked committed.
+- ``rmw.primary_committed_before_reply`` — primary: the op committed
+  (client callback fired), the OSDOpReply not yet sent.
+
+A ``kill`` at each of those four is one mid-commit crash class; the
+kill-at-point → restart → replay tier pins that pglog rollback/
+rollforward converges and committed reads return committed bytes.
+"""
+
+from __future__ import annotations
+
+import threading
+
+
+class CrashPointAbort(Exception):
+    """Raised at an armed crash point to unwind the transition (the
+    ``fail`` and ``kill`` actions); peering parks in ``incomplete``
+    and retries from the tick, an RMW hop unwinds like the crash it
+    models (the connection/op dies, recovery converges it)."""
+
+
+class ArmedPoint:
+    """One armed crash point. ``pause`` blocks the firing thread at
+    the point until :meth:`release` (tests synchronize on
+    :meth:`wait_hit`); ``fail`` raises :class:`CrashPointAbort`;
+    ``kill`` hard-stops the firing daemon (on a side thread — stop()
+    joins threads the point may be on) and then aborts the
+    transition; a callable runs with the fire context."""
+
+    def __init__(self, name, action, osd=None, pool=None, pgid=None,
+                 count=1, pause_cap=30.0) -> None:
+        if action not in ("pause", "fail", "kill") and not callable(action):
+            raise ValueError(f"unknown crash action {action!r}")
+        self.name = name
+        self.action = action
+        self.osd = osd
+        self.pool = pool
+        self.pgid = pgid
+        self.remaining = count  # None = unlimited until cleared
+        self.pause_cap = pause_cap
+        self.hits = 0
+        self._hit = threading.Event()
+        self._released = threading.Event()
+
+    def matches(self, name, daemon, pg) -> bool:
+        if name != self.name:
+            return False
+        if self.osd is not None and (
+            daemon is None or daemon.osd_id != self.osd
+        ):
+            return False
+        if self.pool is not None and (
+            pg is None or pg.pool != self.pool
+        ):
+            return False
+        if self.pgid is not None and (
+            pg is None or pg.pgid != self.pgid
+        ):
+            return False
+        return True
+
+    def wait_hit(self, timeout: float = 10.0) -> bool:
+        return self._hit.wait(timeout)
+
+    def release(self) -> None:
+        self._released.set()
+
+    def _fire(self, daemon, pg, ctx) -> None:
+        self.hits += 1
+        self._hit.set()
+        try:
+            # chaos runs read the cluster log to line injected faults
+            # up against their fallout; lazy import (leaf module)
+            from .cluster_log import cluster_log
+
+            cluster_log.log(
+                f"osd.{daemon.osd_id}" if daemon is not None else "proc",
+                "crash_point",
+                f"{self.name} fired "
+                f"({self.action if isinstance(self.action, str) else 'callable'})",
+                severity="WRN",
+            )
+        except Exception:
+            pass  # observability must never change the injected fault
+        if self.action == "pause":
+            # capped: an un-released point must not wedge the FSM
+            # forever if a test dies before release()
+            self._released.wait(self.pause_cap)
+            return
+        if self.action == "fail":
+            raise CrashPointAbort(self.name)
+        if self.action == "kill":
+            if daemon is not None:
+                # a crash silences the node ATOMICALLY: close the data
+                # plane synchronously (no reply/ack framed after the
+                # crash point may escape — an RMW kill must lose the
+                # client reply like the crash it models, not win a
+                # race against the stop thread), then stop the daemon
+                # on a side thread (stop() joins threads this very
+                # point may be firing on)
+                for attr in ("messenger", "peers"):
+                    try:
+                        getattr(daemon, attr).shutdown()
+                    except Exception:
+                        pass
+                threading.Thread(
+                    target=daemon.stop, daemon=True,
+                    name=f"crash-kill-osd.{daemon.osd_id}",
+                ).start()
+            raise CrashPointAbort(self.name)
+        self.action(daemon=daemon, pg=pg, **ctx)
+
+
+class CrashPointRegistry:
+    """Process-global registry of named yield points. ``fire()`` is a
+    single attribute check when nothing is armed — the
+    instrumentation costs nothing in production."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._armed: list[ArmedPoint] = []
+
+    def arm(
+        self, name: str, action="pause", *, osd=None, pool=None,
+        pgid=None, count=1, pause_cap: float = 30.0,
+    ) -> ArmedPoint:
+        pt = ArmedPoint(
+            name, action, osd=osd, pool=pool, pgid=pgid, count=count,
+            pause_cap=pause_cap,
+        )
+        with self._lock:
+            self._armed.append(pt)
+        return pt
+
+    def clear(self) -> None:
+        with self._lock:
+            for pt in self._armed:
+                pt.release()  # free any thread parked at a pause
+            self._armed.clear()
+
+    def fire(self, name: str, daemon=None, pg=None, **ctx) -> None:
+        if not self._armed:  # the hot-path fast exit
+            return
+        with self._lock:
+            pt = next(
+                (p for p in self._armed if p.matches(name, daemon, pg)),
+                None,
+            )
+            if pt is None:
+                return
+            if pt.remaining is not None:
+                pt.remaining -= 1
+                if pt.remaining <= 0:
+                    self._armed.remove(pt)
+        pt._fire(daemon, pg, ctx)  # outside the lock: it may block
+
+
+#: the process-global crash-point registry tests arm
+crash_points = CrashPointRegistry()

@@ -1,0 +1,330 @@
+"""Live-operation tracking — the ``common/TrackedOp`` + ``OpTracker``
+analog.
+
+``utils/trace.py`` records spans only AFTER they complete: a wedged or
+minute-long op contributes nothing to ``dump_historic_ops`` until it
+is over — exactly when an operator most needs to see it.  This module
+is the live half of the observability plane: every in-flight operation
+(objecter client op, primary RMW op, peer sub-op RPC, peering pass,
+recovery push, backfill item) registers a :class:`TrackedOp` whose
+typed ``mark_event`` checkpoints build an event timeline while the op
+runs.  The admin socket's ``dump_ops_in_flight`` returns the live set
+age-sorted (oldest — the interesting one — first), each op with its
+timeline, exactly the surface ``ceph daemon osd.N dump_ops_in_flight``
+serves from TrackedOp::dump.
+
+A watchdog thread (started lazily with the first tracked op) flags
+ops older than ``osd_op_complaint_time``:
+
+- the owning daemon's ``<daemon>.optracker`` counter set bumps
+  ``slow_ops_total`` and the ``slow_ops`` gauge (currently-slow live
+  ops), and a ``slow_op_age_s`` log2 histogram records final ages of
+  slow ops as they complete — all on ``perf dump`` and the Prometheus
+  exporter like every other set;
+- a WRN ``slow_op`` complaint lands in the cluster log
+  (utils/cluster_log.py), carrying the op's trace id so the complaint
+  links straight to the assembled trace.
+
+Cost discipline: with ``osd_enable_op_tracker=false`` every
+``register`` returns the shared :data:`NULL_OP`, whose ``mark_event``
+is a no-op — the bench cluster phase's tracked-vs-untracked A/B leg
+(``trace_overhead_frac``) pins the enabled plane's cost.
+"""
+
+from __future__ import annotations
+
+import itertools
+import threading
+import time
+from contextlib import contextmanager
+
+#: slow-op age histogram bounds, seconds (log2: 1 ms .. ~35 min)
+AGE_BUCKETS_S = [0.001 * (1 << i) for i in range(22)]
+
+
+def _daemon_key(daemon: str) -> str:
+    """Collapse pipeline-grade names ("osd.3.pool.2.rmw") to the
+    owning daemon ("osd.3") so per-daemon counter sets don't multiply
+    per PG; anything else passes through."""
+    parts = str(daemon).split(".")
+    if parts[0] == "osd" and len(parts) > 1 and parts[1].isdigit():
+        return f"osd.{parts[1]}"
+    return daemon or "proc"
+
+
+class TrackedOp:
+    """One live operation: identity, event timeline, age."""
+
+    __slots__ = (
+        "seq", "op_type", "daemon", "desc", "trace_id", "start",
+        "start_mono", "events", "slow", "_tracker",
+    )
+
+    def __init__(
+        self, tracker: "OpTracker", seq: int, op_type: str,
+        daemon: str, trace_id: "str | None", desc: dict,
+    ) -> None:
+        self._tracker = tracker
+        self.seq = seq
+        self.op_type = op_type
+        self.daemon = daemon
+        self.trace_id = trace_id
+        self.desc = desc
+        self.start = time.time()
+        self.start_mono = time.monotonic()
+        #: (monotonic stamp, event string) — appends are GIL-atomic,
+        #: dumps snapshot via list()
+        self.events: list[tuple[float, str]] = []
+        self.slow = False
+
+    # -- the checkpoint surface (TrackedOp::mark_event) -----------------
+    def mark_event(self, event: str, **detail) -> None:
+        if detail:
+            event = event + " " + " ".join(
+                f"{k}={v}" for k, v in sorted(detail.items())
+            )
+        self.events.append((time.monotonic(), event))
+
+    def age(self) -> float:
+        return time.monotonic() - self.start_mono
+
+    def finish(self, event: "str | None" = None) -> None:
+        if event is not None:
+            self.mark_event(event)
+        self._tracker._unregister(self)
+
+    def __enter__(self) -> "TrackedOp":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if exc_type is not None:
+            self.mark_event(f"error:{exc_type.__name__}")
+        self.finish()
+
+    def as_dict(self) -> dict:
+        t0 = self.start_mono
+        return {
+            "seq": self.seq,
+            "type": self.op_type,
+            "daemon": self.daemon,
+            "description": dict(self.desc),
+            "trace_id": self.trace_id,
+            "started": self.start,
+            "age": round(self.age(), 6),
+            "slow": self.slow,
+            "events": [
+                {"t": round(t - t0, 6), "event": ev}
+                for t, ev in list(self.events)
+            ],
+        }
+
+
+class _NullOp:
+    """The tracker-off handle: every surface a no-op so call sites
+    never branch on the config themselves."""
+
+    __slots__ = ()
+    slow = False
+    trace_id = None
+
+    def mark_event(self, event: str, **detail) -> None:
+        pass
+
+    def age(self) -> float:
+        return 0.0
+
+    def finish(self, event: "str | None" = None) -> None:
+        pass
+
+    def __enter__(self) -> "_NullOp":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        pass
+
+    def as_dict(self) -> dict:
+        return {}
+
+
+NULL_OP = _NullOp()
+
+
+class OpTracker:
+    """Process-global registry of live ops + the slow-op watchdog."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._seq = itertools.count(1)
+        self._live: dict[int, TrackedOp] = {}
+        self._perf: dict[str, object] = {}
+        self._watchdog: threading.Thread | None = None
+        self._wake = threading.Event()
+
+    # -- registration ---------------------------------------------------
+    def enabled(self) -> bool:
+        from .config import config
+
+        return bool(config.get("osd_enable_op_tracker"))
+
+    def register(
+        self, op_type: str, daemon: str = "", trace_id: "str | None" = None,
+        **desc,
+    ) -> "TrackedOp | _NullOp":
+        """Track one live op.  ``trace_id`` defaults to the calling
+        thread's current span's trace id (the wire-carried one), so
+        live ops and completed spans assemble into the same trees."""
+        if not self.enabled():
+            return NULL_OP
+        if trace_id is None:
+            from .trace import tracer
+
+            trace_id = tracer.current()[0]
+        top = TrackedOp(
+            self, next(self._seq), op_type, _daemon_key(daemon),
+            trace_id, desc,
+        )
+        pc = self._perf_for(top.daemon)
+        with self._lock:
+            self._live[top.seq] = top
+            if self._watchdog is None:
+                self._watchdog = threading.Thread(
+                    target=self._watchdog_loop, daemon=True,
+                    name="optracker-watchdog",
+                )
+                self._watchdog.start()
+        pc.inc("ops_tracked")
+        return top
+
+    @contextmanager
+    def track(
+        self, op_type: str, daemon: str = "",
+        trace_id: "str | None" = None, **desc,
+    ):
+        """Register-for-a-scope: finishes on exit, marking
+        ``error:<type>`` first when the scope raised."""
+        top = self.register(op_type, daemon, trace_id, **desc)
+        try:
+            yield top
+        except BaseException as e:
+            top.mark_event(f"error:{type(e).__name__}")
+            raise
+        finally:
+            top.finish()
+
+    def _unregister(self, top: TrackedOp) -> None:
+        with self._lock:
+            if self._live.pop(top.seq, None) is None:
+                return  # double-finish: idempotent
+        if top.slow:
+            # final age of a slow op, for the complaint histogram
+            self._perf_for(top.daemon).hinc("slow_op_age_s", top.age())
+
+    # -- per-daemon counters --------------------------------------------
+    def _perf_for(self, daemon: str):
+        with self._lock:
+            pc = self._perf.get(daemon)
+        if pc is not None:
+            return pc
+        from .perf_counters import PerfCountersBuilder, perf_collection
+
+        pc = (
+            PerfCountersBuilder(perf_collection, f"{daemon}.optracker")
+            .add_u64_counter("ops_tracked", "ops ever registered")
+            .add_u64_gauge("slow_ops", "live ops currently past "
+                                       "osd_op_complaint_time")
+            .add_u64_counter("slow_ops_total",
+                             "ops that ever crossed the complaint age")
+            .add_histogram(
+                "slow_op_age_s", AGE_BUCKETS_S,
+                "final ages of completed slow ops (seconds, log2)",
+            )
+            .create_perf_counters()
+        )
+        with self._lock:
+            # racing creators: keep the first registered instance
+            pc = self._perf.setdefault(daemon, pc)
+        return pc
+
+    # -- the watchdog ---------------------------------------------------
+    def _watchdog_loop(self) -> None:
+        from .config import config
+
+        while True:
+            complaint = float(config.get("osd_op_complaint_time"))
+            self._wake.wait(max(0.02, min(complaint / 4.0, 0.5)))
+            self._wake.clear()
+            try:
+                self._sweep(complaint)
+            except Exception:
+                pass  # the watchdog must outlive any counter fault
+
+    def _sweep(self, complaint: float) -> None:
+        with self._lock:
+            ops = list(self._live.values())
+        slow_by_daemon: dict[str, int] = {}
+        for top in ops:
+            if top.age() < complaint:
+                continue
+            slow_by_daemon[top.daemon] = (
+                slow_by_daemon.get(top.daemon, 0) + 1
+            )
+            if not top.slow:
+                top.slow = True
+                self._perf_for(top.daemon).inc("slow_ops_total")
+                last = top.events[-1][1] if top.events else "<no events>"
+                from .cluster_log import cluster_log
+
+                cluster_log.log(
+                    top.daemon, "slow_op",
+                    f"{top.op_type} blocked for {top.age():.2f}s "
+                    f"(currently: {last}; {top.desc})",
+                    severity="WRN", trace_id=top.trace_id,
+                    op_seq=top.seq,
+                )
+        with self._lock:
+            perfs = dict(self._perf)
+        for daemon, pc in perfs.items():
+            pc.set("slow_ops", slow_by_daemon.get(daemon, 0))
+
+    def poke(self) -> None:
+        """Wake the watchdog now (tests shorten the complaint clock)."""
+        self._wake.set()
+
+    # -- the dump surface (dump_ops_in_flight) --------------------------
+    def dump_ops_in_flight(self, daemon: "str | None" = None) -> dict:
+        with self._lock:
+            ops = list(self._live.values())
+        if daemon is not None:
+            key = _daemon_key(daemon)
+            ops = [t for t in ops if t.daemon == key]
+        ops.sort(key=lambda t: t.start_mono)  # oldest first
+        return {"num_ops": len(ops), "ops": [t.as_dict() for t in ops]}
+
+    def live_count(self) -> int:
+        with self._lock:
+            return len(self._live)
+
+    def finish_all(
+        self, daemon: "str | None" = None, event: str = "abandoned"
+    ) -> int:
+        """Finish every live op (optionally one daemon's) with a
+        terminal mark — daemon teardown: a stopped daemon's parked ops
+        died with it and must not complain forever."""
+        key = _daemon_key(daemon) if daemon is not None else None
+        with self._lock:
+            tops = [
+                t for t in self._live.values()
+                if key is None or t.daemon == key
+            ]
+        for t in tops:
+            t.finish(event)
+        return len(tops)
+
+    def clear(self) -> None:
+        """Drop every live op (test isolation; production never)."""
+        with self._lock:
+            self._live.clear()
+
+
+#: the process OpTracker, served by ``dump_ops_in_flight``
+op_tracker = OpTracker()

@@ -1,0 +1,178 @@
+"""Span tracing + historic-op ring — the ZTracer/OpTracker analog.
+
+The reference threads ``ZTracer::Trace`` handles through the EC
+pipeline signatures (osd/ECBackend.h:70-94) and keeps an in-memory
+history of completed ops served as ``dump_historic_ops``
+(common/TrackedOp). Here: a context-manager ``span`` records name,
+parent, wall duration, and tags into a bounded ring; nesting is
+tracked per-thread so pipeline code never passes handles explicitly.
+
+The same spans also open ``torch.profiler.record_function`` ranges, so
+host-side pipeline stages line up with the card's kernels in a
+``torch.profiler`` capture.
+"""
+
+from __future__ import annotations
+
+import itertools
+import os
+import secrets
+import threading
+import time
+from collections import deque
+from contextlib import contextmanager
+from dataclasses import dataclass, field
+
+#: process-unique prefix so trace ids stay distinct across the DCN
+#: tier's OS-process hosts (the blkin trace-id role)
+_TRACE_PREFIX = f"{os.getpid():x}-{secrets.token_hex(2)}"
+
+#: torch.profiler.record_function, resolved ONCE on first span instead
+#: of an import+try/except per span (the per-span import dominated
+#: small-op span cost). Lazy rather than import-time so importing this
+#: module does not import torch. Sentinel False = unresolved; None =
+#: resolved-absent.
+_ANNOTATION_CLS: "object" = False
+
+
+def _annotation_cls():
+    global _ANNOTATION_CLS
+    if _ANNOTATION_CLS is False:
+        try:
+            import torch.profiler
+
+            _ANNOTATION_CLS = torch.profiler.record_function
+        except Exception:
+            _ANNOTATION_CLS = None
+    return _ANNOTATION_CLS
+
+
+@dataclass
+class Span:
+    #: globally unique (process-prefixed) — parent links survive
+    #: merging dump_historic output across host processes, where
+    #: bare per-process counters would collide
+    span_id: str
+    parent_id: str | None
+    name: str
+    start: float
+    duration: float | None = None
+    tags: dict = field(default_factory=dict)
+    #: one id per END-TO-END operation, carried across the wire
+    #: (client op -> primary -> replica sub-ops all share it)
+    trace_id: str | None = None
+    #: monotonic clock at span open, taken at the SAME instant as the
+    #: wall-clock ``start``: trace assembly orders spans and computes
+    #: intervals on (start_mono, start_mono + duration) within a
+    #: process — mixing wall starts with perf_counter durations made
+    #: cross-thread ordering wobble by the wall clock's granularity
+    start_mono: float | None = None
+
+    def as_dict(self) -> dict:
+        return {
+            "span_id": self.span_id,
+            "parent_id": self.parent_id,
+            "name": self.name,
+            "start": self.start,
+            "start_mono": self.start_mono,
+            "duration": self.duration,
+            "tags": self.tags,
+            "trace_id": self.trace_id,
+        }
+
+
+class Tracer:
+    def __init__(self, history: int = 512, enabled: bool = True) -> None:
+        self.enabled = enabled
+        self._ids = itertools.count(1)
+        self._history: deque[Span] = deque(maxlen=history)
+        self._lock = threading.Lock()
+        self._tls = threading.local()
+
+    def _stack(self) -> list[Span]:
+        if not hasattr(self._tls, "stack"):
+            self._tls.stack = []
+        return self._tls.stack
+
+    @contextmanager
+    def span(self, name: str, **tags):
+        if not self.enabled:
+            yield None
+            return
+        stack = self._stack()
+        parent = stack[-1].span_id if stack else None
+        trace_id = (
+            stack[-1].trace_id
+            if stack
+            else f"{_TRACE_PREFIX}-{next(self._ids)}"
+        )
+        t0 = time.perf_counter()
+        sp = Span(
+            f"{_TRACE_PREFIX}-{next(self._ids)}", parent, name,
+            time.time(), tags=tags, trace_id=trace_id, start_mono=t0,
+        )
+        stack.append(sp)
+        annotation = None
+        cls = _annotation_cls()
+        if cls is not None:
+            try:
+                annotation = cls(name)
+                annotation.__enter__()
+            except Exception:
+                annotation = None
+        try:
+            yield sp
+        finally:
+            if annotation is not None:
+                annotation.__exit__(None, None, None)
+            sp.duration = time.perf_counter() - t0
+            stack.pop()
+            with self._lock:
+                self._history.append(sp)
+
+    def current(self) -> tuple[str | None, str | None]:
+        """(trace_id, span_id) of the innermost open span — what a
+        sender stamps into an outgoing message."""
+        stack = self._stack()
+        if not stack:
+            return None, None
+        return stack[-1].trace_id, stack[-1].span_id
+
+    @contextmanager
+    def continue_trace(self, trace_id: str | None, parent_id: str | None):
+        """Adopt a REMOTE trace context (the wire hop of
+        ZTracer/blkin: the reference threads trace handles through the
+        EC pipeline signatures and the sub-op messages,
+        osd/ECBackend.h:70-94). Spans opened inside link to the
+        sender's span and share its trace id, so one client op's
+        spans correlate across the client, the primary, and every
+        replica — dump_historic filtered by trace_id IS the
+        distributed trace."""
+        if not self.enabled or trace_id is None:
+            yield
+            return
+        stack = self._stack()
+        marker = Span(
+            parent_id if parent_id is not None else "",
+            None, "<remote>", time.time(), trace_id=trace_id,
+        )
+        stack.append(marker)
+        try:
+            yield
+        finally:
+            stack.pop()
+
+    def dump_historic(self, limit: int | None = None) -> list[dict]:
+        with self._lock:
+            spans = list(self._history)
+        if limit is not None:
+            spans = spans[-limit:]
+        return [s.as_dict() for s in spans]
+
+    def clear(self) -> None:
+        with self._lock:
+            self._history.clear()
+
+
+# Process-global tracer.
+tracer = Tracer()

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``ceph_tpu_torch``) on one card.
 
-Drives three paths through the package's public entry points, at
+Drives four paths through the package's public entry points, at
 BlueStore's 4 KiB csum block, each counted on its own:
 
 1. set-up: the card's name and power limit; build every kernel in
@@ -49,7 +49,26 @@ BlueStore's 4 KiB csum block, each counted on its own:
    the same chunk (``clay_repair_time_vs_naive``), and the clay corpus
    (v0 and v2): encode and repair of chunks 0 and n-1. Kernels E and F
    (phase 2) are held against their plain versions over four
-   geometries x five sub-chunk sizes x two stripe counts.
+   geometries x five sub-chunk sizes x two stripe counts;
+6. the pipeline path, the OSD EC backend over 12 ``MemStore`` shards
+   (``ShardBackend`` + ``RMWPipeline`` with a ``PGLog`` +
+   ``ReadPipeline`` + ``RecoveryBackend``), ISA ``reed_sol_van``
+   EC(8,4) at Ceph's default 4 KiB stripe unit, 64 objects of 4 MiB:
+   the write (two 2 MiB appends each, fused csums extending HashInfo),
+   the overwrites with shard 5 down (a 2 MiB full-stripe re-encode on
+   16 objects, then 64 parity deltas of 4 KiB on the host GF tables,
+   and again from the same state with ``ec_host_dispatch_bytes`` 0 on
+   Kernel A, byte-equal), the degraded read with shards {0, 5, 9} down
+   (every whole object, 64 ranges of 64 KiB), ``recover_from_log`` of
+   shard 5, the rebuild of shard 9 into an empty store (bytes and attrs
+   equal to the lost store's), ``be_deep_scrub`` of every object and of
+   one flipped byte (found, repaired, clean), the read-back of every
+   object against a numpy model; SHEC k=8 m=4 c=3 (encode, a repair
+   from 4 of 11 chunks, the v0 corpus entry), CLAY k=4 m=3 over SHEC
+   (encode and repair on Kernels A, E and F) and xxhash32/64 over
+   64 MiB. Each phase's kernel launches, ``ec_dispatch`` and
+   ``checksum.backends`` counts are held against a prediction from the
+   op sizes and printed as the route split.
 
 Kernel launch counts and the ``ec_dispatch`` / ``checksum.backends``
 counters are zeroed just before each path and read just after it: every
@@ -65,6 +84,7 @@ Usage: python3 chip_smoke.py [--seed N]
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -126,6 +146,31 @@ CLAY_KERNEL_CASES = [
 ]
 CLAY_KERNEL_SC = (8192, 6528, 128, 8, 1003)
 CLAY_KERNEL_B = (64, 3)
+
+# the pipeline path: the OSD EC backend over MemStore shards, ISA
+# reed_sol_van EC(8,4) at Ceph's default stripe unit (4 KiB, so a 32 KiB
+# stripe width), 64 RADOS objects of 4 MiB
+PIPE_PROFILE = {"k": "8", "m": "4", "technique": "reed_sol_van"}
+PIPE_UNIT = 4096
+PIPE_OBJECTS = 64
+PIPE_OBJECT_BYTES = 4 * MIB  # written as two appends of half each
+PIPE_OVERWRITTEN = 16  # objects that take the overwrites
+PIPE_BIG_OFF, PIPE_BIG = MIB, 2 * MIB  # a full-stripe re-encode each
+PIPE_SMALL_OPS, PIPE_SMALL = 64, 4096  # parity deltas of one chunk each
+PIPE_RANGES, PIPE_RANGE = 64, 64 * 1024
+PIPE_LOG_SHARD = 5  # down through the overwrites, recovered from the log
+#: data shards the small overwrites land on: all but the log shard (its
+#: RMW read would decode)
+PIPE_SMALL_SHARDS = (0, 1, 2, 3, 4, 6, 7)
+PIPE_READ_DOWN = (0, 9)  # down, beside the log shard, for the reads
+PIPE_WIPED = 9  # its store replaced by an empty one and rebuilt
+PIPE_FLIP_SHARD = 2
+SHEC_PROFILE = {"k": "8", "m": "4", "c": "3"}  # Ceph's SHEC doc example
+SHEC_STRIPES, SHEC_CHUNK, SHEC_LOST = 64, 512 * 1024, 0
+SHEC_CORPUS = ROOT / "tests/corpus/v0/shec/shec_c=2_k=4_m=3"
+CLAY_SHEC_PROFILE = {"k": "4", "m": "3", "scalar_mds": "shec"}
+CLAY_SHEC_STRIPES = 16  # of one 4 MiB object each
+XXH_BYTES = 64 * MIB
 
 #: Kernel A, B, C and D edge cases (phase 2)
 A_EDGE_N = (1, 15, 16, 17, 4095, MIB + 37)
@@ -1430,6 +1475,467 @@ def clay_path(rng, dev) -> Counted:
     return counted
 
 
+class Routes:
+    """Per-phase route counts of the pipeline path: each kernel's
+    launches (``launch.<kernel>``), the ``ec_dispatch`` counters and the
+    ``checksum.backends`` counts (``backend.<name>``), read before and
+    after a phase; ``rows`` keeps each phase's nonzero differences."""
+
+    def __init__(self) -> None:
+        self.rows: dict[str, dict[str, int]] = {}
+
+    @staticmethod
+    def _now() -> dict[str, int]:
+        from ceph_tpu_torch import kernels
+        from ceph_tpu_torch.checksum import backends
+        from ceph_tpu_torch.codecs.matrix_codec import dispatch_counters
+
+        out = {f"launch.{k.symbol}": k.launches for k in kernels.ALL}
+        out.update(dispatch_counters().dump())
+        out.update({f"backend.{b}": n for b, n in backends.counts().items()})
+        return out
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        before = self._now()
+        yield
+        self.rows[name] = {
+            key: val - before.get(key, 0)
+            for key, val in sorted(self._now().items())
+            if val != before.get(key, 0)
+        }
+
+
+def predict_pipeline(
+    on_card: bool, small_shards: list[int]
+) -> dict[str, dict[str, int]]:
+    """The route of every codec and checksum call of the pipeline path,
+    from the op sizes and the routing options, per phase; ``small_shards``
+    is the data shard of each small overwrite. Host arrays at or below
+    ``ec_host_dispatch_bytes`` take the host GF tables (the fused
+    encode+csum has no host route); larger ones take the apply kernel
+    (A), or the fused kernel (B) for csum-block appends; a matrix of
+    zeros and ones (an XOR: a decode row of all ones, the parity column
+    of a data shard whose coefficients are all one) takes the schedule
+    kernel (D); streams at or above ``csum_device_min_bytes`` hash on
+    Kernel C. On the CPU (a rehearsal) every kernel route is its plain
+    form, and nothing launches."""
+    import numpy as np
+
+    from ceph_tpu_torch.codecs import registry
+    from ceph_tpu_torch.ops import xor_schedule
+    from ceph_tpu_torch.utils import config
+
+    k = int(PIPE_PROFILE["k"])
+    limit = int(config.get("ec_host_dispatch_bytes"))
+    csum_min = int(config.get("csum_device_min_bytes"))
+    shard = PIPE_OBJECT_BYTES // k  # a whole object's bytes per shard
+    coding = registry.factory(
+        "isa", PIPE_PROFILE, device="cpu").generator[k:]
+
+    def xor_route(mat):
+        return on_card and config.get("ec_use_sched") and int(
+            mat.max()) <= 1 and xor_schedule.routable_schedule(
+                np.ascontiguousarray(mat, np.uint8),
+                config.get("ec_sched_opt")) is not None
+
+    def apply(op, n, nbytes, mat=None, limit=limit):
+        """``n`` matrix applies of ``op`` over ``nbytes`` of host input;
+        ``mat`` is the byte matrix where it may be an XOR."""
+        if n == 0:
+            return {}
+        if 0 < limit and nbytes <= limit:
+            return {f"host_{op}": n}
+        if mat is not None and xor_route(mat):
+            return {f"sched_{op}": n, "launch.xor_schedule": n}
+        if not on_card:
+            return {f"plain_{op}": n}
+        return {f"kernel_{op}": n, "launch.gf_apply": n}
+
+    def crc(n, nbytes):
+        if 0 < csum_min and nbytes < csum_min:
+            return {"backend.host": n}
+        if not on_card:
+            return {"backend.plain": n}
+        return {"backend.kernel": n, "launch.crc32c_blocks": n}
+
+    def fused(n):
+        route = "kernel" if on_card else "plain"
+        out = {f"{route}_encode": n, "fused_encode": n}
+        if on_card:
+            out["launch.gf_apply_csum"] = n
+        return out
+
+    def merge(*parts):
+        out: dict[str, int] = {}
+        for part in parts:
+            for key, val in part.items():
+                out[key] = out.get(key, 0) + val
+        return out
+
+    clean = PIPE_OBJECTS - PIPE_OVERWRITTEN  # objects whose HashInfo holds
+    return {
+        # two appends per object, csum blocks fused into the encode
+        "write": fused(2 * PIPE_OBJECTS),
+        # a whole-stripe overwrite reads nothing and re-encodes, fused
+        "overwrite_full": fused(PIPE_OVERWRITTEN),
+        # one chunk's delta applied to the four parity chunks
+        "overwrite_small": apply("delta", PIPE_SMALL_OPS, PIPE_SMALL),
+        # the same with no host route: each data shard's parity column
+        "overwrite_small_device": merge(*(
+            apply("delta", small_shards.count(s), PIPE_SMALL,
+                  mat=coding[:, s:s + 1], limit=0)
+            for s in sorted(set(small_shards)))),
+        # data shards 0 and the log shard decoded from 6 data + 2 parity
+        "degraded_read_objects": apply("decode", PIPE_OBJECTS, k * shard),
+        # a 64 KiB range spans 2-3 stripes: k survivors of <= 3 chunks
+        "degraded_read_ranges": apply(
+            "decode", PIPE_RANGES,
+            k * (PIPE_RANGE // (k * PIPE_UNIT) + 1) * PIPE_UNIT),
+        # the log shard's dirty window of each fully overwritten object,
+        # with shard 0 still down: 6 data + 2 parity survivors
+        "log_recovery": apply(
+            "decode", PIPE_OVERWRITTEN, k * PIPE_BIG // k),
+        # parity shard 9 re-encoded from the k data shards, then the
+        # objects with a HashInfo verified
+        "rebuild": merge(apply("decode", PIPE_OBJECTS, k * shard),
+                         crc(clean, shard)),
+        # every shard of the clean objects; the overwritten ones have a
+        # cleared HashInfo and read nothing
+        "deep_scrub": crc(clean * (k + int(PIPE_PROFILE["m"])), shard),
+        # one corrupt shard: scrub, rebuild from the other data shards
+        # and the all-ones parity (an XOR), verify, scrub again
+        "scrub_repair": merge(
+            crc(2 * (k + int(PIPE_PROFILE["m"])) + 1, shard),
+            apply("decode", 1, k * shard, mat=np.ones((1, k), np.uint8))),
+        "model_check": {},
+    }
+
+
+def pipeline_path(rng, dev) -> Counted:
+    """The pipeline path: the OSD EC backend (RMW write, client read,
+    recovery, deep scrub) over 12 MemStore shards, ISA EC(8,4) at a
+    4 KiB stripe unit, 64 objects of 4 MiB; then SHEC, CLAY over SHEC
+    and xxhash. Each phase's routes are held against the prediction,
+    and every object's bytes against a numpy model of the writes."""
+    import torch
+
+    from ceph_tpu_torch.checksum import Checksummer, xxh32_ref, xxh64_ref
+    from ceph_tpu_torch.codecs import registry
+    from ceph_tpu_torch.gf import gf_apply_bytes_host
+    from ceph_tpu_torch.pipeline import (
+        HashInfo,
+        PGLog,
+        ReadPipeline,
+        RecoveryBackend,
+        StripeInfo,
+        be_deep_scrub,
+    )
+    from ceph_tpu_torch.pipeline.rmw import (
+        HINFO_KEY,
+        OI_KEY,
+        RMWPipeline,
+        ShardBackend,
+        parse_oi,
+    )
+    from ceph_tpu_torch.store import MemStore, Transaction
+    from ceph_tpu_torch.utils import config
+    from ceph_tpu_torch.utils.device import to_numpy
+
+    k, m = int(PIPE_PROFILE["k"]), int(PIPE_PROFILE["m"])
+    n = k + m
+    size = PIPE_OBJECT_BYTES
+    half = size // 2
+    shard_bytes = size // k
+    oids = [f"rbd_data.{i:016x}" for i in range(PIPE_OBJECTS)]
+    over = oids[:PIPE_OVERWRITTEN]
+    clean = oids[PIPE_OVERWRITTEN:]
+    model = {oid: rng.integers(0, 256, size, dtype=np.uint8) for oid in oids}
+    # small overwrites: one whole chunk on an allowed data shard
+    stripes = size // (k * PIPE_UNIT)
+    small = []
+    for _ in range(PIPE_SMALL_OPS):
+        oid = over[int(rng.integers(0, len(over)))]
+        raw = PIPE_SMALL_SHARDS[int(rng.integers(0, len(PIPE_SMALL_SHARDS)))]
+        off = (int(rng.integers(0, stripes)) * k + raw) * PIPE_UNIT
+        small.append((oid, off, rng.integers(0, 256, PIPE_SMALL, np.uint8)))
+    ranges = [(oids[int(rng.integers(0, len(oids)))],
+               int(rng.integers(0, size - PIPE_RANGE)))
+              for _ in range(PIPE_RANGES)]
+    big = {oid: rng.integers(0, 256, PIPE_BIG, dtype=np.uint8) for oid in over}
+
+    def stack(stores, pglog):
+        codec = registry.factory("isa", PIPE_PROFILE, device=dev)
+        sinfo = StripeInfo(k, m, k * PIPE_UNIT)
+        backend = ShardBackend(stores)
+        rmw = RMWPipeline(sinfo, codec, backend, pglog=pglog)
+        reads = ReadPipeline(sinfo, codec, backend, rmw.object_size)
+        rec = RecoveryBackend(sinfo, codec, backend, rmw.object_size,
+                              rmw.hinfo, eversion_fn=rmw.object_eversion)
+        return codec, sinfo, backend, rmw, reads, rec
+
+    def submit(rmw, oid, off, data):
+        done = []
+        rmw.submit(oid, off, data.tobytes(), done.append)
+        check(len(done) == 1 and done[0].error is None,
+              f"write of {oid} at {off} did not commit: {done}")
+
+    def shard_state(stores, objs):
+        return {s: {oid: (st.read(oid), st.getattrs(oid)) for oid in objs}
+                for s, st in stores.items()}
+
+    routes = Routes()
+    with Counted("pipeline") as counted:
+        with config.override(csum_block_size=CSUM_BLOCK,
+                             osd_deep_scrub_stride=524288):
+            pglog = PGLog(n)
+            stores = {s: MemStore(f"osd.{s}") for s in range(n)}
+            codec, sinfo, backend, rmw, reads, rec = stack(stores, pglog)
+            check(rmw.csum_block == CSUM_BLOCK, "csum_block_size not read")
+
+            with routes("write"), Phase("pipeline_write", 2 * PIPE_OBJECTS * half):
+                for oid in oids:
+                    submit(rmw, oid, 0, model[oid][:half])
+                    submit(rmw, oid, half, model[oid][half:])
+            for oid in oids:
+                check(rmw.hinfo(oid).get_total_chunk_size() == shard_bytes,
+                      f"HashInfo of {oid} not extended by the second append")
+
+            backend.down_shards.add(PIPE_LOG_SHARD)
+            with routes("overwrite_full"), Phase(
+                    "pipeline_overwrite_full", PIPE_OVERWRITTEN * PIPE_BIG):
+                for oid in over:
+                    submit(rmw, oid, PIPE_BIG_OFF, big[oid])
+                    model[oid][PIPE_BIG_OFF:PIPE_BIG_OFF + PIPE_BIG] = big[oid]
+            dirty = pglog.dirty_extents(PIPE_LOG_SHARD)
+            check(sorted(dirty) == sorted(over),
+                  f"the log holds dirty extents of {sorted(dirty)}")
+            # the state the small overwrites start from, for the second pass
+            before = shard_state(stores, over)
+            with routes("overwrite_small"), Phase(
+                    "pipeline_overwrite_small_host",
+                    PIPE_SMALL_OPS * PIPE_SMALL):
+                for oid, off, data in small:
+                    submit(rmw, oid, off, data)
+                    model[oid][off:off + PIPE_SMALL] = data
+            check(rmw.perf.get("parity_delta_ops") == PIPE_SMALL_OPS,
+                  "the small overwrites did not all take parity delta")
+
+            # the same overwrites from the same state, every one on the card
+            stores2 = {s: MemStore.from_snapshot(f"osd.{s}.b", objs)
+                       for s, objs in before.items()}
+            del before
+            _, _, backend2, rmw2, _, _ = stack(stores2, PGLog(n))
+            backend2.down_shards.add(PIPE_LOG_SHARD)
+            for oid in over:
+                raw = stores2[0].getattr(oid, OI_KEY)
+                osize, ev = parse_oi(raw)
+                rmw2.prime_object(oid, osize, HashInfo.from_bytes(
+                    stores2[0].getattr(oid, HINFO_KEY), dev), ev)
+            with config.override(ec_host_dispatch_bytes=0), \
+                    routes("overwrite_small_device"), Phase(
+                        "pipeline_overwrite_small_device",
+                        PIPE_SMALL_OPS * PIPE_SMALL):
+                for oid, off, data in small:
+                    submit(rmw2, oid, off, data)
+            check(shard_state(stores2, over) == shard_state(stores, over),
+                  "the device-route overwrites stored other bytes than the "
+                  "host route's")
+            del stores2, backend2, rmw2
+
+            backend.down_shards.update(PIPE_READ_DOWN)
+            got_objects = {}
+            with routes("degraded_read_objects"), Phase(
+                    "pipeline_degraded_read_objects", PIPE_OBJECTS * size):
+                for oid in oids:
+                    got_objects[oid] = reads.read_sync(oid, 0, size)
+            got_ranges = []
+            with routes("degraded_read_ranges"), Phase(
+                    "pipeline_degraded_read_ranges", PIPE_RANGES * PIPE_RANGE):
+                for oid, off in ranges:
+                    got_ranges.append(reads.read_sync(oid, off, PIPE_RANGE))
+
+            backend.down_shards.discard(PIPE_LOG_SHARD)
+            with routes("log_recovery"), Phase(
+                    "pipeline_log_recovery", PIPE_OVERWRITTEN * PIPE_BIG):
+                log_ops = rec.recover_from_log(pglog, PIPE_LOG_SHARD)
+            check(sorted(log_ops) == sorted(over)
+                  and not pglog.dirty_extents(PIPE_LOG_SHARD),
+                  "the log recovery left dirty extents")
+            backend.down_shards.clear()
+
+            wiped = stores[PIPE_WIPED]
+            pre_wipe = shard_state({0: wiped}, oids)[0]
+            backend.stores[PIPE_WIPED] = MemStore(f"osd.{PIPE_WIPED}.new")
+            with routes("rebuild"), Phase(
+                    "pipeline_rebuild_shard", PIPE_OBJECTS * k * shard_bytes):
+                for oid in oids:
+                    rec.recover_object(oid, {PIPE_WIPED})
+            rebuilt = shard_state({0: backend.stores[PIPE_WIPED]}, oids)[0]
+            check(rebuilt == pre_wipe,
+                  f"shard {PIPE_WIPED} rebuilt with other bytes or attrs")
+            del pre_wipe, rebuilt, wiped
+
+            with routes("deep_scrub"), Phase(
+                    "pipeline_deep_scrub", len(clean) * n * shard_bytes):
+                scrubs = {oid: be_deep_scrub(sinfo, backend, oid, device=dev)
+                          for oid in oids}
+            for oid, res in scrubs.items():
+                check(res.ok, f"scrub of {oid}: {res.errors}")
+            victim = clean[0]
+            with routes("scrub_repair"), Phase(
+                    "pipeline_scrub_repair", 2 * n * shard_bytes):
+                st = backend.stores[PIPE_FLIP_SHARD]
+                byte = st.read(victim, 12345, 1)[0]
+                st.queue_transactions(Transaction().write(
+                    victim, 12345, bytes([byte ^ 0x5A])))
+                bad = be_deep_scrub(sinfo, backend, victim, device=dev)
+                rec.recover_object(victim, {PIPE_FLIP_SHARD})
+                fixed = be_deep_scrub(sinfo, backend, victim, device=dev)
+            check([(e.shard, e.kind) for e in bad.errors]
+                  == [(PIPE_FLIP_SHARD, "crc_mismatch")],
+                  f"the flipped byte scrubbed as {bad.errors}")
+            check(fixed.ok, f"scrub after the repair: {fixed.errors}")
+
+            with routes("model_check"), Phase(
+                    "pipeline_read_back", PIPE_OBJECTS * size):
+                for oid in oids:
+                    check(reads.read_sync(oid, 0, size) == model[oid].tobytes(),
+                          f"{oid} reads back other bytes than were written")
+        for oid in oids:
+            check(got_objects[oid] == model[oid].tobytes(),
+                  f"degraded read of {oid} differs from the model")
+        for (oid, off), got in zip(ranges, got_ranges):
+            check(got == model[oid][off:off + PIPE_RANGE].tobytes(),
+                  f"degraded range {oid}@{off} differs from the model")
+        del got_objects, stores, backend, rmw, reads, rec
+
+        # -- SHEC: encode, a repair with fewer than k reads, the corpus ---
+        shec = registry.factory("shec", SHEC_PROFILE, device=dev)
+        sk, sm = shec.k, shec.m
+        shec_data = torch.from_numpy(rng.integers(
+            0, 256, (sk, SHEC_STRIPES, SHEC_CHUNK), dtype=np.uint8)).to(dev)
+        with routes("shec"), Phase("shec_encode_decode",
+                                   sk * SHEC_STRIPES * SHEC_CHUNK):
+            shec_par = shec.encode_chunks({i: shec_data[i] for i in range(sk)})
+            plan = shec.minimum_to_decode(
+                {SHEC_LOST}, set(range(sk + sm)) - {SHEC_LOST})
+            full = {**{i: shec_data[i] for i in range(sk)}, **shec_par}
+            shec_dec = shec.decode_chunks(
+                {SHEC_LOST}, {i: full[i] for i in plan})[SHEC_LOST]
+            meta = json.loads((SHEC_CORPUS / "profile.json").read_text())
+            cshec = registry.factory("shec", meta["profile"], device=dev)
+            cpay = (SHEC_CORPUS / "payload.bin").read_bytes()
+            cwant = {i: (SHEC_CORPUS / f"chunk.{i}").read_bytes()
+                     for i in range(cshec.get_chunk_count())}
+            cnow = cshec.encode(cpay)
+            cdec = cshec.decode({0, 5}, {i: c for i, c in cwant.items()
+                                         if i not in (0, 5)})
+        check(len(plan) < sk, f"SHEC repair of {SHEC_LOST} reads {len(plan)}")
+        check(torch.equal(shec_dec, shec_data[SHEC_LOST]),
+              "SHEC decode differs from the source chunk")
+        want_par = gf_apply_bytes_host(
+            shec.coding, to_numpy(shec_data[:, :2, :4096]).transpose(1, 0, 2))
+        for j in range(sm):
+            check(np.array_equal(to_numpy(shec_par[sk + j][:2, :4096]),
+                                 want_par[:, j]),
+                  f"SHEC parity {sk + j} differs from the host GF tables")
+        for i, c in cwant.items():
+            check(cnow[i] == c, f"SHEC corpus chunk {i} differs")
+        check(cdec[0] == cwant[0] and cdec[5] == cwant[5],
+              "SHEC corpus decode differs")
+
+        cs_codec = registry.factory("clay", CLAY_SHEC_PROFILE, device=dev)
+        ck = cs_codec.k
+        cn = cs_codec.get_chunk_count()
+        csize = cs_codec.get_chunk_size(OBJECT_BYTES)
+        cdata = torch.from_numpy(rng.integers(
+            0, 256, (ck, CLAY_SHEC_STRIPES, csize), dtype=np.uint8)).to(dev)
+        with routes("clay_over_shec"), Phase(
+                "clay_over_shec", ck * CLAY_SHEC_STRIPES * csize):
+            cpar = cs_codec.encode_chunks({i: cdata[i] for i in range(ck)})
+            cfull = {**{i: cdata[i] for i in range(ck)}, **cpar}
+            cplan = cs_codec.minimum_to_decode({1}, set(range(cn)) - {1})
+            crep = cs_codec.repair({1}, {
+                s: gather_subchunks(cfull[s], runs,
+                                    cs_codec.get_sub_chunk_count())
+                for s, runs in cplan.items()})[1]
+        check(torch.equal(crep, cfull[1]), "CLAY over SHEC repair differs")
+
+        # -- xxhash through the Checksummer, on the card ------------------
+        blob = torch.from_numpy(rng.integers(
+            0, 256, XXH_BYTES, dtype=np.uint8)).to(dev)
+        flip_at = XXH_BYTES // 3 + 7
+        bad_blob = blob.clone()
+        bad_blob[flip_at] ^= 0x5A
+        xx = {}
+        with routes("xxhash"), Phase("xxhash_calculate_verify",
+                                     6 * XXH_BYTES):
+            for alg in ("xxhash32", "xxhash64"):
+                summer = Checksummer(alg, CSUM_BLOCK, device=dev)
+                vals = summer.calculate(blob)
+                xx[alg] = (vals, summer.verify(blob, vals),
+                           summer.verify(bad_blob, vals))
+        host_blob = to_numpy(blob)
+        for alg, ref in (("xxhash32", xxh32_ref), ("xxhash64", xxh64_ref)):
+            vals, ok, bad = xx[alg]
+            seed = (1 << (32 if alg == "xxhash32" else 64)) - 1
+            for q in (0, 77, len(vals) - 1):
+                blk = host_blob[q * CSUM_BLOCK:(q + 1) * CSUM_BLOCK].tobytes()
+                check(int(vals[q]) == ref(blk, seed),
+                      f"{alg} of block {q} differs from the reference")
+            check(ok == (-1, 0), f"{alg} clean verify returned {ok}")
+            want_bad = (flip_at // CSUM_BLOCK) * CSUM_BLOCK
+            check(bad[0] == want_bad,
+                  f"{alg} verify of the flipped byte returned {bad}")
+
+    # CLAY over SHEC's parity against the host path (numpy in, one
+    # object), outside the counted run
+    cpu_cs = registry.factory("clay", CLAY_SHEC_PROFILE, device="cpu")
+    with config.override(ec_host_dispatch_bytes=1 << 40):
+        host_par = cpu_cs.encode_chunks(
+            {i: to_numpy(cdata[i][:1]) for i in range(ck)})
+    for j in host_par:
+        check(np.array_equal(host_par[j], to_numpy(cpar[j][:1])),
+              f"CLAY over SHEC parity {j} differs from the host path")
+
+    # -- the routes, against the prediction --------------------------------
+    on_card = dev.type == "cuda"
+    predicted = predict_pipeline(
+        on_card, [off // PIPE_UNIT % k for _, off, _ in small])
+    # SHEC: the device-resident encode and repair, the corpus encode and
+    # decode (bytes go to the codec's device whatever their size)
+    predicted["shec"] = (
+        {"kernel_encode": 2, "kernel_decode": 2, "launch.gf_apply": 4}
+        if on_card else {"plain_encode": 2, "plain_decode": 2})
+    predicted["xxhash"] = {"backend.device": 6}
+    print("pipeline route split: " + json.dumps(
+        {"predicted": predicted, "observed": routes.rows}))
+    for phase, want in predicted.items():
+        check(routes.rows.get(phase, {}) == want,
+              f"pipeline phase {phase} routes {routes.rows.get(phase)}, "
+              f"predicted {want}")
+    # CLAY over SHEC: its inner-decode count is the layered engine's, so
+    # the check is the routes it may take and the kernels it must launch
+    clay_row = routes.rows["clay_over_shec"]
+    bad = [key for key in clay_row
+           if key.startswith(("plain_", "sched_", "host_"))]
+    check(on_card and not bad and all(
+        clay_row.get(f"launch.{kern}", 0) > 0 for kern in (
+            "gf_apply", "clay_uncoupled", "clay_couple_scatter")),
+        f"CLAY over SHEC routes {clay_row}: want Kernels A, E and F only")
+    for kern in ("gf_apply", "gf_apply_csum", "crc32c_blocks"):
+        check(counted.launches[kern] > 0,
+              f"kernel {kern} never launched on the pipeline path")
+    print(f"pipeline outputs: {PIPE_OBJECTS} objects written, overwritten "
+          "(host and device delta routes byte-equal), read degraded, "
+          "recovered from the log, shard rebuilt with equal bytes and "
+          "attrs, scrubbed clean, one flipped byte found and repaired, "
+          "read back equal to the model; SHEC, CLAY over SHEC and xxhash "
+          "byte-exact")
+    return counted
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1477,6 +1983,8 @@ def main(argv=None) -> int:
     paths.append(schedule_path(rng, dev))
     torch.cuda.empty_cache()
     paths.append(clay_path(rng, dev))
+    torch.cuda.empty_cache()
+    paths.append(pipeline_path(rng, dev))
 
     print(json.dumps({"phases": Phase.results}))
     kern_rows = []

@@ -11,8 +11,13 @@ device-resident data (the layered engine, one eager op per pair
 transform), the host-staged write with HashInfo, the repair of chunk 9
 from device-resident helper sub-chunks, the degraded read of shard 9
 through ``reconstruct_shards``, the two-erasure decode {0, 8}, and the
-CLAY(8,4,d=10) repair of chunk 8 with one aloof helper. Prints per
-phase:
+CLAY(8,4,d=10) repair of chunk 8 with one aloof helper; and the
+pipeline path's OSD EC backend (ISA EC(8,4) at a 4 KiB stripe unit over
+12 MemStores, 64 objects of 4 MiB, as in ``chip_smoke.py``): the write
+(two 2 MiB appends each), 64 parity-delta overwrites of 4 KiB on the
+data shards other than 5, the degraded read of every object with shards
+{0, 5, 9} down, the rebuild of shard 9 into an empty store, the deep
+scrub, and xxhash64 over 64 MiB on the card. Prints per phase:
 
 - host-clock time, and device busy time summed over kernels and copies
   (from the profiler's device events), hence the device idle share, and
@@ -27,6 +32,7 @@ Writes the full report to ``chiprun_out/torch_slice_breakdown.json``.
 Not part of the package; imports nothing of JAX or ceph_tpu.
 
 Usage: python3 experiments/torch_slice_breakdown.py [--seed N]
+       [--only isa|schedule|clay|pipeline ...]
 """
 
 from __future__ import annotations
@@ -51,6 +57,8 @@ LIB_LOST = (1, 4)
 CLAY = {"k": "8", "m": "4", "d": "11"}
 CLAY_GENERAL = {"k": "8", "m": "4", "d": "10"}
 CLAY_OBJECTS = 64
+PIPE_OBJECTS, PIPE_OBJECT_BYTES = 64, 4 << 20
+PIPE_SMALL_SHARDS = (0, 1, 2, 3, 4, 6, 7)
 
 
 def phases(payload, dev_name="cuda"):
@@ -244,17 +252,100 @@ def clay_phases(rng, dev_name="cuda"):
             "clay_d10_repair_aloof": clay_d10_repair_aloof}
 
 
-def device_time_us(prof) -> tuple[float, list, int]:
+def pipeline_phases(rng, dev_name="cuda"):
+    """The OSD EC backend's phases over one stack; each callable leaves
+    the stack as it found it or rebuilds what it needs."""
+    from ceph_tpu_torch.checksum import Checksummer
+    from ceph_tpu_torch.codecs import registry
+    from ceph_tpu_torch.pipeline import (
+        PGLog, ReadPipeline, RecoveryBackend, StripeInfo, be_deep_scrub,
+    )
+    from ceph_tpu_torch.pipeline.rmw import RMWPipeline, ShardBackend
+    from ceph_tpu_torch.store import MemStore
+
+    import torch
+
+    prof = {"k": str(K), "m": str(M), "technique": "reed_sol_van"}
+    sinfo = StripeInfo(K, M, K * 4096)
+    oids = [f"obj{i}" for i in range(PIPE_OBJECTS)]
+    data = {o: rng.integers(0, 256, PIPE_OBJECT_BYTES, dtype=np.uint8)
+            .tobytes() for o in oids}
+    half = PIPE_OBJECT_BYTES // 2
+    small = [(oids[int(rng.integers(0, len(oids)))],
+              (int(rng.integers(0, PIPE_OBJECT_BYTES // (K * 4096))) * K
+               + PIPE_SMALL_SHARDS[int(rng.integers(0, 7))]) * 4096,
+              rng.integers(0, 256, 4096, dtype=np.uint8).tobytes())
+             for _ in range(64)]
+
+    def stack():
+        codec = registry.factory("isa", prof, device=dev_name)
+        backend = ShardBackend({s: MemStore(f"osd.{s}") for s in range(K + M)})
+        rmw = RMWPipeline(sinfo, codec, backend, pglog=PGLog(K + M))
+        return codec, backend, rmw
+
+    def write_all(rmw):
+        for o in oids:
+            rmw.submit(o, 0, data[o][:half])
+            rmw.submit(o, half, data[o][half:])
+
+    codec, backend, rmw = stack()
+    write_all(rmw)
+    # the overwrites clear the HashInfo of what they touch: they get a
+    # stack of their own, so the scrub below still verifies every shard
+    _, _, rmw_small = stack()
+    write_all(rmw_small)
+    reads = ReadPipeline(sinfo, codec, backend, rmw.object_size)
+    rec = RecoveryBackend(sinfo, codec, backend, rmw.object_size, rmw.hinfo,
+                          eversion_fn=rmw.object_eversion)
+    blob = torch.from_numpy(rng.integers(0, 256, 64 << 20, dtype=np.uint8)
+                            ).to(dev_name)
+
+    def pipe_write():
+        write_all(stack()[2])
+
+    def pipe_overwrite_small():
+        for o, off, p in small:
+            rmw_small.submit(o, off, p)
+
+    def pipe_degraded_read():
+        backend.down_shards.update({0, 5, 9})
+        for o in oids:
+            reads.read_sync(o, 0, PIPE_OBJECT_BYTES)
+        backend.down_shards.clear()
+
+    def pipe_rebuild_shard():
+        backend.stores[9] = MemStore("osd.9.new")
+        for o in oids:
+            rec.recover_object(o, {9})
+
+    def pipe_deep_scrub():
+        for o in oids:
+            be_deep_scrub(sinfo, backend, o, device=dev_name)
+
+    def xxhash64_64mib():
+        Checksummer("xxhash64", CB, device=dev_name).calculate(blob)
+
+    return {"pipe_write": pipe_write,
+            "pipe_overwrite_small": pipe_overwrite_small,
+            "pipe_degraded_read": pipe_degraded_read,
+            "pipe_rebuild_shard": pipe_rebuild_shard,
+            "pipe_deep_scrub": pipe_deep_scrub,
+            "xxhash64_64mib": xxhash64_64mib}
+
+
+def device_time_us(prof, spans=()) -> tuple[float, list, int]:
     """Sum of device time over the kernels and copies the card ran, and
     the top ones, from a finished torch.profiler run. Only events that
     ran on the device count: a host op's device total (aten::copy_)
-    repeats its children's, and CUPTI's own buffer requests are no
-    work of the program."""
+    repeats its children's, CUPTI's own buffer requests are no work of
+    the program, and the device-side ranges of the pipeline's tracer
+    spans (``spans``: their names; torch.profiler.record_function) only
+    bracket kernels already counted."""
     rows = []
     for evt in prof.key_averages():
         if not str(evt.device_type).endswith("CUDA"):
             continue
-        if evt.key.startswith("Activity Buffer Request"):
+        if evt.key.startswith("Activity Buffer Request") or evt.key in spans:
             continue
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
@@ -270,6 +361,9 @@ def device_time_us(prof) -> tuple[float, list, int]:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", nargs="+",
+                    choices=("isa", "schedule", "clay", "pipeline"),
+                    default=("isa", "schedule", "clay", "pipeline"))
     args = ap.parse_args(argv)
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -281,16 +375,29 @@ def main(argv=None) -> int:
     payload = np.random.default_rng(args.seed).integers(
         0, 256, K * STRIPES * CHUNK, dtype=np.uint8
     )
-    steps = phases(payload)
-    steps.update(schedule_phases(np.random.default_rng(args.seed + 1)))
-    steps.update(clay_phases(np.random.default_rng(args.seed + 2)))
+    steps = phases(payload) if "isa" in args.only else {}
+    if "schedule" in args.only:
+        steps.update(schedule_phases(np.random.default_rng(args.seed + 1)))
+    if "clay" in args.only:
+        steps.update(clay_phases(np.random.default_rng(args.seed + 2)))
+    if "pipeline" in args.only:
+        steps.update(pipeline_phases(np.random.default_rng(args.seed + 3)))
     for fn in steps.values():  # warm-up: build, caches, tables
         fn()
     torch.cuda.synchronize()
 
     from ceph_tpu_torch import kernels
 
-    report = {"device": torch.cuda.get_device_name(0), "phases": {}}
+    import subprocess
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    print(smi)
+    report = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+              "phases": {}}
     for name, fn in steps.items():
         for kern in kernels.ALL:
             kern.launches = 0
@@ -304,7 +411,10 @@ def main(argv=None) -> int:
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        busy_us, top_dev, ops = device_time_us(prof)
+        from ceph_tpu_torch.utils import tracer
+
+        spans = {sp["name"] for sp in tracer.dump_historic()}
+        busy_us, top_dev, ops = device_time_us(prof, spans)
         cp = cProfile.Profile()
         cp.enable()
         fn()

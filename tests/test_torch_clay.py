@@ -90,9 +90,20 @@ class TestParse:
         with pytest.raises(ValueError, match="scalar_mds"):
             make(k=4, m=2, scalar_mds="bogus")
 
-    def test_shec_inner_code_waits_for_shec(self):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            make(k=4, m=2, scalar_mds="shec")
+    def test_shec_inner_code_matches_reference(self, rng):
+        # CLAY over SHEC(k+nu, m, c=2): same geometry and inner code as
+        # ceph_tpu, and the same encode (test_torch_shec covers decode
+        # and repair)
+        port, ref = make(k=4, m=2, scalar_mds="shec"), make_ref(
+            k=4, m=2, scalar_mds="shec")
+        assert (port.q, port.t, port.nu) == (ref.q, ref.t, ref.nu)
+        assert (port.mds.k, port.mds.m, port.mds.c, port.mds.technique) == (
+            ref.mds.k, ref.mds.m, ref.mds.c, ref.mds.technique)
+        cs = port.get_chunk_size(4 * 512)
+        data = {i: rng.integers(0, 256, cs, np.uint8) for i in range(4)}
+        got, want = port.encode_chunks(data), ref.encode_chunks(data)
+        for j in want:
+            assert np.array_equal(to_numpy(got[j]), np.asarray(want[j]))
 
     def test_shortening(self):
         # k=5, m=2, d=6: q=2, (k+m)%2=1 -> nu=1, t=4.

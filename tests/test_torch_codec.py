@@ -153,7 +153,8 @@ def test_registry_and_profile_contract():
     assert (codec.get_chunk_count(), codec.get_data_chunk_count()) == (12, 8)
     assert codec.get_chunk_size(8 * 1000) == 1024  # CHUNK_ALIGN = 128
     assert codec.get_flags() & Flag.PARITY_DELTA_OPTIMIZATION
-    assert registry.names() == ["clay", "isa", "jerasure", "lrc", "xor"]
+    assert registry.names() == ["clay", "isa", "jerasure", "lrc", "shec",
+                                "xor"]
     with pytest.raises(ValueError, match="envelope"):
         registry.factory("isa", {"k": "22", "m": "4"}, device="cpu")
     with pytest.raises(ValueError, match="technique"):

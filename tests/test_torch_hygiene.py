@@ -10,6 +10,7 @@
 - Entry points default to the card: without one they raise instead of
   running on the CPU; ``device="cpu"`` is the only way onto the plain
   path.
+- Every configuration option is read somewhere in the package.
 - Every kernel binding's ctypes signature (``kernels.py``) matches its C
   entry point in ``csrc/``, the stream included: a pointer or 64-bit
   integer passed without its type reaches C as a truncated int.
@@ -60,6 +61,22 @@ def test_source_imports_no_jax_or_reference(path):
         assert not bad, f"{path.name}:{node.lineno} imports {bad}"
 
 
+def _option_names():
+    from ceph_tpu_torch.utils.config import OPTIONS
+
+    return [o.name for o in OPTIONS]
+
+
+@pytest.mark.parametrize("name", _option_names())
+def test_every_option_has_a_reader(name):
+    """The schema holds only options the package reads: a declared
+    option that nothing reads is accepted and silently does nothing."""
+    config_py = PKG / "utils" / "config.py"
+    readers = [p for p in PKG.rglob("*.py") if p != config_py
+               and re.search(rf"[\"']{name}[\"']", p.read_text())]
+    assert readers, f"option {name} is declared but never read"
+
+
 def test_fresh_interpreter_loads_no_jax_or_reference():
     modules = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
@@ -78,7 +95,17 @@ def test_fresh_interpreter_loads_no_jax_or_reference():
         timeout=120, check=True, cwd=ROOT,
     ).stdout
     loaded = json.loads(out.strip().splitlines()[-1])
-    assert "ceph_tpu_torch.codecs.isa" in loaded
+    for name in (
+        "ceph_tpu_torch.codecs.isa", "ceph_tpu_torch.codecs.shec",
+        "ceph_tpu_torch.checksum.u64", "ceph_tpu_torch.checksum.xxhash",
+        "ceph_tpu_torch.pipeline.rmw", "ceph_tpu_torch.pipeline.recovery",
+        "ceph_tpu_torch.pipeline.extent_cache", "ceph_tpu_torch.pipeline.pglog",
+        "ceph_tpu_torch.pipeline.inject", "ceph_tpu_torch.store.memstore",
+        "ceph_tpu_torch.store.transaction", "ceph_tpu_torch.utils.lockdep",
+        "ceph_tpu_torch.utils.cluster_log", "ceph_tpu_torch.utils.crash_points",
+        "ceph_tpu_torch.utils.optracker", "ceph_tpu_torch.utils.trace",
+    ):
+        assert name in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -108,6 +135,24 @@ def test_default_device_entry_points_raise_without_a_card(no_card):
         HashInfo(6)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         crc32c_device(np.zeros((2, 4096), np.uint8))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        registry.factory("shec", {"k": "4", "m": "3", "c": "2"})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Checksummer("xxhash64", 4096)
+    from ceph_tpu_torch.checksum import xxh32_device
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        xxh32_device(np.zeros((2, 4096), np.uint8))
+    from ceph_tpu_torch.pipeline import StripeInfo, be_deep_scrub
+    from ceph_tpu_torch.pipeline.rmw import HINFO_KEY, ShardBackend
+    from ceph_tpu_torch.store import MemStore, Transaction
+
+    stores = {s: MemStore() for s in range(6)}
+    for st in stores.values():
+        st.queue_transactions(Transaction().touch("o").setattr(
+            "o", HINFO_KEY, b'{"total_chunk_size": 0, "hashes": [0]}'))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        be_deep_scrub(StripeInfo(4, 2, 16384), ShardBackend(stores), "o")
     # asking for the CPU is the way onto the plain path
     codec = registry.factory("isa", {"k": "4", "m": "2"}, device="cpu")
     assert codec.device == torch.device("cpu")

@@ -249,3 +249,178 @@ def test_shard_read_error_names_shard_and_kind():
     err = read.ShardReadError(3, "obj", "missing")
     assert (err.shard, err.kind) == (3, "missing")
     assert str(err) == str(ref_read.ShardReadError(3, "obj", "missing"))
+
+
+# -- ReadPipeline: fan-out, retry, in-order completion -------------------
+# The same seeded writes and reads through ceph_tpu's ReadPipeline and
+# the port's (test_torch_rmw's twin stacks); every read's bytes, error,
+# error shards, decode flag and shard plan must agree.
+from test_torch_rmw import (  # noqa: E402,F401
+    _clean_inject, Twin, payload,
+)
+
+K, M = 4, 2
+
+
+def read_both(tw, oid, off, length):
+    outs = []
+    for st in tw.stacks:
+        got = {}
+        st.reads.submit(oid, off, length, lambda op, g=got: g.update(op=op))
+        op = got["op"]
+        outs.append((
+            op.data, None if op.error is None else str(op.error),
+            sorted(op.error_shards), op.need_decode,
+            {s: list(sr.extents) for s, sr in op.shard_reads.items()},
+        ))
+    assert outs[0] == outs[1]
+    return outs[1]
+
+
+class TestReadPipeline:
+    def test_fast_path_and_eof(self, rng):
+        tw = Twin()
+        data = payload(rng, 3 * K * PAGE + 517)
+        tw.submit("obj", 0, data)
+        assert read_both(tw, "obj", 0, len(data))[0] == data
+        lo, ln = PAGE + 100, 2 * PAGE + 57
+        assert read_both(tw, "obj", lo, ln)[0] == data[lo:lo + ln]
+        got = read_both(tw, "obj", 0, 100)
+        assert not got[3] and set(got[4]) == {0}
+        assert read_both(tw, "obj", 5 * K * PAGE, 100)[0] == b""
+        assert read_both(tw, "missing", 0, 100)[0] == b""
+
+    @pytest.mark.parametrize("down", [{0}, {1}, {3}, {0, 2}, {4, 5}])
+    def test_degraded(self, rng, down):
+        tw = Twin()
+        data = payload(rng, 2 * K * PAGE + 999)
+        tw.submit("obj", 0, data)
+        for st in tw.stacks:
+            st.backend.down_shards.update(down)
+        assert read_both(tw, "obj", 0, len(data))[0] == data
+        got = read_both(tw, "obj", PAGE, PAGE // 2)
+        assert got[0] == data[PAGE:PAGE + PAGE // 2]
+
+    def test_too_many_down(self, rng):
+        tw = Twin()
+        tw.submit("obj", 0, payload(rng, K * PAGE))
+        for st in tw.stacks:
+            st.backend.down_shards.update({0, 1, 2})
+        assert read_both(tw, "obj", 0, 100)[1] is not None
+
+    def test_eio_retry(self, rng):
+        tw = Twin()
+        data = payload(rng, K * PAGE)
+        tw.submit("obj", 0, data)
+        for st in tw.stacks:
+            st.backend.fail_read_shards.add(2)
+        got = read_both(tw, "obj", 0, len(data))
+        assert got[0] == data and got[2] == [2] and got[3]
+        for st in tw.stacks:
+            st.backend.down_shards.update({4, 5})
+            st.backend.fail_read_shards.add(1)
+        assert read_both(tw, "obj", 0, len(data))[1] is not None
+
+    def test_retry_widens_pending_shard(self, rng):
+        tw = Twin()
+        data = payload(rng, K * PAGE)
+        tw.submit("obj", 0, data)
+        outs = []
+        for st in tw.stacks:
+            be = st.backend
+            be.fail_read_shards.add(0)
+            be.defer_reads = True
+            got = {}
+            st.reads.submit("obj", 100, PAGE + 100,
+                            lambda op, g=got: g.update(op=op))
+            pending = sorted(be.deferred_reads, key=lambda t: t[0])
+            be.deferred_reads = []
+            for _, run in pending:
+                run()
+            while be.deferred_reads:
+                be.release_deferred_reads()
+            op = got["op"]
+            outs.append((op.data, op.error, sorted(op.error_shards)))
+        assert outs[0] == outs[1] == (data[100:PAGE + 200], None, [0])
+
+    def test_in_order_completion(self, rng):
+        tw = Twin()
+        a, b = payload(rng, PAGE), payload(rng, PAGE)
+        tw.submit("a", 0, a)
+        tw.submit("b", 0, b)
+        orders = []
+        for st in tw.stacks:
+            st.backend.defer_reads = True
+            done = []
+            r1 = st.reads.submit("a", 0, PAGE, lambda op, d=done: d.append(op.rid))
+            r2 = st.reads.submit("b", 0, PAGE, lambda op, d=done: d.append(op.rid))
+            pending, st.backend.deferred_reads = st.backend.deferred_reads, []
+            for _, run in reversed(pending):
+                run()
+            orders.append((done, [r1, r2]))
+        assert orders[0] == orders[1] and orders[1][0] == orders[1][1]
+
+    def test_subpage_boundary_overwrite_then_degraded(self, rng):
+        tw = Twin(plugin="isa", k=8, m=4)
+        data = payload(rng, 5 * 8 * PAGE + 12345)
+        tw.submit("obj", 0, data)
+        patch = payload(rng, 3 * PAGE)
+        tw.submit("obj", 2 * PAGE + 17, patch)
+        expect = bytearray(data)
+        expect[2 * PAGE + 17:2 * PAGE + 17 + len(patch)] = patch
+        for st in tw.stacks:
+            st.backend.down_shards.update({1, 6, 9, 11})
+        assert read_both(tw, "obj", 0, len(data))[0] == bytes(expect)
+        tw.assert_stores_equal()
+
+    def test_read_counters_match(self, rng):
+        tw = Twin()
+        data = payload(rng, 2 * K * PAGE)
+        tw.submit("obj", 0, data)
+        for st in tw.stacks:
+            st.backend.down_shards.add(1)
+        read_both(tw, "obj", 0, len(data))
+        tw.same(lambda st: {n: st.reads.perf.get(n) for n in (
+            "read_ops", "read_bytes", "reconstruct_ops",
+            "helper_read_bytes", "retries", "errors")})
+
+
+class TestClayThroughPipeline:
+    """CLAY fractional repair through the read pipeline: the helpers
+    read their repair planes only, and the port decodes the lost shard
+    from them as ceph_tpu does."""
+
+    @staticmethod
+    def _stores(tw, rng, n_stripes):
+        st = tw.port
+        k, m, chunk = st.k, st.m, st.chunk
+        data = rng.integers(0, 256, (n_stripes, k, chunk), np.uint8)
+        parity = st.codec.encode_chunks(
+            {i: np.ascontiguousarray(data[:, i, :]) for i in range(k)})
+        for s in range(k + m):
+            buf = (data[:, s, :] if s < k
+                   else np.asarray(parity[s])).reshape(-1).tobytes()
+            for stack in tw.stacks:
+                stack.backend.stores[s].queue_transactions(
+                    stack.pkg.store.Transaction().write("obj", 0, buf))
+        return data.reshape(-1).tobytes()
+
+    @pytest.mark.parametrize("fail", [set(), {5}])
+    def test_repair_through_pipeline(self, rng, fail):
+        tw = Twin(plugin="clay", profile={"d": "5"})
+        data = self._stores(tw, rng, 2)
+        size = len(data)
+        outs = []
+        for st in tw.stacks:
+            reads = st.pkg.read.ReadPipeline(
+                st.sinfo, st.codec, st.backend, lambda oid: size)
+            st.backend.down_shards.add(1)
+            st.backend.fail_read_shards.update(fail)
+            got = {}
+            reads.submit("obj", 0, size, lambda op, g=got: g.update(op=op))
+            op = got["op"]
+            outs.append((op.data, op.error, sorted(op.error_shards),
+                         {s: (list(sr.extents), sr.subchunks)
+                          for s, sr in op.shard_reads.items()}))
+        assert outs[0] == outs[1]
+        assert outs[1][0] == data and outs[1][1] is None

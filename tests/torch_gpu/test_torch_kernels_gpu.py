@@ -471,3 +471,120 @@ def test_clay_repair_on_card_moves_counters(cuda, profile, lost):
     assert got["kernel_decode"] == len(plan["groups"])
     assert got["plain_decode"] == 0 and got["host_decode"] == 0
     assert torch.equal(out, full[lost])
+
+
+# -- the pipeline path's kernel routes -----------------------------------
+def _pipeline(cuda, **cfg):
+    """ISA EC(8,4) at a 4 KiB stripe unit over 12 MemStores, as
+    chip_smoke's pipeline path wires it."""
+    from ceph_tpu_torch.codecs import registry
+    from ceph_tpu_torch.pipeline import (
+        PGLog, ReadPipeline, RecoveryBackend, StripeInfo,
+    )
+    from ceph_tpu_torch.pipeline.rmw import RMWPipeline, ShardBackend
+    from ceph_tpu_torch.store import MemStore
+
+    codec = registry.factory("isa", {"k": "8", "m": "4"}, device=cuda)
+    sinfo = StripeInfo(8, 4, 8 * 4096)
+    backend = ShardBackend({s: MemStore(f"osd.{s}") for s in range(12)})
+    rmw = RMWPipeline(sinfo, codec, backend, pglog=PGLog(12))
+    reads = ReadPipeline(sinfo, codec, backend, rmw.object_size)
+    rec = RecoveryBackend(sinfo, codec, backend, rmw.object_size, rmw.hinfo,
+                          eversion_fn=rmw.object_eversion)
+    return sinfo, backend, rmw, reads, rec
+
+
+def _launches():
+    from ceph_tpu_torch import kernels
+
+    return {k.symbol: k.launches for k in kernels.ALL}
+
+
+def _grew(before, after):
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def test_pipeline_append_takes_the_fused_kernel(cuda):
+    """A 2 MiB append with 4 KiB csum blocks: one Kernel B launch, and
+    the HashInfo it seeds equals a byte-hashed one."""
+    from ceph_tpu_torch.pipeline import HashInfo
+
+    sinfo, backend, rmw, reads, _ = _pipeline(cuda)
+    data = _data((2 << 20,)).numpy()
+    before = _launches()
+    rmw.submit("o", 0, data.tobytes())
+    assert _grew(before, _launches()) == {"gf_apply_csum": 1}
+    hi = HashInfo(12, device=cuda)
+    hi.append(0, {s: np.frombuffer(backend.stores[s].read("o"), np.uint8)
+                  for s in range(12)})
+    assert hi == rmw.hinfo("o")
+    assert reads.read_sync("o", 0, len(data)) == data.tobytes()
+
+
+def _delta_on_card_equals_host(cuda, shard, kern):
+    """A 4 KiB overwrite of data shard ``shard``: its parity delta takes
+    the host GF tables under the default threshold and ``kern`` at 0;
+    the stores end byte-equal."""
+    from ceph_tpu_torch.utils import config
+
+    data = _data((1 << 20,), seed=3).numpy().tobytes()
+    patch = _data((4096,), seed=4).numpy().tobytes()
+    snaps = []
+    for limit in (1 << 20, 0):
+        _, backend, rmw, _, _ = _pipeline(cuda)
+        rmw.submit("o", 0, data)
+        before = _launches()
+        with config.override(ec_host_dispatch_bytes=limit):
+            rmw.submit("o", shard * 4096, patch)
+        assert _grew(before, _launches()) == ({} if limit else {kern: 1})
+        snaps.append({s: (st.read("o"), st.getattrs("o"))
+                      for s, st in backend.stores.items()})
+    assert snaps[0] == snaps[1]
+
+
+def test_pipeline_parity_delta_on_kernel_a_equals_host(cuda):
+    _delta_on_card_equals_host(cuda, 3, "gf_apply")
+
+
+def test_pipeline_parity_delta_of_shard_0_on_kernel_d_equals_host(cuda):
+    """Shard 0's parity column is all ones: an XOR, Kernel D's."""
+    _delta_on_card_equals_host(cuda, 0, "xor_schedule")
+
+
+def test_pipeline_rebuild_and_scrub_on_kernels_a_and_c(cuda):
+    """Rebuilding parity shard 9 of a 4 MiB object: one Kernel A decode
+    and one Kernel C verify; the deep scrub hashes all 12 shards on
+    Kernel C and finds a flipped byte."""
+    from ceph_tpu_torch.pipeline import be_deep_scrub
+    from ceph_tpu_torch.store import MemStore, Transaction
+
+    sinfo, backend, rmw, _, rec = _pipeline(cuda)
+    rmw.submit("o", 0, _data((4 << 20,), seed=5).numpy().tobytes())
+    old = backend.stores[9]
+    backend.stores[9] = MemStore("osd.9.new")
+    before = _launches()
+    rec.recover_object("o", {9})
+    assert _grew(before, _launches()) == {"gf_apply": 1, "crc32c_blocks": 1}
+    assert backend.stores[9].read("o") == old.read("o")
+    assert backend.stores[9].getattrs("o") == old.getattrs("o")
+    before = _launches()
+    assert be_deep_scrub(sinfo, backend, "o", device=cuda).ok
+    assert _grew(before, _launches()) == {"crc32c_blocks": 12}
+    byte = backend.stores[2].read("o", 77, 1)[0]
+    backend.stores[2].queue_transactions(
+        Transaction().write("o", 77, bytes([byte ^ 1])))
+    res = be_deep_scrub(sinfo, backend, "o", device=cuda)
+    assert [(e.shard, e.kind) for e in res.errors] == [(2, "crc_mismatch")]
+
+
+@pytest.mark.parametrize("alg,ref", [("xxhash32", 32), ("xxhash64", 64)])
+def test_xxhash_on_card_matches_reference(cuda, alg, ref):
+    from ceph_tpu_torch.checksum import Checksummer, xxh32_ref, xxh64_ref
+
+    buf = _data((4096 * 64 + 0,), seed=9).to(cuda)
+    vals = Checksummer(alg, 4096, device=cuda).calculate(buf)
+    fn = xxh32_ref if ref == 32 else xxh64_ref
+    host = buf.cpu().numpy()
+    for q in (0, 31, 63):
+        assert int(vals[q]) == fn(host[q * 4096:(q + 1) * 4096].tobytes(),
+                                  (1 << ref) - 1)
