@@ -14,8 +14,14 @@ across a batch of blocks.
 """
 
 from . import backends
-from .checksummer import CSUM_ALGORITHMS, Checksummer, csum_value_size
+from .checksummer import (
+    CSUM_ALGORITHMS,
+    Checksummer,
+    crc32c_scalar,
+    csum_value_size,
+)
 from .crc32c import crc32c as crc32c_host
+from .host import crc32c_wire
 from .crc32c import (
     crc32c_chain,
     crc32c_device,
@@ -33,8 +39,10 @@ __all__ = [
     "crc32c_host",
     "crc32c_device",
     "crc32c_ref",
+    "crc32c_scalar",
     "crc32c_seed_shift",
     "crc32c_stream",
+    "crc32c_wire",
     "csum_value_size",
     "xxh32_device",
     "xxh32_ref",

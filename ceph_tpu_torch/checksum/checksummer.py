@@ -33,6 +33,19 @@ from .crc32c import crc32c_device
 from .xxhash import xxh32_device, xxh64_device
 
 
+def crc32c_scalar(init: int, data) -> int:
+    """Host scalar crc32c behind the Checksummer facade — THE
+    sanctioned host entry point for code outside ``checksum/`` (the
+    stores' blob csums and framed logs import it, never
+    ``checksum.host``). Records the ``host`` backend."""
+    from .host import crc32c as _host_crc
+
+    if isinstance(data, np.ndarray):
+        data = data.tobytes()
+    backends.record("host", len(data))
+    return _host_crc(init, data)
+
+
 def _nbytes(blocks) -> int:
     if isinstance(blocks, torch.Tensor):
         return blocks.numel() * blocks.element_size()

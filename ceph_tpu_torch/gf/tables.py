@@ -118,7 +118,11 @@ def gf_apply_bytes_host(mat: np.ndarray, stacked: np.ndarray) -> np.ndarray:
 
     The small-op path (the reference's ec_encode_data on CPU): below
     ~1 MiB the copy to the card and the launch cost more than the math.
-    Log/exp tables here; bit-identical to the device paths (tests)."""
+    Uses the native region kernel (``ceph_tpu_torch.native``) when it
+    loads, the log/exp tables otherwise — both bit-identical to the
+    device paths (tests)."""
+    from ceph_tpu_torch import native
+
     mat = np.asarray(mat, dtype=np.uint8)
     data = np.ascontiguousarray(stacked, dtype=np.uint8)
     lead = data.shape[:-2]
@@ -126,9 +130,16 @@ def gf_apply_bytes_host(mat: np.ndarray, stacked: np.ndarray) -> np.ndarray:
     b, c_count, n = flat.shape
     r_count = mat.shape[0]
     out = np.zeros((b, r_count, n), dtype=np.uint8)
-    for r in range(r_count):
-        for c in range(c_count):
-            g = int(mat[r, c])
-            if g:
-                out[:, r, :] ^= gf_mul_bytes(g, flat[:, c, :])
+    if native.available():
+        # one native call per batch item (the C kernel runs the whole
+        # mat x data application; per-call ctypes overhead would
+        # otherwise dominate exactly the small ops this path serves)
+        for i in range(b):
+            out[i] = native.gf_matrix_encode(mat, flat[i])
+    else:
+        for r in range(r_count):
+            for c in range(c_count):
+                g = int(mat[r, c])
+                if g:
+                    out[:, r, :] ^= gf_mul_bytes(g, flat[:, c, :])
     return out.reshape(lead + (r_count, n))

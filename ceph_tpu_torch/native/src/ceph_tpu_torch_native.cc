@@ -1,0 +1,372 @@
+// Native host runtime for ceph_tpu_torch — the C++ tier the reference keeps
+// in vendored SIMD libraries and the OSD runtime (SURVEY.md §2.4):
+//
+//  * crc32c: slicing-by-8 software kernel with an SSE4.2 hardware path
+//    (the ceph_crc32c dispatch analog, src/common/crc32c.cc) — raw
+//    register in/out, reflected Castagnoli, no final xor, bit-exact
+//    with the Python oracle (checksum/reference.crc32c_ref).
+//  * GF(2^8) region ops over the 0x11D field: constant-multiply /
+//    xor-accumulate regions and a full matrix encode — the
+//    jerasure/ISA-L region-op analog used for host-side staging,
+//    verification, and small low-latency fallback paths.
+//  * A blocking MPMC ring buffer of fixed slots — the host staging
+//    queue of the dispatch pipeline (host ring -> pinned staging ->
+//    device batches; SURVEY.md §7 step 4).
+//
+// Plain C ABI so ctypes loads it with no binding generator.
+
+#include <chrono>
+#include <cstdint>
+#include <cstring>
+#include <condition_variable>
+#include <mutex>
+#include <new>
+
+#if defined(__SSE4_2__)
+#include <nmmintrin.h>
+#endif
+
+extern "C" {
+
+// ---------------------------------------------------------------- crc32c
+static uint32_t crc_table[8][256];
+static bool crc_init_done = false;
+
+static void crc_init() {
+    if (crc_init_done) return;
+    const uint32_t poly = 0x82F63B78u;  // reflected Castagnoli
+    for (uint32_t i = 0; i < 256; i++) {
+        uint32_t c = i;
+        for (int k = 0; k < 8; k++)
+            c = (c & 1) ? (c >> 1) ^ poly : c >> 1;
+        crc_table[0][i] = c;
+    }
+    for (uint32_t i = 0; i < 256; i++) {
+        uint32_t c = crc_table[0][i];
+        for (int t = 1; t < 8; t++) {
+            c = crc_table[0][c & 0xFF] ^ (c >> 8);
+            crc_table[t][i] = c;
+        }
+    }
+    crc_init_done = true;
+}
+
+uint32_t ctpu_crc32c(uint32_t crc, const uint8_t* data, size_t len) {
+#if defined(__SSE4_2__)
+    // Hardware CRC32C (the ceph_crc32c_intel_fast analog).
+    while (len >= 8 && (reinterpret_cast<uintptr_t>(data) & 7)) {
+        crc = _mm_crc32_u8(crc, *data++);
+        len--;
+    }
+    uint64_t c64 = crc;
+    while (len >= 8) {
+        c64 = _mm_crc32_u64(c64, *reinterpret_cast<const uint64_t*>(data));
+        data += 8;
+        len -= 8;
+    }
+    crc = static_cast<uint32_t>(c64);
+    while (len--) crc = _mm_crc32_u8(crc, *data++);
+    return crc;
+#else
+    crc_init();
+    // slicing-by-8
+    while (len >= 8) {
+        uint32_t lo;
+        std::memcpy(&lo, data, 4);
+        lo ^= crc;
+        uint32_t hi;
+        std::memcpy(&hi, data + 4, 4);
+        crc = crc_table[7][lo & 0xFF] ^ crc_table[6][(lo >> 8) & 0xFF] ^
+              crc_table[5][(lo >> 16) & 0xFF] ^ crc_table[4][lo >> 24] ^
+              crc_table[3][hi & 0xFF] ^ crc_table[2][(hi >> 8) & 0xFF] ^
+              crc_table[1][(hi >> 16) & 0xFF] ^ crc_table[0][hi >> 24];
+        data += 8;
+        len -= 8;
+    }
+    while (len--) crc = crc_table[0][(crc ^ *data++) & 0xFF] ^ (crc >> 8);
+    return crc;
+#endif
+}
+
+// ------------------------------------------------------------- GF(2^8)
+// 0x11D field, matching ceph_tpu_torch.gf.tables (the jerasure/ISA-L field).
+static uint8_t gf_mul_table[256][256];
+static bool gf_init_done = false;
+
+static void gf_init() {
+    if (gf_init_done) return;
+    uint8_t exp_t[512];
+    int log_t[256];
+    int x = 1;
+    for (int i = 0; i < 255; i++) {
+        exp_t[i] = static_cast<uint8_t>(x);
+        log_t[x] = i;
+        x <<= 1;
+        if (x & 0x100) x ^= 0x11D;
+    }
+    for (int i = 255; i < 512; i++) exp_t[i] = exp_t[i - 255];
+    for (int a = 0; a < 256; a++) {
+        gf_mul_table[0][a] = 0;
+        gf_mul_table[a][0] = 0;
+    }
+    for (int a = 1; a < 256; a++)
+        for (int b = 1; b < 256; b++)
+            gf_mul_table[a][b] = exp_t[log_t[a] + log_t[b]];
+    gf_init_done = true;
+}
+
+void ctpu_xor_region(uint8_t* dst, const uint8_t* src, size_t n) {
+    // 64-bit wide XOR; compilers vectorize this loop.
+    size_t i = 0;
+    for (; i + 8 <= n; i += 8) {
+        uint64_t a, b;
+        std::memcpy(&a, dst + i, 8);
+        std::memcpy(&b, src + i, 8);
+        a ^= b;
+        std::memcpy(dst + i, &a, 8);
+    }
+    for (; i < n; i++) dst[i] ^= src[i];
+}
+
+void ctpu_gf_mul_region(uint8_t* dst, const uint8_t* src, size_t n,
+                        uint8_t c, int accumulate) {
+    gf_init();
+    const uint8_t* row = gf_mul_table[c];
+    if (accumulate)
+        for (size_t i = 0; i < n; i++) dst[i] ^= row[src[i]];
+    else
+        for (size_t i = 0; i < n; i++) dst[i] = row[src[i]];
+}
+
+// matrix: [m][k] row-major GF coefficients; data/parity: arrays of
+// pointers to len-byte regions. parity[j] = sum_i matrix[j][i]*data[i].
+void ctpu_gf_matrix_encode(int k, int m, const uint8_t* matrix,
+                           const uint8_t* const* data,
+                           uint8_t* const* parity, size_t len) {
+    gf_init();
+    for (int j = 0; j < m; j++) {
+        std::memset(parity[j], 0, len);
+        for (int i = 0; i < k; i++) {
+            uint8_t c = matrix[j * k + i];
+            if (c == 0) continue;
+            if (c == 1)
+                ctpu_xor_region(parity[j], data[i], len);
+            else
+                ctpu_gf_mul_region(parity[j], data[i], len, c, 1);
+        }
+    }
+}
+
+// ---------------------------------------------------------- ring buffer
+struct Ring {
+    uint32_t capacity;
+    uint32_t slot_bytes;
+    uint32_t head = 0;   // next pop
+    uint32_t tail = 0;   // next push
+    uint32_t count = 0;
+    uint64_t total_pushed = 0;
+    bool closed = false;
+    uint8_t* slots;
+    uint32_t* lens;
+    std::mutex mu;
+    std::condition_variable not_full, not_empty;
+};
+
+void* ctpu_ring_create(uint32_t capacity, uint32_t slot_bytes) {
+    if (capacity == 0 || slot_bytes == 0) return nullptr;
+    Ring* r = new (std::nothrow) Ring();
+    if (!r) return nullptr;
+    r->capacity = capacity;
+    r->slot_bytes = slot_bytes;
+    r->slots = new (std::nothrow) uint8_t[size_t(capacity) * slot_bytes];
+    r->lens = new (std::nothrow) uint32_t[capacity];
+    if (!r->slots || !r->lens) {
+        delete[] r->slots;
+        delete[] r->lens;
+        delete r;
+        return nullptr;
+    }
+    return r;
+}
+
+void ctpu_ring_destroy(void* h) {
+    Ring* r = static_cast<Ring*>(h);
+    if (!r) return;
+    delete[] r->slots;
+    delete[] r->lens;
+    delete r;
+}
+
+void ctpu_ring_close(void* h) {
+    Ring* r = static_cast<Ring*>(h);
+    std::lock_guard<std::mutex> lk(r->mu);
+    r->closed = true;
+    r->not_empty.notify_all();
+    r->not_full.notify_all();
+}
+
+// returns 1 on success, 0 if full (non-blocking) or closed, -1 bad args
+int ctpu_ring_push(void* h, const uint8_t* data, uint32_t len,
+                   int blocking) {
+    Ring* r = static_cast<Ring*>(h);
+    if (!r || len > r->slot_bytes) return -1;
+    std::unique_lock<std::mutex> lk(r->mu);
+    if (blocking)
+        r->not_full.wait(lk, [r] { return r->count < r->capacity || r->closed; });
+    if (r->closed || r->count == r->capacity) return 0;
+    std::memcpy(r->slots + size_t(r->tail) * r->slot_bytes, data, len);
+    r->lens[r->tail] = len;
+    r->tail = (r->tail + 1) % r->capacity;
+    r->count++;
+    r->total_pushed++;
+    r->not_empty.notify_one();
+    return 1;
+}
+
+// returns 1 on success (len written), 0 if empty/closed, -1 bad args
+int ctpu_ring_pop(void* h, uint8_t* out, uint32_t* len, int blocking) {
+    Ring* r = static_cast<Ring*>(h);
+    if (!r || !out || !len) return -1;
+    std::unique_lock<std::mutex> lk(r->mu);
+    if (blocking)
+        r->not_empty.wait(lk, [r] { return r->count > 0 || r->closed; });
+    if (r->count == 0) return 0;
+    std::memcpy(out, r->slots + size_t(r->head) * r->slot_bytes,
+                r->lens[r->head]);
+    *len = r->lens[r->head];
+    r->head = (r->head + 1) % r->capacity;
+    r->count--;
+    r->not_full.notify_one();
+    return 1;
+}
+
+// Timed variants for transport use (msg/shm_ring.py): wait up to
+// timeout_ms (negative = forever). Returns 1 on success, 0 when the
+// ring is closed (push) / closed and drained (pop), -2 on timeout,
+// -1 on bad args. A closed ring still drains buffered slots — the
+// byte-stream EOF contract a half-closed TCP socket provides.
+int ctpu_ring_push_timed(void* h, const uint8_t* data, uint32_t len,
+                         int32_t timeout_ms) {
+    Ring* r = static_cast<Ring*>(h);
+    if (!r || len > r->slot_bytes) return -1;
+    std::unique_lock<std::mutex> lk(r->mu);
+    auto ready = [r] { return r->count < r->capacity || r->closed; };
+    if (timeout_ms < 0) {
+        r->not_full.wait(lk, ready);
+    } else if (!r->not_full.wait_for(
+                   lk, std::chrono::milliseconds(timeout_ms), ready)) {
+        return -2;
+    }
+    if (r->closed) return 0;
+    std::memcpy(r->slots + size_t(r->tail) * r->slot_bytes, data, len);
+    r->lens[r->tail] = len;
+    r->tail = (r->tail + 1) % r->capacity;
+    r->count++;
+    r->total_pushed++;
+    r->not_empty.notify_one();
+    return 1;
+}
+
+int ctpu_ring_pop_timed(void* h, uint8_t* out, uint32_t* len,
+                        int32_t timeout_ms) {
+    Ring* r = static_cast<Ring*>(h);
+    if (!r || !out || !len) return -1;
+    std::unique_lock<std::mutex> lk(r->mu);
+    auto ready = [r] { return r->count > 0 || r->closed; };
+    if (timeout_ms < 0) {
+        r->not_empty.wait(lk, ready);
+    } else if (!r->not_empty.wait_for(
+                   lk, std::chrono::milliseconds(timeout_ms), ready)) {
+        return -2;
+    }
+    if (r->count == 0) return 0;
+    std::memcpy(out, r->slots + size_t(r->head) * r->slot_bytes,
+                r->lens[r->head]);
+    *len = r->lens[r->head];
+    r->head = (r->head + 1) % r->capacity;
+    r->count--;
+    r->not_full.notify_one();
+    return 1;
+}
+
+uint32_t ctpu_ring_count(void* h) {
+    Ring* r = static_cast<Ring*>(h);
+    std::lock_guard<std::mutex> lk(r->mu);
+    return r->count;
+}
+
+uint64_t ctpu_ring_total_pushed(void* h) {
+    Ring* r = static_cast<Ring*>(h);
+    std::lock_guard<std::mutex> lk(r->mu);
+    return r->total_pushed;
+}
+
+// ----------------------------------------------------------- frame codec
+// msg/wire.py hot-path analog (the reference's msgr2 frame assembly,
+// src/msg/async/frames_v2.cc): clear-mode frames only — a 16-byte
+// little-endian header (magic "CTv2", u16 msg_type, u8 flags, u8 nseg,
+// u64 seq), an nseg x (u32 len, u32 crc32c) segment table, then the
+// concatenated payloads. CRCs are seeded 0xFFFFFFFF per segment
+// (wire.CRC_SEED), matching the Python path bit-for-bit. Compressed
+// segments arrive pre-deflated (the zlib step stays in Python); secure
+// frames never reach this path.
+
+// zero-copy crc32c entry for Python bytes (no numpy round-trip).
+uint32_t ctpu_crc32c_buf(uint32_t crc, const char* data, size_t len) {
+    return ctpu_crc32c(crc, reinterpret_cast<const uint8_t*>(data), len);
+}
+
+// Assemble header + table + payloads into `out` (caller sizes it as
+// 16 + nseg*8 + sum(lens)). Returns total bytes written.
+size_t ctpu_frame_encode(uint32_t msg_type, uint32_t flags, uint64_t seq,
+                         uint32_t nseg, const char* const* segs,
+                         const uint64_t* lens, uint8_t* out) {
+    uint8_t* p = out;
+    p[0] = 'C'; p[1] = 'T'; p[2] = 'v'; p[3] = '2';
+    p[4] = msg_type & 0xFF; p[5] = (msg_type >> 8) & 0xFF;
+    p[6] = flags & 0xFF;
+    p[7] = nseg & 0xFF;
+    for (int b = 0; b < 8; b++) p[8 + b] = (seq >> (8 * b)) & 0xFF;
+    p += 16;
+    uint8_t* table = p;
+    p += size_t(nseg) * 8;
+    for (uint32_t i = 0; i < nseg; i++) {
+        const uint8_t* seg = reinterpret_cast<const uint8_t*>(segs[i]);
+        uint64_t len = lens[i];
+        uint32_t crc = ctpu_crc32c(0xFFFFFFFFu, seg, len);
+        for (int b = 0; b < 4; b++)
+            table[i * 8 + b] = (len >> (8 * b)) & 0xFF;
+        for (int b = 0; b < 4; b++)
+            table[i * 8 + 4 + b] = (crc >> (8 * b)) & 0xFF;
+        std::memcpy(p, seg, len);
+        p += len;
+    }
+    return static_cast<size_t>(p - out);
+}
+
+// Batch-verify the per-segment CRCs of a received clear frame:
+// `table` is the raw nseg*8-byte little-endian (len, crc) entries,
+// `payload` the concatenated segment bytes. Returns -1 when every
+// segment matches, -2 when the table lengths disagree with
+// payload_len, else the index of the first mismatching segment.
+int ctpu_frame_verify(const char* table_c, uint32_t nseg,
+                      const char* payload_c, uint64_t payload_len) {
+    const uint8_t* table = reinterpret_cast<const uint8_t*>(table_c);
+    const uint8_t* payload = reinterpret_cast<const uint8_t*>(payload_c);
+    uint64_t off = 0;
+    for (uint32_t i = 0; i < nseg; i++) {
+        uint32_t len = 0, want = 0;
+        for (int b = 0; b < 4; b++)
+            len |= static_cast<uint32_t>(table[i * 8 + b]) << (8 * b);
+        for (int b = 0; b < 4; b++)
+            want |= static_cast<uint32_t>(table[i * 8 + 4 + b]) << (8 * b);
+        if (off + len > payload_len) return -2;
+        uint32_t got = ctpu_crc32c(0xFFFFFFFFu, payload + off, len);
+        if (got != want) return static_cast<int>(i);
+        off += len;
+    }
+    if (off != payload_len) return -2;
+    return -1;
+}
+
+}  // extern "C"

@@ -65,3 +65,48 @@ def xor_bytes(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """GF(2^8) addition — the encode_delta contract (new XOR old,
     ErasureCodeInterface.h:471)."""
     return torch.bitwise_xor(a, b)
+
+
+def unpack_bits_lanes(x: torch.Tensor) -> torch.Tensor:
+    """[..., C, P] uint8 -> [..., C, P*8] bits, bit planes along lanes.
+
+    Element [..., c, p*8+b] is bit b of byte [..., c, p] (LSB-first)."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=x.device)
+    b = (x[..., :, :, None] >> shifts) & 1
+    return b.reshape(*x.shape[:-1], x.shape[-1] * 8)
+
+
+def pack_bits_lanes(bits: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``unpack_bits_lanes``: [..., C, P*8] -> [..., C, P]."""
+    p8 = bits.shape[-1]
+    if p8 % 8:
+        raise ValueError(f"bit lanes {p8} not a multiple of 8")
+    b = bits.reshape(*bits.shape[:-1], p8 // 8, 8).to(torch.uint8)
+    shifts = torch.arange(8, dtype=torch.uint8, device=bits.device)
+    return (b << shifts).sum(dim=-1, dtype=torch.uint8)
+
+
+def packet_mod2_apply(bitmatrix, packets: torch.Tensor) -> torch.Tensor:
+    """Native bit-matrix codes on the jerasure *packet* layout.
+
+    ``packets``: [..., C, P] uint8, each of the C = k*w rows a packet of
+    P bytes (chunk = w consecutive packets). Output row r is the XOR of
+    the packets bitmatrix row r selects: unpacking byte bits along the
+    lanes keeps the selection one [R, C] mod-2 product (XOR acts on
+    each bit lane alone)."""
+    bmat = torch.as_tensor(bitmatrix, device=packets.device)
+    return pack_bits_lanes(mod2_matmul(bmat, unpack_bits_lanes(packets)))
+
+
+def gf_mul_const_bytes(c: int, x: torch.Tensor) -> torch.Tensor:
+    """Multiply every byte of ``x`` by the GF(2^8) constant ``c``.
+
+    The 8x8 bit matrix of ``c`` is a 1x1 code: on a CUDA tensor it runs
+    as one Kernel A launch (``ops.cuda_encode.gf_apply``), on a CPU
+    tensor as that wrapper's plain form."""
+    from ceph_tpu_torch.gf.tables import mul_bitmatrix
+
+    from .cuda_encode import gf_apply
+
+    flat = x.contiguous().reshape(-1, 1, x.shape[-1])
+    return gf_apply(mul_bitmatrix(c), flat).reshape(x.shape)

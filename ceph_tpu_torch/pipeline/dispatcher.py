@@ -1,0 +1,535 @@
+"""Streaming dispatcher: the native staging ring feeding batched
+kernel launches — SURVEY.md §7 step 4 assembled (host ring ->
+staging -> batched launch -> completion callbacks).
+
+The role it fills is the reference's sharded op queues
+(osd/OSD.cc:9874-9933): many client ops across many PGs land on a
+shared queue and drain in batches. Here the batching axis is the
+card's win: one [B, k, L] encode amortizes the launch, the host-to-card
+copies and the synchronizing copy back over every small op in the
+batch — the per-op path pays them per 4-256 KiB write.
+
+Shape of the machinery:
+
+- producers (OSD daemons, RMW pipelines, any thread) ``submit()``
+  ops into the native MPMC ring (native/src/ceph_tpu_torch_native.cc,
+  ``ctpu_ring_*``) as header+payload slots; the ring is the
+  bounded staging tier — backpressure is a blocking push;
+- ONE dispatcher thread drains the ring: it blocks for the first op,
+  then keeps popping until the ring is momentarily empty past the
+  batching window or ``max_batch`` is reached;
+- ops group by (k, chunk_len) signature; each group stacks into one
+  [B, k, L] batch, encodes through the codec's normal dispatch
+  (CUDA kernel / host GF tables / plain form — the codec router
+  decides), and completion callbacks fire with each op's parity rows;
+- ``encode_sync`` is the synchronous facade for pipeline callers:
+  submit + wait, with concurrency across threads supplying the batch.
+
+Three more seams:
+
+- ``coalescing_scope()`` — a thread-local scope the OSD daemon's
+  coalesced tick batch enters around each PG group's execution:
+  inside it, ``ShardExtentMap`` routes encodes through the ring even
+  when ``ec_streaming_dispatch`` is off, so concurrent groups of one
+  tick share batched device dispatches;
+- fused encode+csum ops stage through the SAME ring (``submit`` with
+  ``csum_block``): a fused group stacks every member's chunks into
+  one ``encode_chunks_with_csums`` call — on the card one Kernel B
+  launch (``ops.cuda_encode.gf_apply_csum``) over data, parity AND
+  block csums for the whole batch;
+- per-op error isolation: a failed MULTI-op batch no longer fails
+  every member — each op retries SOLO through the codec, and only
+  the op that actually faults surfaces its error (``solo_retries`` /
+  ``batch_faults`` counters). One poisoned op cannot sink its
+  batch-mates.
+
+Counters (``perf dump`` section ``ec_stream``): ops, batches,
+batched_ops (ops that shared a dispatch), plus a max-batch gauge,
+batch_faults (multi-op dispatches that failed and split), and
+solo_retries (ops that recovered via solo fallback).
+
+The launches run on the dispatcher's own thread, which inherits
+neither the producer's current CUDA device nor its stream: each batch
+runs under the codec's own device (``torch.cuda.device``), on that
+device's current stream, and the parity comes back to the host
+(``utils.device.to_numpy``) before the callbacks fire. A solo retry
+goes through the same codec on the same device: it isolates an error,
+it never moves an op to another route.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+import logging
+import struct
+import threading
+import time
+from collections import defaultdict
+from collections.abc import Callable
+
+import numpy as np
+import torch
+
+from ceph_tpu_torch.utils import lockdep
+from ceph_tpu_torch.utils.device import to_numpy
+from ceph_tpu_torch.utils.lockdep import DebugLock
+
+_log = logging.getLogger("ec-stream")
+
+#: slot header: op id, k, chunk count, chunk size, csum block
+#: (csum block 0 = plain encode; then the payload is [k, n*cs] flat)
+_HDR = struct.Struct("<QHHII")
+
+
+@functools.lru_cache(maxsize=1)
+def _stream_counters():
+    from ceph_tpu_torch.utils.perf_counters import (
+        PerfCountersBuilder,
+        perf_collection,
+    )
+
+    b = PerfCountersBuilder(perf_collection, "ec_stream")
+    b.add_u64_counter("ops", "ops submitted to the streaming dispatcher")
+    b.add_u64_counter("batches", "device dispatches issued")
+    b.add_u64_counter(
+        "batched_ops", "ops that shared a dispatch with at least one other"
+    )
+    b.add_u64_gauge("max_batch", "largest batch assembled (high-water)")
+    b.add_u64_counter(
+        "batch_faults", "multi-op dispatches that failed and split"
+    )
+    b.add_u64_counter(
+        "solo_retries", "ops recovered via solo fallback after a "
+        "batch fault"
+    )
+    return b.create_perf_counters()
+
+
+# ------------------------------------------------------- coalescing scope
+_coal_tls = threading.local()
+
+
+@contextlib.contextmanager
+def coalescing_scope():
+    """Thread-local scope marking this thread's encodes as part of a
+    coalesced tick batch (the OSD daemon enters it around each PG
+    group of a wave). Inside it, the shard-map encode routes through
+    the streaming ring regardless of ``ec_streaming_dispatch`` —
+    concurrent group threads of one tick land their ops in the same
+    ring window and share batched device dispatches. Nesting-safe."""
+    _coal_tls.depth = getattr(_coal_tls, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _coal_tls.depth -= 1
+
+
+def coalescing_active() -> bool:
+    """True on a thread currently inside ``coalescing_scope`` (with
+    the native ring present to stage into)."""
+    if getattr(_coal_tls, "depth", 0) <= 0:
+        return False
+    from ceph_tpu_torch import native
+
+    return native.available()
+
+
+class StreamingDispatcher:
+    """Aggregates concurrent small encodes into batched dispatches."""
+
+    def __init__(
+        self,
+        codec,
+        *,
+        capacity: int = 128,
+        slot_bytes: int = (256 << 10) + _HDR.size,
+        max_batch: int = 128,
+        window_s: float = 0.0005,
+    ) -> None:
+        # Defaults size the ring for its small-op mission (the native
+        # ring allocates capacity*slot_bytes EAGERLY — 32 MiB here,
+        # not the 512 MiB a 1 MiB slot would pin); oversized ops take
+        # the per-op path (see max_op_bytes / shard_map routing).
+        from ceph_tpu_torch.native import RingBuffer
+
+        self.codec = codec
+        self.max_batch = max_batch
+        self.window_s = window_s
+        self._ring = RingBuffer(capacity, slot_bytes)
+        self._slot_payload = slot_bytes - _HDR.size
+        self._lock = DebugLock("dispatcher.ring")
+        self._next_id = 0
+        #: op id -> (callback, k, chunk_len)
+        self._pending: dict[int, tuple[Callable, int, int]] = {}
+        self._closed = False
+        self._thread = threading.Thread(
+            target=self._drain_loop, name="ec-stream", daemon=True
+        )
+        self._thread.start()
+
+    @property
+    def max_op_bytes(self) -> int:
+        """Largest [k, L] payload one slot can stage."""
+        return self._slot_payload
+
+    # -- producer side --------------------------------------------------
+    def submit(
+        self,
+        data: np.ndarray,
+        callback: Callable[[np.ndarray], None],
+        csum_block: int = 0,
+        n_chunks: int = 1,
+    ) -> int:
+        """Queue one encode of ``data`` [k, L] uint8; ``callback``
+        fires (dispatcher thread) with the parity [m, L].
+
+        With ``csum_block`` > 0 the op is a FUSED encode+csum: ``L``
+        is ``n_chunks * chunk_size`` (chunk-major per shard) and the
+        callback receives ``(parity [m, L], csums [n_chunks, k+m,
+        cs/cb])`` — or ``(None, None)`` when no fused kernel route
+        serves the geometry (callers keep their per-op fallback)."""
+        data = np.ascontiguousarray(data, dtype=np.uint8)
+        if data.ndim != 2:
+            raise ValueError(f"want [k, L], got {data.shape}")
+        k, ln = data.shape
+        if k * ln > self._slot_payload:
+            raise ValueError(
+                f"op {k}x{ln} exceeds slot payload {self._slot_payload}"
+            )
+        if ln % max(n_chunks, 1):
+            raise ValueError(f"L={ln} not divisible into {n_chunks}")
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("dispatcher stopped")
+            op_id = self._next_id
+            self._next_id += 1
+            self._pending[op_id] = (callback, k, ln)
+        slot = (
+            _HDR.pack(op_id, k, n_chunks, ln // max(n_chunks, 1),
+                      csum_block)
+            + data.tobytes()
+        )
+        if not self._ring.push(slot, blocking=True):
+            # the ring refused the slot (closed by a concurrent
+            # stop()): fail loudly — a silent drop would wedge the
+            # encode_sync waiter forever
+            with self._lock:
+                self._pending.pop(op_id, None)
+            raise RuntimeError("dispatcher stopped")
+        _stream_counters().inc("ops")
+        return op_id
+
+    def encode_sync(self, data: np.ndarray) -> np.ndarray:
+        """Submit + wait; the batch forms from OTHER threads' ops
+        arriving inside the window. A codec failure for the batch
+        re-raises here (the callback receives the exception)."""
+        out = self._submit_wait(data, 0, 1)
+        return out
+
+    def encode_csum_sync(
+        self, data: np.ndarray, csum_block: int, n_chunks: int
+    ):
+        """Fused submit + wait: ``data`` [k, n_chunks*cs] chunk-major;
+        returns ``(parity [m, L], csums [n_chunks, k+m, cs/cb])`` or
+        ``(None, None)`` when the fused kernel can't serve the
+        geometry."""
+        return self._submit_wait(data, csum_block, n_chunks)
+
+    def _submit_wait(self, data, csum_block, n_chunks):
+        ev = threading.Event()
+        out: list = []
+
+        def cb(result) -> None:
+            out.append(result)
+            ev.set()
+
+        self.submit(data, cb, csum_block=csum_block, n_chunks=n_chunks)
+        # lockdep checkpoint: waiting out a batched device dispatch is
+        # a blocking call (the "dispatcher.submit_wait" waiver covers
+        # the op path's own encode work)
+        with lockdep.blocking_region("dispatcher.submit_wait"):
+            ev.wait()
+        if isinstance(out[0], BaseException):
+            raise out[0]
+        return out[0]
+
+    # -- dispatcher thread ----------------------------------------------
+    def _drain_loop(self) -> None:
+        while True:
+            first = self._ring.pop(blocking=True)
+            if first is None:  # closed and drained
+                return
+            ops = [first]
+            # Self-clocking batch assembly (deadline + occupancy
+            # hybrid, round 4): drain whatever is ALREADY queued, then
+            # fire the moment the ring runs empty — waiting out the
+            # window only added latency, because the next batch forms
+            # naturally from the backlog that accumulates while THIS
+            # dispatch is on the device (arrival rate x service time).
+            # The window now only bounds a torn burst: producers
+            # observed mid-enqueue get one short grace period instead
+            # of a full window.
+            deadline = time.monotonic() + self.window_s
+            grace_used = False
+            while len(ops) < self.max_batch:
+                nxt = self._ring.pop(blocking=False)
+                if nxt is not None:
+                    ops.append(nxt)
+                    continue
+                if grace_used or time.monotonic() >= deadline:
+                    break
+                grace_used = True
+                time.sleep(0.00005)
+            try:
+                with self._on_device():
+                    self._fire(ops)
+            except Exception as e:
+                # The drain thread must survive ANYTHING — a dead
+                # drain wedges every producer on the full ring. _fire
+                # already routes per-group failures to callbacks; this
+                # catches bookkeeping bugs, and hands the error to
+                # every op of the iteration still waiting.
+                _log.exception("drain iteration failed; continuing")
+                self._fail_pending(ops, e)
+
+    def _on_device(self):
+        """The codec's CUDA device as this thread's current device (a
+        thread starts on device 0 whatever its producers use)."""
+        dev = getattr(self.codec, "device", None)
+        if dev is not None and dev.type == "cuda":
+            return torch.cuda.device(dev)
+        return contextlib.nullcontext()
+
+    def _fire(self, slots: list[bytes]) -> None:
+        pc = _stream_counters()
+        #: plain encodes group by flat shape; fused group by chunk
+        #: geometry + csum block (members stack on the chunk axis)
+        plain: dict[tuple[int, int], list[tuple[int, np.ndarray]]] = (
+            defaultdict(list)
+        )
+        fused: dict[
+            tuple[int, int, int], list[tuple[int, int, np.ndarray]]
+        ] = defaultdict(list)
+        for raw in slots:
+            op_id, k, nc, cs, cb = _HDR.unpack_from(raw)
+            ln = nc * cs
+            payload = np.frombuffer(
+                raw, np.uint8, count=k * ln, offset=_HDR.size
+            ).reshape(k, ln)
+            if cb:
+                fused[(k, cs, cb)].append((op_id, nc, payload))
+            else:
+                plain[(k, ln)].append((op_id, payload))
+        for (k, ln), members in plain.items():
+            results = self._fire_plain(pc, k, members)
+            self._deliver(members, results)
+        for (k, cs, cb), fmembers in fused.items():
+            results = self._fire_fused(pc, k, cs, cb, fmembers)
+            self._deliver(fmembers, results)
+
+    def _fire_plain(self, pc, k, members) -> list:
+        try:
+            stacked = np.stack([p for _, p in members])  # [B, k, L]
+            parity = self.codec.encode_chunks(
+                {i: stacked[:, i, :] for i in range(k)}
+            )
+            m = len(parity)
+            out = np.stack(
+                [to_numpy(parity[k + j]) for j in range(m)],
+                axis=1,
+            )  # [B, m, L]
+            results: list = [out[i] for i in range(len(members))]
+            pc.inc("batches")
+            if len(members) > 1:
+                pc.inc("batched_ops", len(members))
+            if len(members) > pc.get("max_batch"):
+                pc.set("max_batch", len(members))
+            return results
+        except Exception as e:
+            return self._solo_fallback(
+                pc, members, e,
+                lambda payload: self._encode_one(k, payload),
+            )
+
+    def _encode_one(self, k: int, payload: np.ndarray) -> np.ndarray:
+        parity = self.codec.encode_chunks(
+            {i: payload[None, i, :] for i in range(k)}
+        )
+        return np.stack(
+            [to_numpy(parity[k + j])[0] for j in range(len(parity))]
+        )
+
+    def _fire_fused(self, pc, k, cs, cb, members) -> list:
+        """One fused encode+csum call for the whole group: every
+        member's chunks stack on the batch axis, so on the card the
+        batch's data, parity and block csums are one Kernel B launch. A
+        ``(None, None)`` kernel answer (geometry unservable) is a
+        clean per-member result — callers fall back per-op."""
+
+        def one(payload: np.ndarray):
+            nc = payload.shape[1] // cs
+            chunks = payload.reshape(k, nc, cs).transpose(1, 0, 2)
+            pm, csums = self.codec.encode_chunks_with_csums(
+                {i: chunks[:, i, :] for i in range(k)}, cb
+            )
+            if pm is None:
+                return (None, None)
+            m = len(pm)
+            out = np.stack(
+                [to_numpy(pm[k + j]) for j in range(m)], axis=1
+            )  # [nc, m, cs]
+            return (
+                out.transpose(1, 0, 2).reshape(m, nc * cs),
+                np.asarray(csums),
+            )
+
+        try:
+            counts = [nc for _, nc, _ in members]
+            stacked = np.concatenate(
+                [
+                    p.reshape(k, nc, cs).transpose(1, 0, 2)
+                    for _, nc, p in members
+                ],
+                axis=0,
+            )  # [sum(nc), k, cs]
+            pm, csums = self.codec.encode_chunks_with_csums(
+                {i: stacked[:, i, :] for i in range(k)}, cb
+            )
+            if pm is None:
+                return [(None, None)] * len(members)
+            m = len(pm)
+            out = np.stack(
+                [to_numpy(pm[k + j]) for j in range(m)], axis=1
+            )  # [sum(nc), m, cs]
+            csums = np.asarray(csums)
+            results: list = []
+            pos = 0
+            for nc in counts:
+                sl = out[pos : pos + nc]  # [nc, m, cs]
+                results.append((
+                    sl.transpose(1, 0, 2).reshape(m, nc * cs),
+                    csums[pos : pos + nc],
+                ))
+                pos += nc
+            pc.inc("batches")
+            if len(members) > 1:
+                pc.inc("batched_ops", len(members))
+            if len(members) > pc.get("max_batch"):
+                pc.set("max_batch", len(members))
+            return results
+        except Exception as e:
+            return self._solo_fallback(
+                pc, members, e, lambda payload: one(payload)
+            )
+
+    def _solo_fallback(self, pc, members, batch_err, one) -> list:
+        """Per-op error isolation: a failed MULTI-op dispatch retries
+        each member solo so one poisoned op cannot fail its
+        batch-mates; a solo failure delivers the error to that member
+        alone (a waiting encode_sync re-raises it; nobody hangs)."""
+        if len(members) == 1:
+            return [batch_err]
+        pc.inc("batch_faults")
+        results: list = []
+        for member in members:
+            payload = member[-1]
+            try:
+                results.append(one(payload))
+                pc.inc("solo_retries")
+            except Exception as solo_err:
+                results.append(solo_err)
+        return results
+
+    def _fail_pending(self, slots: list[bytes], err: Exception) -> None:
+        for raw in slots:
+            op_id = _HDR.unpack_from(raw)[0]
+            with self._lock:
+                entry = self._pending.pop(op_id, None)
+            if entry is not None:
+                try:
+                    entry[0](err)
+                except Exception:
+                    _log.exception("completion callback raised for op "
+                                   "%d", op_id)
+
+    def _deliver(self, members, results) -> None:
+        for idx, member in enumerate(members):
+            op_id = member[0]
+            with self._lock:
+                cb, _, _ = self._pending.pop(op_id)
+            try:
+                cb(results[idx])
+            except Exception:
+                _log.exception("completion callback raised for op %d",
+                               op_id)
+
+    # -- lifecycle -------------------------------------------------------
+    def stop(self) -> None:
+        with self._lock:
+            self._closed = True
+        self._ring.close()
+        self._thread.join(timeout=5)
+
+
+# ---------------------------------------------------------------- routing
+_global: dict[tuple, StreamingDispatcher] = {}
+_global_lock = DebugLock("dispatcher.registry")
+
+
+def _codec_signature(codec) -> tuple:
+    """Batching identity: two codecs with the same signature produce
+    identical parity on the same device, so their ops may share a
+    dispatcher (and a batch). Keyed by class + geometry + the matrix
+    the codec applies (``_encode_bmat_np`` of the GF-matrix codecs,
+    ``coding_bitmatrix`` and ``w`` of the bit-matrix ones) + its
+    profile, which fixes every other choice (a bit-matrix
+    construction, LRC's layers) + the codec's device — NOT instance
+    id: PG objects rebuild their codecs on every map change, and an
+    id-keyed cache would leak one ring + thread per rebuild while
+    never batching across PGs."""
+    bmat = getattr(codec, "_encode_bmat_np", None)
+    if bmat is None:
+        bmat = getattr(codec, "coding_bitmatrix", None)
+    profile = getattr(codec, "profile", None) or {}
+    dev = getattr(codec, "device", None)
+    return (
+        type(codec).__name__,
+        getattr(codec, "k", 0),
+        getattr(codec, "m", 0),
+        getattr(codec, "w", None),
+        bmat.tobytes() if bmat is not None else None,
+        tuple(sorted((str(a), str(b)) for a, b in profile.items())),
+        str(dev) if dev is not None else None,
+    )
+
+
+def dispatcher_for(codec) -> StreamingDispatcher:
+    """Shared dispatcher per codec SIGNATURE (lazily created) — the
+    seam ShardExtentMap uses when ``ec_streaming_dispatch`` is on.
+    Ops from every PG with the same EC profile share one ring and
+    batch together."""
+    key = _codec_signature(codec)
+    with _global_lock:
+        d = _global.get(key)
+        if d is None:
+            d = StreamingDispatcher(codec)
+            _global[key] = d
+        return d
+
+
+def streaming_enabled() -> bool:
+    from ceph_tpu_torch.utils import config
+
+    if not config.get("ec_streaming_dispatch"):
+        return False
+    from ceph_tpu_torch import native
+
+    return native.available()
+
+
+def shutdown_all() -> None:
+    with _global_lock:
+        for d in _global.values():
+            d.stop()
+        _global.clear()

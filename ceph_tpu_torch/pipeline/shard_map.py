@@ -11,9 +11,12 @@ Delta from the reference: the window's chunks go to the codec as one
 per-4K-slice virtual call.
 
 Buffers are host numpy here (this layer is the staging side of the
-pipeline); codec calls move them to the codec's device and back. The
-per-op path is the only one: ``ceph_tpu``'s streaming-ring routes
-(pipeline/dispatcher.py) are not ported yet.
+pipeline); codec calls move them to the codec's device and back.
+Encodes take the per-op path (one codec call per map) unless
+``ec_streaming_dispatch`` is on or the thread is inside
+``dispatcher.coalescing_scope()``: then they stage in the native ring
+(``pipeline/dispatcher.py``) and share one batched launch with the
+concurrent ops of other threads.
 """
 
 from __future__ import annotations
@@ -223,13 +226,24 @@ class ShardExtentMap:
             and lo % cb == 0
             and hasattr(codec, "encode_chunks_with_csums")
         ):
-            parity_map, csums = codec.encode_chunks_with_csums(
-                {i: data[i] for i in range(k)}, cb
-            )
-            if parity_map is not None:
-                parity = np.stack(
-                    [to_numpy(parity_map[k + j]) for j in range(m)]
+            # Coalesced/streaming route first: the fused op stages in
+            # the ring and shares ONE encode+csum launch with every
+            # other op of the window (the same batching win the plain
+            # encode gets below). (None, None) = the fused kernel
+            # can't serve the geometry; fall through per-op.
+            staged = self._ring_encode_csum(codec, data, cs, cb)
+            if staged is not None:
+                parity2d, csums = staged
+                if parity2d is not None:
+                    parity = parity2d.reshape(m, n_chunks, cs)
+            if csums is None:
+                parity_map, csums = codec.encode_chunks_with_csums(
+                    {i: data[i] for i in range(k)}, cb
                 )
+                if parity_map is not None:
+                    parity = np.stack(
+                        [to_numpy(parity_map[k + j]) for j in range(m)]
+                    )
         if parity is None:
             parity = self._dispatch_encode(codec, data)
         for j in range(m):
@@ -289,9 +303,55 @@ class ShardExtentMap:
                     )
 
     @staticmethod
+    def _ring_routable(codec, nbytes: int) -> bool:
+        """One gate for both ring routes: streaming config on, OR this
+        thread is inside a coalescing scope (dispatcher.
+        coalescing_scope) — concurrent groups stage into the same
+        ring window either way. Sub-chunk codecs (CLAY) give chunk
+        geometry meaning beyond byte count, and ops beyond a ring slot
+        can't stage — both keep the per-op path."""
+        from .dispatcher import (
+            coalescing_active,
+            dispatcher_for,
+            streaming_enabled,
+        )
+
+        if codec.get_sub_chunk_count() != 1:
+            return False
+        if not (streaming_enabled() or coalescing_active()):
+            return False
+        return nbytes <= dispatcher_for(codec).max_op_bytes
+
+    @staticmethod
+    def _ring_encode_csum(codec, data, cs: int, cb: int):
+        """Stage one fused encode+csum op in the ring, or None when
+        the ring isn't routable for it. ``data`` is [k, n_chunks, cs];
+        returns ``(parity [m, L] | None, csums | None)``."""
+        from .dispatcher import dispatcher_for
+
+        if not ShardExtentMap._ring_routable(codec, data.nbytes):
+            return None
+        k, n_chunks, _cs = data.shape
+        return dispatcher_for(codec).encode_csum_sync(
+            np.ascontiguousarray(data).reshape(k, n_chunks * cs),
+            cb, n_chunks,
+        )
+
+    @staticmethod
     def _dispatch_encode(codec, data: np.ndarray) -> np.ndarray:
-        """[k, ...] host -> [m, ...] host through the codec's dispatch."""
+        """[k, L] host -> [m, L] host through the codec's dispatch.
+        With ``ec_streaming_dispatch`` on — or inside a coalescing
+        scope — the op rides the native staging ring and shares a
+        batched launch with other concurrent ops
+        (pipeline/dispatcher.py)."""
+        from .dispatcher import dispatcher_for
+
         k = data.shape[0]
+        flat = data.reshape(k, -1)
+        if ShardExtentMap._ring_routable(codec, flat.nbytes):
+            return dispatcher_for(codec).encode_sync(flat).reshape(
+                (-1,) + data.shape[1:]
+            )
         parity = codec.encode_chunks(
             {i: np.asarray(data[i]) for i in range(k)}
         )

@@ -135,6 +135,14 @@ OPTIONS: tuple[Option, ...] = (
     ),
     # -- the EC pipeline, stores and runtime (ceph_tpu's texts) ------
     Option(
+        "ec_streaming_dispatch", bool, False,
+        desc="route pipeline encodes through the native-ring streaming "
+             "dispatcher: concurrent small ops across PGs aggregate "
+             "into one batched device dispatch with completion "
+             "callbacks (SURVEY step-4 staging tier; sharded op "
+             "queue role, osd/OSD.cc:9874)",
+    ),
+    Option(
         "csum_block_size", int, 4096,
         desc="bytes per checksum block", min=16,
     ),

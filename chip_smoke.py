@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``ceph_tpu_torch``) on one card.
 
-Drives four paths through the package's public entry points, at
+Drives five paths through the package's public entry points, at
 BlueStore's 4 KiB csum block, each counted on its own:
 
-1. set-up: the card's name and power limit; build every kernel in
-   ``ceph_tpu_torch/csrc/`` (all sources in parallel) and print the time;
+1. set-up: the card's name and power limit; build the native host tier
+   (``ceph_tpu_torch/native/src``, ``g++``) and every kernel in
+   ``ceph_tpu_torch/csrc/`` (all sources in parallel) and print the
+   times;
 2. every kernel against its plain PyTorch version on the card, byte for
    byte, at the listed shapes (ragged lengths included; Kernels A-D
    also at the edges of their contracts: lengths around their vectors,
@@ -17,7 +19,8 @@ BlueStore's 4 KiB csum block, each counted on its own:
    the ``{"kernels": ...}`` line), one wrapper call and the plain
    version (CUDA events); Kernel A also at the CLAY repair's
    inner-decode shape, Kernel B beside Kernel A then Kernel C over the
-   same stripes (``unfused_ms``);
+   same stripes (``unfused_ms``); Kernel A also as
+   ``gf_mul_const_bytes`` (a 1x1 code);
 3. the ISA-L path, ``reed_sol_van`` EC(8,4): the write
    (``ShardExtentMap.encode`` of 8 stripes x 8 x 1 MiB chunks with fused
    csums and HashInfo, then ``encode_chunks_with_csums`` /
@@ -68,7 +71,27 @@ BlueStore's 4 KiB csum block, each counted on its own:
    (encode and repair on Kernels A, E and F) and xxhash32/64 over
    64 MiB. Each phase's kernel launches, ``ec_dispatch`` and
    ``checksum.backends`` counts are held against a prediction from the
-   op sizes and printed as the route split.
+   op sizes and printed as the route split;
+7. the store path, the same EC(8,4) backend over 12 ``BlockStore``
+   shards (``osd.0``-``osd.11``, one preallocated device file each in a
+   temporary directory), 64 objects of 4 MiB: 8 PG threads, each with
+   its own ``RMWPipeline`` and ``PGLog``, append 128 KiB at a time
+   (2,048 fused encode+csum ops) through the streaming dispatcher's
+   native ring with ``ec_streaming_dispatch`` on, every batch one
+   Kernel B launch and every blob csum adopted from the kernel (no
+   host hash: the smoke counts ``BlockStore._csum`` calls); a per-op
+   twin writes the same appends on one thread into fresh stores, equal
+   in bytes, attrs and blob csums; then the read-back (blob csums
+   verified on the host through the native crc), the degraded read of
+   shards {0, 9} (Kernel A; 64 ranges on the native GF tables), the
+   rebuild of shard 9 into an empty store (Kernels A and C), a reopen
+   of every store from its device file, ``be_deep_scrub`` (Kernel C),
+   and one byte flipped in shard 3's device file: the read raises
+   ``CsumError``, the scrub raises it as ``ceph_tpu``'s does, the
+   degraded read is exact, and after the object is rebuilt on shard 3
+   the read-back is exact and the scrub clean. The ring's
+   ``ec_stream`` counters and the native tier's calls join the route
+   split.
 
 Kernel launch counts and the ``ec_dispatch`` / ``checksum.backends``
 counters are zeroed just before each path and read just after it: every
@@ -172,6 +195,21 @@ CLAY_SHEC_PROFILE = {"k": "4", "m": "3", "scalar_mds": "shec"}
 CLAY_SHEC_STRIPES = 16  # of one 4 MiB object each
 XXH_BYTES = 64 * MIB
 
+# the store path: the same EC(8,4) pipeline over 12 BlockStore shards
+# (osd.0-osd.11, one preallocated device file each), 64 objects of 4 MiB
+# appended by 8 PG threads through the streaming dispatcher's ring
+STORE_OBJECTS = 64
+STORE_APPEND = 128 * 1024  # 4 full stripes: its 128 KiB fits one ring slot
+STORE_THREADS = 8  # PGs, each with its own RMWPipeline and PGLog
+#: per shard: 32 MiB of shard data, the KV WAL and snapshots, COW headroom
+STORE_DEVICE_BYTES = 64 * MIB
+STORE_READ_DOWN = (0, 9)
+STORE_LOST = 9  # rebuilt into an empty store
+STORE_FLIP_SHARD = 3
+STORE_RANGES, STORE_RANGE = 64, 64 * 1024
+STREAM_KEYS = ("ops", "batches", "batched_ops", "max_batch", "batch_faults",
+               "solo_retries")
+
 #: Kernel A, B, C and D edge cases (phase 2)
 A_EDGE_N = (1, 15, 16, 17, 4095, MIB + 37)
 B_EDGE_CR = (1, 12, 32)  # C and R, each pair with C + R <= 64
@@ -246,27 +284,50 @@ def kernel_ms(fn, iters: int, kernel: str) -> float:
     """Mean device time of one launch of the CUDA kernel whose symbol
     contains ``kernel``, from torch.profiler over ``iters`` calls after
     one warm-up: the kernel alone, without the host time of its
-    wrapper. A session that lost events is taken again, twice at most."""
+    wrapper.
+
+    The wrapper's own launch count must grow by exactly ``iters`` in
+    each session: one launch a call. The profiler now and then drops a
+    kernel record, so a session that kept fewer than the wrapper made
+    is taken again, twice at most; if none kept them all, the mean is
+    over the records of the fullest session (at least half), and a line
+    says so. A record the wrapper did not make fails the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from ceph_tpu_torch import kernels
+
+    kern = max((k for k in kernels.ALL if kernel.startswith(k.symbol)),
+               key=lambda k: len(k.symbol))
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a profiler session now and then loses events
+    best = (0.0, 0)
+    for _ in range(3):
+        before = kern.launches
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+        launched = kern.launches - before
+        check(launched == iters, f"{kern.symbol} launched {launched} times "
+              f"in {iters} calls, want one a call")
         total_us, count = 0.0, 0
         for evt in prof.key_averages():
             if kernel in evt.key:
                 total_us += getattr(evt, "self_device_time_total", None) or \
                     getattr(evt, "self_cuda_time_total", 0)
                 count += evt.count
-        if count == iters and total_us > 0:
+        check(count <= launched, f"profiler saw {count} launches of "
+              f"{kernel}, its wrapper made {launched}")
+        if count == launched and total_us > 0:
             return total_us / count / 1e3
-    raise AssertionError(f"profiler saw {count} launches of {kernel} in "
-                         f"three sessions, want {iters}")
+        if total_us > 0 and count > best[1]:
+            best = (total_us, count)
+    check(2 * best[1] >= iters, f"profiler kept {best[1]} of {iters} "
+          f"launches of {kernel} at best in three sessions")
+    print(f"  note: the profiler kept {best[1]} of {iters} launches of "
+          f"{kernel} at best in three sessions; ms is their mean")
+    return best[0] / best[1] / 1e3
 
 
 class Phase:
@@ -446,6 +507,25 @@ def kernel_vs_plain(rng, dev) -> dict:
                     del data, want, got
     print(f"  gf_apply edges: {edges} cases (N in {A_EDGE_N}, C in "
           "{1, 12, 32}, R in {1, 32}, offsets 0 and 1, both forms): "
+          f"max_abs_err {out['gf_apply']['max_abs_err']}")
+    # Kernel A as a 1x1 code: gf_mul_const_bytes, every byte times one
+    # constant, against the plain bit-plane product and the host tables
+    from ceph_tpu_torch.gf.tables import gf_mul_bytes, mul_bitmatrix
+    from ceph_tpu_torch.ops.bitplane import gf_mul_const_bytes
+    from ceph_tpu_torch.utils.device import to_numpy
+
+    for c_val in (0, 1, 2, 0x53, 0xFF):
+        for shape in ((CHUNK + 37,), (STRIPES, 3, 4095)):
+            x = rand(shape)
+            got = gf_mul_const_bytes(c_val, x)
+            want = gf_encode_bitplane(mul_bitmatrix(c_val),
+                                      x.reshape(-1, 1, shape[-1]))
+            note("gf_apply", max_err(got, want.reshape(shape)),
+                 f"gf_mul_const_bytes c={c_val} {shape}", quiet=True)
+            check(np.array_equal(to_numpy(got),
+                                 gf_mul_bytes(c_val, to_numpy(x))),
+                  f"gf_mul_const_bytes c={c_val} differs from the tables")
+    print("  gf_apply as gf_mul_const_bytes: 5 constants x 2 shapes: "
           f"max_abs_err {out['gf_apply']['max_abs_err']}")
     # Kernel B at cb in {256, 4096, 65536}, stacked and per-shard
     main = rand((STRIPES, K, CHUNK))
@@ -1506,6 +1586,20 @@ class Routes:
         }
 
 
+def xor_route(on_card: bool, mat) -> bool:
+    """Whether the card serves a byte matrix with Kernel D: a matrix of
+    zeros and ones (an XOR) that the schedule optimizer can run."""
+    import numpy as np
+
+    from ceph_tpu_torch.ops import xor_schedule
+    from ceph_tpu_torch.utils import config
+
+    return on_card and config.get("ec_use_sched") and int(
+        mat.max()) <= 1 and xor_schedule.routable_schedule(
+            np.ascontiguousarray(mat, np.uint8),
+            config.get("ec_sched_opt")) is not None
+
+
 def predict_pipeline(
     on_card: bool, small_shards: list[int]
 ) -> dict[str, dict[str, int]]:
@@ -1523,7 +1617,6 @@ def predict_pipeline(
     import numpy as np
 
     from ceph_tpu_torch.codecs import registry
-    from ceph_tpu_torch.ops import xor_schedule
     from ceph_tpu_torch.utils import config
 
     k = int(PIPE_PROFILE["k"])
@@ -1533,12 +1626,6 @@ def predict_pipeline(
     coding = registry.factory(
         "isa", PIPE_PROFILE, device="cpu").generator[k:]
 
-    def xor_route(mat):
-        return on_card and config.get("ec_use_sched") and int(
-            mat.max()) <= 1 and xor_schedule.routable_schedule(
-                np.ascontiguousarray(mat, np.uint8),
-                config.get("ec_sched_opt")) is not None
-
     def apply(op, n, nbytes, mat=None, limit=limit):
         """``n`` matrix applies of ``op`` over ``nbytes`` of host input;
         ``mat`` is the byte matrix where it may be an XOR."""
@@ -1546,7 +1633,7 @@ def predict_pipeline(
             return {}
         if 0 < limit and nbytes <= limit:
             return {f"host_{op}": n}
-        if mat is not None and xor_route(mat):
+        if mat is not None and xor_route(on_card, mat):
             return {f"sched_{op}": n, "launch.xor_schedule": n}
         if not on_card:
             return {f"plain_{op}": n}
@@ -1936,6 +2023,463 @@ def pipeline_path(rng, dev) -> Counted:
     return counted
 
 
+class StoreRoutes(Routes):
+    """``Routes`` plus the ``ec_stream`` counters (``stream.<name>``) and
+    the smoke's own call counts (``calls.<name>``): the native tier's
+    crc32c and gf_matrix_encode, and ``BlockStore``'s host csum helper."""
+
+    def __init__(self, calls: dict[str, int]) -> None:
+        super().__init__()
+        self.calls = calls
+
+    def _now(self) -> dict[str, int]:
+        from ceph_tpu_torch.pipeline.dispatcher import _stream_counters
+
+        out = Routes._now()
+        pc = _stream_counters()
+        out.update({f"stream.{n}": pc.get(n) for n in STREAM_KEYS
+                    if n != "max_batch"})
+        out.update({f"calls.{n}": v for n, v in self.calls.items()})
+        return out
+
+
+@contextlib.contextmanager
+def counting_calls(owner, names, calls: dict[str, int]):
+    """Replace ``owner.<name>`` for each name by a wrapper that counts
+    its calls into ``calls`` (from any thread), and restore it on
+    exit: the smoke's view of which route ran, with no counter added
+    to the package."""
+    import threading
+
+    lock = threading.Lock()
+    saved = {name: getattr(owner, name) for name in names}
+
+    def wrapper(name, fn):
+        def counted(*args, **kwargs):
+            with lock:
+                calls[name] = calls.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        return counted
+
+    for name, fn in saved.items():
+        calls.setdefault(name, 0)
+        setattr(owner, name, wrapper(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(owner, name, fn)
+
+
+def predict_store(
+    on_card: bool, batches: int, batched_ops: int, range_stripes: int
+) -> dict[str, dict[str, int]]:
+    """The routes of the store path's phases. ``batches`` and
+    ``batched_ops`` are the ring's counts in the coalesced write (they
+    depend on the threads' timing: the check is that each batch is one
+    Kernel B launch and one fused encode) and ``range_stripes`` the
+    stripes the ranged degraded reads decode (one native
+    ``gf_matrix_encode`` each, on the host GF tables). Every csum block
+    a read returns is verified on the host through the native crc
+    (``calls.crc32c``, ``backend.host``); a write carrying the kernel's
+    csums hashes nothing (no ``calls._csum``), one without them hashes
+    its blob once (``calls._csum``, checked apart: the allocator may
+    split a blob). On the CPU (a rehearsal) the kernel routes are their
+    plain forms and nothing launches."""
+    from ceph_tpu_torch.codecs import registry
+
+    k, m = int(PIPE_PROFILE["k"]), int(PIPE_PROFILE["m"])
+    n = k + m
+    blocks = OBJECT_BYTES // k // CSUM_BLOCK  # per object and shard
+    ops = STORE_OBJECTS * OBJECT_BYTES // STORE_APPEND
+    route = "kernel" if on_card else "plain"
+    flip = 12345 // CSUM_BLOCK  # the flipped byte's csum block
+
+    def fused(count):
+        out = {f"{route}_encode": count, "fused_encode": count}
+        if on_card:
+            out["launch.gf_apply_csum"] = count
+        return out
+
+    codec = registry.factory("isa", PIPE_PROFILE, device="cpu")
+
+    def decode(count, lost):
+        """``count`` decodes of ``lost`` from the first k survivors (the
+        read planner's and recovery's choice): Kernel D where the rows
+        are an XOR (a lost data shard beside the all-ones parity 8),
+        Kernel A otherwise."""
+        present = [s for s in range(n) if s not in lost][:k]
+        mat = codec._build_decode_bytes(present, sorted(lost))
+        if xor_route(on_card, mat):
+            return {"sched_decode": count, "launch.xor_schedule": count}
+        out = {f"{route}_decode": count}
+        if on_card:
+            out["launch.gf_apply"] = count
+        return out
+
+    def host_crc(count):
+        return {"backend.host": count, "calls.crc32c": count}
+
+    def kernel_crc(count):
+        if not on_card:
+            return {"backend.plain": count}
+        return {"backend.kernel": count, "launch.crc32c_blocks": count}
+
+    def merge(*parts):
+        out: dict[str, int] = {}
+        for part in parts:
+            for key, val in part.items():
+                out[key] = out.get(key, 0) + val
+        return out
+
+    return {
+        "coalesced_write": merge(fused(batches), {
+            "stream.ops": ops, "stream.batches": batches,
+            "stream.batched_ops": batched_ops}),
+        "per_op_write": fused(ops),
+        # the k data shards of every object
+        "read_back": host_crc(STORE_OBJECTS * k * blocks),
+        # k survivors of every object, shard 0 decoded on the card (shard
+        # 9 is a parity: only 0 is rebuilt); the ranges decode each
+        # stripe's k survivor blocks on the host
+        "degraded_read": merge(
+            decode(STORE_OBJECTS, {0}),
+            host_crc(STORE_OBJECTS * k * blocks + k * range_stripes),
+            {"host_decode": STORE_RANGES,
+             "calls.gf_matrix_encode": range_stripes}),
+        # k survivors read, shard 9 decoded, verified against HashInfo,
+        # then written and hashed once
+        "rebuild": merge(decode(STORE_OBJECTS, {STORE_LOST}),
+                         kernel_crc(STORE_OBJECTS),
+                         host_crc(STORE_OBJECTS * (k + 1) * blocks)),
+        "reopen_read_back": host_crc(STORE_OBJECTS * k * blocks),
+        "deep_scrub": merge(kernel_crc(STORE_OBJECTS * n),
+                            host_crc(STORE_OBJECTS * n * blocks)),
+        # the read stops at the bad block; the scrub at it, after the
+        # shards before it; the degraded read; the rebuild (as above);
+        # the read-back; the clean scrub
+        "flipped_byte": merge(
+            host_crc(2 * (flip + 1) + STORE_FLIP_SHARD * blocks
+                     + 3 * k * blocks + blocks + n * blocks),
+            kernel_crc(STORE_FLIP_SHARD + 1 + n),
+            decode(2, {STORE_FLIP_SHARD})),
+    }
+
+
+def store_path(rng, dev) -> Counted:
+    """The store path: the EC(8,4) pipeline of the pipeline path over
+    12 BlockStore shards (one preallocated device file each, in a
+    temporary directory), 64 objects of 4 MiB. 8 PG threads append
+    through the streaming dispatcher's ring, a per-op twin writes the
+    same appends into fresh stores; then read-back, degraded read,
+    rebuild into an empty store, reopen from the device files, deep
+    scrub, and one byte flipped under a store. Each phase's routes are
+    held against ``predict_store``."""
+    import tempfile
+    import threading
+
+    from ceph_tpu_torch import native
+    from ceph_tpu_torch.checksum import host as host_crc
+    from ceph_tpu_torch.codecs import registry
+    from ceph_tpu_torch.pipeline import (
+        HashInfo,
+        PGLog,
+        ReadPipeline,
+        RecoveryBackend,
+        StripeInfo,
+        be_deep_scrub,
+    )
+    from ceph_tpu_torch.pipeline.dispatcher import (
+        _stream_counters,
+        shutdown_all,
+    )
+    from ceph_tpu_torch.pipeline.rmw import (
+        HINFO_KEY,
+        OI_KEY,
+        RMWPipeline,
+        ShardBackend,
+        parse_oi,
+    )
+    from ceph_tpu_torch.store import BlockStore, CsumError, Transaction
+    from ceph_tpu_torch.utils import config
+
+    check(native.available(), "the native host tier did not build: "
+          + native.build_log[-2000:])
+    k, m = int(PIPE_PROFILE["k"]), int(PIPE_PROFILE["m"])
+    n = k + m
+    size = OBJECT_BYTES
+    shard_bytes = size // k
+    oids = [f"rbd_data.{i:016x}" for i in range(STORE_OBJECTS)]
+    per_pg = STORE_OBJECTS // STORE_THREADS
+    pg_oids = [oids[t * per_pg:(t + 1) * per_pg]
+               for t in range(STORE_THREADS)]
+    model = {oid: rng.integers(0, 256, size, dtype=np.uint8) for oid in oids}
+    ranges = [(oids[int(rng.integers(0, len(oids)))],
+               int(rng.integers(0, size - STORE_RANGE)))
+              for _ in range(STORE_RANGES)]
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_store_")
+    root = Path(tmp.name)
+
+    def open_store(name):
+        return BlockStore(str(root / name), size=STORE_DEVICE_BYTES,
+                          name=name)
+
+    def pg_stack(stores):
+        codec = registry.factory("isa", PIPE_PROFILE, device=dev)
+        sinfo = StripeInfo(k, m, k * PIPE_UNIT)
+        return RMWPipeline(sinfo, codec, ShardBackend(stores),
+                           pglog=PGLog(n))
+
+    def append_all(rmw, objs, errors):
+        try:
+            for oid in objs:
+                for off in range(0, size, STORE_APPEND):
+                    done = []
+                    rmw.submit(oid, off,
+                               model[oid][off:off + STORE_APPEND].tobytes(),
+                               done.append)
+                    check(len(done) == 1 and done[0].error is None,
+                          f"append to {oid} at {off} did not commit: {done}")
+                check(rmw.hinfo(oid).get_total_chunk_size() == shard_bytes,
+                      f"HashInfo of {oid} not extended by every append")
+        except Exception as e:  # reported by the joining thread
+            errors.append(e)
+
+    def blob_csums(store, oid):
+        """{logical offset of a csum block: its csum} of one object:
+        independent of where the allocator put the blobs."""
+        out = {}
+        for boff, blob in store._objects[oid].blobs.items():
+            for i, val in enumerate(blob.csums):
+                out[boff + i * store.csum_block] = val
+        return out
+
+    def state(stores, objs):
+        return {s: {oid: (st.read(oid), st.getattrs(oid),
+                          blob_csums(st, oid)) for oid in objs}
+                for s, st in stores.items()}
+
+    calls: dict[str, int] = {}
+    routes = StoreRoutes(calls)
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(tmp)
+        stack.enter_context(counting_calls(
+            native, ("crc32c", "gf_matrix_encode"), calls))
+        stack.enter_context(counting_calls(BlockStore, ("_csum",), calls))
+        stack.enter_context(config.override(
+            csum_block_size=CSUM_BLOCK, osd_deep_scrub_stride=524288))
+        counted = stack.enter_context(Counted("store"))
+        _stream_counters().reset()
+        stores = {s: open_store(f"osd.{s}") for s in range(n)}
+
+        # -- 1. coalesced write: 8 PG threads through the ring ----------
+        pgs = [pg_stack(stores) for _ in range(STORE_THREADS)]
+        errors: list = []
+        with config.override(ec_streaming_dispatch=True), \
+                routes("coalesced_write"), \
+                Phase("store_coalesced_write", STORE_OBJECTS * size):
+            threads = [threading.Thread(target=append_all,
+                                        args=(pgs[t], pg_oids[t], errors),
+                                        name=f"pg-{t}")
+                       for t in range(STORE_THREADS)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=900)
+            check(not any(th.is_alive() for th in threads),
+                  "a PG thread of the coalesced write hung")
+        if errors:
+            raise errors[0]
+        stream = {n_: _stream_counters().get(n_) for n_ in STREAM_KEYS}
+        shutdown_all()
+        print(f"store path ec_stream: {stream}")
+
+        # -- 2. the per-op twin: the same appends, one thread, no ring --
+        twin = {s: open_store(f"twin.{s}") for s in range(n)}
+        twin_pgs = [pg_stack(twin) for _ in range(STORE_THREADS)]
+        with config.override(ec_streaming_dispatch=False), \
+                routes("per_op_write"), \
+                Phase("store_per_op_write", STORE_OBJECTS * size):
+            for t in range(STORE_THREADS):
+                append_all(twin_pgs[t], pg_oids[t], errors)
+                if errors:
+                    raise errors[0]
+        check(state(twin, oids) == state(stores, oids),
+              "the per-op twin stored other bytes, attrs or blob csums "
+              "than the coalesced write")
+        for st in twin.values():
+            st.close()
+        del twin, twin_pgs, pgs
+        wall = {r["phase"]: r["wall_ms"] for r in Phase.results}
+        print("store path write: " + "; ".join(
+            f"{what} {wall[f'store_{phase}']:.3f} ms (host clock), "
+            f"{routes.rows[phase].get('launch.gf_apply_csum', 0)} Kernel B "
+            "launches" for what, phase in (("coalesced", "coalesced_write"),
+                                           ("per-op", "per_op_write"))))
+
+        # a stack that knows every object from its stored attrs
+        def read_stack(stores):
+            rmw = pg_stack(stores)
+            for oid in oids:
+                osize, ev = parse_oi(stores[0].getattr(oid, OI_KEY))
+                rmw.prime_object(oid, osize, HashInfo.from_bytes(
+                    stores[0].getattr(oid, HINFO_KEY), dev), ev)
+            reads = ReadPipeline(rmw.sinfo, rmw.codec, rmw.backend,
+                                 rmw.object_size)
+            rec = RecoveryBackend(rmw.sinfo, rmw.codec, rmw.backend,
+                                  rmw.object_size, rmw.hinfo,
+                                  eversion_fn=rmw.object_eversion)
+            return rmw, reads, rec
+
+        rmw, reads, rec = read_stack(stores)
+        backend, sinfo = rmw.backend, rmw.sinfo
+
+        # -- 3. read-back with every shard up ----------------------------
+        with routes("read_back"), Phase("store_read_back",
+                                        STORE_OBJECTS * size):
+            for oid in oids:
+                check(reads.read_sync(oid, 0, size) == model[oid].tobytes(),
+                      f"{oid} reads back other bytes than were written")
+
+        # -- 4. degraded read, shards 0 and 9 down -----------------------
+        backend.down_shards.update(STORE_READ_DOWN)
+        with routes("degraded_read"), Phase(
+                "store_degraded_read",
+                STORE_OBJECTS * size + STORE_RANGES * STORE_RANGE):
+            for oid in oids:
+                check(reads.read_sync(oid, 0, size) == model[oid].tobytes(),
+                      f"degraded read of {oid} differs from the model")
+            for oid, off in ranges:
+                check(reads.read_sync(oid, off, STORE_RANGE)
+                      == model[oid][off:off + STORE_RANGE].tobytes(),
+                      f"degraded range {oid}@{off} differs from the model")
+        backend.down_shards.clear()
+
+        # -- 5. rebuild of shard 9 into an empty store -------------------
+        lost = stores[STORE_LOST]
+        pre = state({0: lost}, oids)[0]
+        backend.stores[STORE_LOST] = open_store(f"osd.{STORE_LOST}.new")
+        with routes("rebuild"), Phase("store_rebuild_shard",
+                                      STORE_OBJECTS * k * shard_bytes):
+            for oid in oids:
+                rec.recover_object(oid, {STORE_LOST})
+        rebuilt = {oid: (v[0], v[1]) for oid, v in
+                   state({0: backend.stores[STORE_LOST]}, oids)[0].items()}
+        check(rebuilt == {oid: (v[0], v[1]) for oid, v in pre.items()},
+              f"shard {STORE_LOST} rebuilt with other bytes or attrs")
+        lost.close()
+        del pre, rebuilt, lost
+
+        # -- 6. close every store, reopen from its device file ----------
+        roots = {s: st.root for s, st in backend.stores.items()}
+        for st in backend.stores.values():
+            st.close()
+        with routes("reopen_read_back"), Phase("store_reopen_read_back",
+                                               STORE_OBJECTS * size):
+            stores = {s: BlockStore(roots[s], size=STORE_DEVICE_BYTES,
+                                    name=Path(roots[s]).name)
+                      for s in range(n)}
+            rmw, reads, rec = read_stack(stores)
+            backend, sinfo = rmw.backend, rmw.sinfo
+            for oid in oids:
+                check(reads.read_sync(oid, 0, size) == model[oid].tobytes(),
+                      f"{oid} reads back other bytes after the reopen")
+
+        # -- 7. deep scrub on Kernel C ------------------------------------
+        with routes("deep_scrub"), Phase("store_deep_scrub",
+                                         STORE_OBJECTS * n * shard_bytes):
+            scrubs = {oid: be_deep_scrub(sinfo, backend, oid, device=dev)
+                      for oid in oids}
+        for oid, res in scrubs.items():
+            check(res.ok, f"scrub of {oid}: {res.errors}")
+
+        # -- 8. one byte flipped in shard 3's device file ----------------
+        victim = oids[0]
+        st = stores[STORE_FLIP_SHARD]
+        at = 12345  # a byte of the victim's shard
+        boff = max(b for b in st._objects[victim].blobs if b <= at)
+        dev_off = st._objects[victim].blobs[boff].offset + at - boff
+        st.close()
+        with open(st.device_path, "r+b") as f:
+            f.seek(dev_off)
+            byte = f.read(1)[0]
+            f.seek(dev_off)
+            f.write(bytes([byte ^ 0x5A]))
+        st = stores[STORE_FLIP_SHARD] = backend.stores[STORE_FLIP_SHARD] = \
+            BlockStore(roots[STORE_FLIP_SHARD], size=STORE_DEVICE_BYTES)
+        outcome = {}
+        with routes("flipped_byte"), Phase("store_flipped_byte",
+                                           3 * size + n * shard_bytes):
+            for what, call in (
+                ("read", lambda: st.read(victim)),
+                ("scrub", lambda: be_deep_scrub(sinfo, backend, victim,
+                                                device=dev)),
+            ):
+                try:
+                    call()
+                    outcome[what] = None
+                except CsumError as e:
+                    outcome[what] = e
+            backend.down_shards.add(STORE_FLIP_SHARD)
+            degraded = reads.read_sync(victim, 0, size)
+            backend.down_shards.clear()
+            st.queue_transactions(Transaction().remove(victim))
+            rec.recover_object(victim, {STORE_FLIP_SHARD})
+            healed = reads.read_sync(victim, 0, size)
+            fixed = be_deep_scrub(sinfo, backend, victim, device=dev)
+        check(isinstance(outcome["read"], IOError),
+              "a read over the flipped byte returned bytes instead of "
+              "raising CsumError")
+        check(isinstance(outcome["scrub"], CsumError),
+              "the deep scrub over the flipped byte did not raise the "
+              "store's CsumError, as ceph_tpu's does")
+        check(degraded == model[victim].tobytes(),
+              "the degraded read around the flipped byte differs")
+        check(healed == model[victim].tobytes(),
+              "the read-back after the rebuild differs")
+        check(fixed.ok, f"scrub after the rebuild: {fixed.errors}")
+        for st in stores.values():
+            st.close()
+
+    on_card = dev.type == "cuda"
+    rows = routes.rows
+    ops = STORE_OBJECTS * size // STORE_APPEND
+    wrote = rows["coalesced_write"]
+    batches = wrote.get("stream.batches", 0)
+    check(wrote.get("stream.ops") == ops,
+          f"ec_stream.ops {wrote.get('stream.ops')}, want {ops}")
+    check(stream["max_batch"] >= 2 and stream["batched_ops"] > 0,
+          f"the ring never batched: {stream}")
+    check(stream["batch_faults"] == 0 and stream["solo_retries"] == 0,
+          f"the ring split batches: {stream}")
+    range_stripes = rows["degraded_read"].get("calls.gf_matrix_encode", 0)
+    check(STORE_RANGES * 2 <= range_stripes <= STORE_RANGES * 3,
+          f"the ranged reads decoded {range_stripes} stripes")
+    for phase, want in (("rebuild", STORE_OBJECTS), ("flipped_byte", 1)):
+        hashed = rows[phase].pop("calls._csum", 0)
+        check(hashed >= want, f"store phase {phase} hashed {hashed} blobs "
+              f"on the host, want one or more per rebuilt object")
+    predicted = predict_store(on_card, batches, stream["batched_ops"],
+                              range_stripes)
+    print("store route split: " + json.dumps(
+        {"predicted": predicted, "observed": rows}))
+    for phase, want in predicted.items():
+        check(rows.get(phase, {}) == want,
+              f"store phase {phase} routes {rows.get(phase)}, predicted "
+              f"{want}")
+    check(host_crc.native_selected(),
+          "checksum.host.crc32c did not select the native tier")
+    print(f"store outputs: {STORE_OBJECTS} objects appended by "
+          f"{STORE_THREADS} PG threads through the ring "
+          f"({batches} Kernel B launches for {ops} ops, max batch "
+          f"{stream['max_batch']}), equal to the per-op twin's bytes, attrs "
+          "and blob csums; read back, read degraded, shard rebuilt with "
+          "equal bytes and attrs, reopened from the device files, scrubbed "
+          "clean; a flipped byte raised CsumError on read and scrub, read "
+          "degraded exact, rebuilt and scrubbed clean")
+    return counted
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1960,8 +2504,13 @@ def main(argv=None) -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    from ceph_tpu_torch import kernels
+    from ceph_tpu_torch import kernels, native
 
+    t0 = time.perf_counter()
+    check(native.available(), "the native host tier did not build: "
+          + native.build_log[-2000:])
+    print(f"native host tier built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s (g++)")
     t0 = time.perf_counter()
     logs = kernels.build_all()
     print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s "
@@ -1985,6 +2534,8 @@ def main(argv=None) -> int:
     paths.append(clay_path(rng, dev))
     torch.cuda.empty_cache()
     paths.append(pipeline_path(rng, dev))
+    torch.cuda.empty_cache()
+    paths.append(store_path(rng, dev))
 
     print(json.dumps({"phases": Phase.results}))
     kern_rows = []

@@ -17,7 +17,10 @@ pipeline path's OSD EC backend (ISA EC(8,4) at a 4 KiB stripe unit over
 (two 2 MiB appends each), 64 parity-delta overwrites of 4 KiB on the
 data shards other than 5, the degraded read of every object with shards
 {0, 5, 9} down, the rebuild of shard 9 into an empty store, the deep
-scrub, and xxhash64 over 64 MiB on the card. Prints per phase:
+scrub, and xxhash64 over 64 MiB on the card; and the store path's write
+over 12 BlockStores (16 objects of 4 MiB in 128 KiB appends): 8 PG
+threads through the streaming dispatcher's ring against the same
+appends per op on one thread (``store_phases``). Prints per phase:
 
 - host-clock time, and device busy time summed over kernels and copies
   (from the profiler's device events), hence the device idle share, and
@@ -32,7 +35,7 @@ Writes the full report to ``chiprun_out/torch_slice_breakdown.json``.
 Not part of the package; imports nothing of JAX or ceph_tpu.
 
 Usage: python3 experiments/torch_slice_breakdown.py [--seed N]
-       [--only isa|schedule|clay|pipeline ...]
+       [--only isa|schedule|clay|pipeline|store ...]
 """
 
 from __future__ import annotations
@@ -59,6 +62,9 @@ CLAY_GENERAL = {"k": "8", "m": "4", "d": "10"}
 CLAY_OBJECTS = 64
 PIPE_OBJECTS, PIPE_OBJECT_BYTES = 64, 4 << 20
 PIPE_SMALL_SHARDS = (0, 1, 2, 3, 4, 6, 7)
+#: the store phases: fewer objects than the smoke's 64 (four runs each)
+STORE_OBJECTS, STORE_THREADS, STORE_APPEND = 16, 8, 128 << 10
+STORE_DEVICE_BYTES = 64 << 20
 
 
 def phases(payload, dev_name="cuda"):
@@ -333,6 +339,81 @@ def pipeline_phases(rng, dev_name="cuda"):
             "xxhash64_64mib": xxhash64_64mib}
 
 
+def store_phases(rng, dev_name="cuda"):
+    """The store path's write, as in ``chip_smoke.py`` at fewer objects:
+    ISA EC(8,4) at a 4 KiB stripe unit over 12 fresh BlockStores (device
+    files in a temporary directory), 128 KiB appends. The coalesced
+    write runs 8 PG threads (each its own ``RMWPipeline`` and ``PGLog``)
+    with ``ec_streaming_dispatch`` on; the per-op write runs the same
+    appends on one thread with it off. From Python 3.12 cProfile sees
+    every thread, so the ring phase's cumulative times sum over the PG
+    threads and the dispatcher's."""
+    import tempfile
+    import threading
+
+    from ceph_tpu_torch.codecs import registry
+    from ceph_tpu_torch.pipeline import PGLog, StripeInfo
+    from ceph_tpu_torch.pipeline.dispatcher import shutdown_all
+    from ceph_tpu_torch.pipeline.rmw import RMWPipeline, ShardBackend
+    from ceph_tpu_torch.store import BlockStore
+    from ceph_tpu_torch.utils import config
+
+    prof = {"k": str(K), "m": str(M), "technique": "reed_sol_van"}
+    sinfo = StripeInfo(K, M, K * 4096)
+    oids = [f"rbd_data.{i:016x}" for i in range(STORE_OBJECTS)]
+    data = {o: rng.integers(0, 256, PIPE_OBJECT_BYTES, dtype=np.uint8)
+            .tobytes() for o in oids}
+    per_pg = STORE_OBJECTS // STORE_THREADS
+
+    def append_all(stores, objs):
+        rmw = RMWPipeline(sinfo, registry.factory("isa", prof,
+                                                  device=dev_name),
+                          ShardBackend(stores), pglog=PGLog(K + M))
+        for o in objs:
+            for off in range(0, PIPE_OBJECT_BYTES, STORE_APPEND):
+                done = []
+                rmw.submit(o, off, data[o][off:off + STORE_APPEND],
+                           done.append)
+                if len(done) != 1 or done[0].error is not None:
+                    raise RuntimeError(f"append to {o} failed: {done}")
+
+    def pg_thread(stores, objs, errors):
+        try:
+            append_all(stores, objs)
+        except Exception as e:  # reported by the joining thread
+            errors.append(e)
+
+    def write(coalesced: bool):
+        with tempfile.TemporaryDirectory() as tmp:
+            stores = {s: BlockStore(f"{tmp}/osd.{s}", size=STORE_DEVICE_BYTES)
+                      for s in range(K + M)}
+            groups = [oids[t * per_pg:(t + 1) * per_pg]
+                      for t in range(STORE_THREADS)]
+            errors: list = []
+            if coalesced:
+                with config.override(ec_streaming_dispatch=True):
+                    threads = [threading.Thread(target=pg_thread,
+                                                args=(stores, g, errors))
+                               for g in groups]
+                    for t in threads:
+                        t.start()
+                    for t in threads:
+                        t.join(timeout=900)
+                    if any(t.is_alive() for t in threads):
+                        raise RuntimeError("a PG thread hung")
+                shutdown_all()
+            else:
+                for g in groups:
+                    append_all(stores, g)
+            for st in stores.values():
+                st.close()
+            if errors:
+                raise errors[0]
+
+    return {"store_coalesced_write": lambda: write(True),
+            "store_per_op_write": lambda: write(False)}
+
+
 def device_time_us(prof, spans=()) -> tuple[float, list, int]:
     """Sum of device time over the kernels and copies the card ran, and
     the top ones, from a finished torch.profiler run. Only events that
@@ -362,8 +443,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", nargs="+",
-                    choices=("isa", "schedule", "clay", "pipeline"),
-                    default=("isa", "schedule", "clay", "pipeline"))
+                    choices=("isa", "schedule", "clay", "pipeline", "store"),
+                    default=("isa", "schedule", "clay", "pipeline",
+                             "store"))
     args = ap.parse_args(argv)
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -382,6 +464,8 @@ def main(argv=None) -> int:
         steps.update(clay_phases(np.random.default_rng(args.seed + 2)))
     if "pipeline" in args.only:
         steps.update(pipeline_phases(np.random.default_rng(args.seed + 3)))
+    if "store" in args.only:
+        steps.update(store_phases(np.random.default_rng(args.seed + 4)))
     for fn in steps.values():  # warm-up: build, caches, tables
         fn()
     torch.cuda.synchronize()

@@ -153,8 +153,11 @@ def test_registry_and_profile_contract():
     assert (codec.get_chunk_count(), codec.get_data_chunk_count()) == (12, 8)
     assert codec.get_chunk_size(8 * 1000) == 1024  # CHUNK_ALIGN = 128
     assert codec.get_flags() & Flag.PARITY_DELTA_OPTIMIZATION
-    assert registry.names() == ["clay", "isa", "jerasure", "lrc", "shec",
-                                "xor"]
+    # the in-tree plugins are preloaded; ``example`` registers on first
+    # use, as in ceph_tpu
+    registry.factory("example", {"k": "3"}, device="cpu")
+    assert registry.names() == ["clay", "example", "isa", "jerasure", "lrc",
+                                "shec", "xor"]
     with pytest.raises(ValueError, match="envelope"):
         registry.factory("isa", {"k": "22", "m": "4"}, device="cpu")
     with pytest.raises(ValueError, match="technique"):

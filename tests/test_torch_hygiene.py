@@ -104,9 +104,43 @@ def test_fresh_interpreter_loads_no_jax_or_reference():
         "ceph_tpu_torch.store.transaction", "ceph_tpu_torch.utils.lockdep",
         "ceph_tpu_torch.utils.cluster_log", "ceph_tpu_torch.utils.crash_points",
         "ceph_tpu_torch.utils.optracker", "ceph_tpu_torch.utils.trace",
+        "ceph_tpu_torch.native", "ceph_tpu_torch.pipeline.dispatcher",
+        "ceph_tpu_torch.store.blockstore", "ceph_tpu_torch.store.filestore",
+        "ceph_tpu_torch.store.kvstore", "ceph_tpu_torch.store.devicefs",
+        "ceph_tpu_torch.store.allocator", "ceph_tpu_torch.store.framed_log",
+        "ceph_tpu_torch.codecs.example",
     ):
         assert name in loaded
     assert [m for m in loaded if _forbidden(m)] == []
+
+
+HOST_TIER = sorted(
+    [*(PKG / "native").rglob("*.py"), *(PKG / "native" / "src").glob("*.cc"),
+     PKG / "pipeline" / "dispatcher.py", *(PKG / "store").glob("*.py"),
+     PKG / "checksum" / "host.py"]
+)
+
+
+@pytest.mark.parametrize(
+    "path", HOST_TIER, ids=[str(p.relative_to(ROOT)) for p in HOST_TIER]
+)
+def test_host_tier_keeps_its_own_switch(path):
+    """The native tier, the dispatcher and the stores read the port's
+    switch (CEPH_TPU_TORCH_NO_NATIVE), never ceph_tpu's, and name no
+    module of ceph_tpu or JAX even in a string (an importlib call)."""
+    text = path.read_text()
+    assert not re.search(r"CEPH_TPU_NO_NATIVE", text)
+    assert not re.search(r"[\"'](jax|ceph_tpu)(\.[\w.]*)?[\"']", text)
+
+
+def test_native_switch_is_the_ports_own():
+    from ceph_tpu_torch import native
+
+    assert native.NO_NATIVE_ENV == "CEPH_TPU_TORCH_NO_NATIVE"
+    build = Path(native._BUILD_DIR).resolve()
+    assert build.is_relative_to((PKG / "_build").resolve())
+    ignored = (ROOT / ".gitignore").read_text().split()
+    assert "ceph_tpu_torch/_build/" in ignored
 
 
 @pytest.fixture

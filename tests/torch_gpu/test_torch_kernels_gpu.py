@@ -577,6 +577,72 @@ def test_pipeline_rebuild_and_scrub_on_kernels_a_and_c(cuda):
     assert [(e.shard, e.kind) for e in res.errors] == [(2, "crc_mismatch")]
 
 
+def test_ring_batch_is_one_kernel_b_launch(cuda):
+    """Three fused encode+csum ops submitted to the streaming
+    dispatcher's ring while its drain thread is held: the thread then
+    drains them as one batch, one Kernel B launch under the codec's
+    device, parity and csums equal to each op's own plain fused form.
+    The hold is a plain encode whose completion callback (which runs
+    on the drain thread) waits until the three are queued."""
+    import threading
+
+    from ceph_tpu_torch.codecs import registry
+    from ceph_tpu_torch.pipeline.dispatcher import (
+        StreamingDispatcher,
+        _stream_counters,
+    )
+
+    wait = 60  # seconds: every wait of this test
+    codec = registry.factory("isa", {"k": "8", "m": "4"}, device=cuda)
+    disp = StreamingDispatcher(codec)
+    try:
+        held, release = threading.Event(), threading.Event()
+
+        def hold(_result):
+            held.set()
+            release.wait(wait)
+
+        disp.submit(np.zeros((8, 4096), np.uint8), hold)
+        assert held.wait(wait), "the drain thread never took the hold"
+        cs, cb = 4096, 4096
+        ops = [_data((8, nc, cs), seed=20 + nc).numpy() for nc in (4, 1, 3)]
+        results: dict[int, object] = {}
+        done = threading.Event()
+
+        def deliver(result, i):
+            results[i] = result
+            if len(results) == len(ops):
+                done.set()
+
+        pc = _stream_counters()
+        batches = pc.get("batches")
+        before = _launches()
+        for idx, chunks in enumerate(ops):
+            nc = chunks.shape[1]
+            disp.submit(np.ascontiguousarray(chunks).reshape(8, nc * cs),
+                        lambda r, i=idx: deliver(r, i),
+                        csum_block=cb, n_chunks=nc)
+        release.set()
+        assert done.wait(wait), "the ring batch never completed"
+        torch.cuda.synchronize()
+        assert _grew(before, _launches()) == {"gf_apply_csum": 1}
+        assert pc.get("batches") == batches + 1
+        for idx, chunks in enumerate(ops):
+            assert not isinstance(results[idx], Exception), results[idx]
+            parity2d, csums = results[idx]
+            nc = chunks.shape[1]
+            want_p, want_c = ce.gf_apply_csum_plain(
+                codec._encode_bmat_np,
+                torch.from_numpy(chunks.transpose(1, 0, 2).copy()).to(cuda),
+                cb)
+            assert np.array_equal(
+                parity2d, want_p.cpu().numpy().transpose(1, 0, 2)
+                .reshape(4, nc * cs))
+            assert np.array_equal(csums, want_c.cpu().numpy())
+    finally:
+        disp.stop()
+
+
 @pytest.mark.parametrize("alg,ref", [("xxhash32", 32), ("xxhash64", 64)])
 def test_xxhash_on_card_matches_reference(cuda, alg, ref):
     from ceph_tpu_torch.checksum import Checksummer, xxh32_ref, xxh64_ref
