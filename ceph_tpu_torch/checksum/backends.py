@@ -1,8 +1,9 @@
 """Checksum backend observability.
 
-Every crc routing decision records here — plain module-level counters
-(increments are GIL-atomic), plus a last-backend marker the
-``Checksummer`` facade surfaces per call.
+Every crc routing decision records here — module-level counters,
+incremented under a lock (the cluster tier hashes from many threads at
+once), plus a last-backend marker the ``Checksummer`` facade surfaces
+per call.
 
 Backends:
 - ``kernel`` — the CUDA fold kernel (checksum/cuda_crc.py, csrc/crc32c.cu)
@@ -15,6 +16,9 @@ Backends:
 
 from __future__ import annotations
 
+import threading
+
+_lock = threading.Lock()
 _counts: dict[str, int] = {}
 _bytes: dict[str, int] = {}
 _last: str | None = None
@@ -22,10 +26,11 @@ _last: str | None = None
 
 def record(backend: str, nbytes: int = 0) -> None:
     global _last
-    _counts[backend] = _counts.get(backend, 0) + 1
-    if nbytes:
-        _bytes[backend] = _bytes.get(backend, 0) + int(nbytes)
-    _last = backend
+    with _lock:
+        _counts[backend] = _counts.get(backend, 0) + 1
+        if nbytes:
+            _bytes[backend] = _bytes.get(backend, 0) + int(nbytes)
+        _last = backend
 
 
 def last_backend() -> str | None:
@@ -34,15 +39,18 @@ def last_backend() -> str | None:
 
 
 def counts() -> dict[str, int]:
-    return dict(_counts)
+    with _lock:
+        return dict(_counts)
 
 
 def bytes_hashed() -> dict[str, int]:
-    return dict(_bytes)
+    with _lock:
+        return dict(_bytes)
 
 
 def reset() -> None:
     global _last
-    _counts.clear()
-    _bytes.clear()
-    _last = None
+    with _lock:
+        _counts.clear()
+        _bytes.clear()
+        _last = None

@@ -1,0 +1,951 @@
+"""Objecter + librados-style client (src/osdc/Objecter.cc,
+src/librados/IoCtxImpl.cc).
+
+The client side of the money path (SURVEY.md §3.1): ops target the
+object's primary through the current OSDMap (``_calc_target``,
+osdc/Objecter.cc:2441), travel as ``OSDOp`` messages, and are
+**resent** whenever the answer is retryable: wrong-primary ``eagain``,
+a dead connection, or a map change that moves the object
+(``_scan_requests`` resend, osdc/Objecter.cc:2127). Retries refresh
+the map first and back off exponentially; terminal errors surface as
+exceptions (FileNotFoundError for enoent, IOError for eio).
+
+Submission is PIPELINED (the round-10 serving-tier rebuild): ops are
+enqueued without blocking the caller (``submit_async``), in-flight
+windows are tracked per OSD session, and completions flow back via
+callbacks/futures — the reference's op_submit never parks the caller
+either; it registers the op and lets the reply path finish it. The
+synchronous ``submit`` is a thin wait on the same engine, so a
+loadgen worker at queue depth ≫ 12 keeps the pipe full instead of
+lock-stepping request/reply, and the retry/backoff ladder runs on the
+objecter's timer thread instead of burning a caller thread per op.
+
+``RadosClient``/``IoCtx`` mirror the librados surface
+(rados_write → IoCtxImpl::write → op_submit, librados_c.cc:1308):
+
+    client = RadosClient(mon)
+    io = client.open_ioctx("ecpool")
+    io.write("obj", b"payload")
+    io.read("obj")
+"""
+
+from __future__ import annotations
+
+import heapq
+import itertools
+import threading
+import time
+from collections import deque
+
+from ceph_tpu_torch.msg.messages import (
+    NotifyAck,
+    OSDOp,
+    OSDOpReply,
+    WatchNotify,
+)
+from ceph_tpu_torch.msg.messenger import Connection, Messenger
+from ceph_tpu_torch.utils import tracer
+from ceph_tpu_torch.utils.optracker import NULL_OP, op_tracker
+
+from .osdmap import SHARD_NONE
+from ceph_tpu_torch.utils.lockdep import DebugLock
+
+
+class NoPrimary(Exception):
+    """No live primary for the object after retries (cluster too
+    degraded to serve — the reference client would block forever)."""
+
+
+#: per-OSD session flush sizes, log2 (1, 2, 4, ... 1024 ops)
+_BATCH_BUCKETS = [float(1 << i) for i in range(11)]
+
+
+def _client_perf(name: str):
+    """Register the client-op counter set (Objecter.cc's
+    l_osdc_* slice: active/inflight, completed, resent, failed —
+    plus a verify_failed slot loadgen's content checks feed, and the
+    session-coalescing pair the async engine reports: ops that left
+    in a multi-op window flush, and the flush-size histogram)."""
+    from ceph_tpu_torch.utils import PerfCountersBuilder, perf_collection
+
+    return (
+        PerfCountersBuilder(perf_collection, name)
+        .add_u64_gauge("op_inflight", "ops currently in flight")
+        .add_u64_counter("op_completed", "terminally successful ops")
+        .add_u64_counter("op_resend", "attempts resent (retry loop)")
+        .add_u64_counter("op_error", "terminally failed ops")
+        .add_u64_counter(
+            "verify_failed", "client-side content/csum mismatches"
+        )
+        .add_u64_counter(
+            "op_coalesced",
+            "ops dispatched from a full session window's parked queue",
+        )
+        .add_histogram(
+            "batch_size", _BATCH_BUCKETS,
+            "per-OSD window occupancy at each flush (log2 buckets)",
+        )
+        .create_perf_counters()
+    )
+
+
+class _AsyncOp:
+    """One logical client op through the async engine: survives
+    resends (the osd_reqid_t identity), tracks the current attempt's
+    wire tid, and resolves its Completion exactly once."""
+
+    __slots__ = (
+        "pool", "oid", "op", "offset", "length", "data", "name",
+        "snap", "reqid", "completion", "on_complete", "attempt",
+        "ambiguous", "tid", "osd", "addr", "last", "trace", "tracked",
+        "tenant",
+    )
+
+    def __init__(
+        self, pool, oid, op, offset, length, data, name, snap, reqid,
+        on_complete, tenant="",
+    ) -> None:
+        self.pool = pool
+        self.oid = oid
+        self.op = op
+        self.offset = offset
+        self.length = length
+        self.data = data
+        self.name = name
+        self.snap = snap
+        self.reqid = reqid
+        self.tenant = tenant
+        self.completion = Completion()
+        self.on_complete = on_complete
+        self.attempt = 0          # attempts started so far
+        #: True once an attempt's outcome is unknown (timeout or lost
+        #: connection after send): the op may have applied without us
+        #: seeing the reply.
+        self.ambiguous = False
+        self.tid = 0              # current attempt's wire tid
+        self.osd = SHARD_NONE
+        self.addr = None
+        self.last = "no attempt made"
+        self.trace = (None, None)
+        #: the live-op handle (dump_ops_in_flight): one logical op =
+        #: one TrackedOp across every resend attempt
+        self.tracked = NULL_OP
+
+
+class _Session:
+    """Per-OSD in-flight window: tids on the wire plus the ops parked
+    behind the window (the reference's per-session op maps,
+    Objecter.h OSDSession)."""
+
+    __slots__ = ("inflight", "queue")
+
+    def __init__(self) -> None:
+        self.inflight: set[int] = set()
+        self.queue: deque[_AsyncOp] = deque()
+
+
+class Objecter:
+    """Map-aware op targeting + resend. ``monitor`` provides the map
+    (in-process monc); transport is the framed messenger."""
+
+    def __init__(
+        self,
+        monitor,
+        max_attempts: int = 8,
+        op_timeout: float = 30.0,
+        backoff: float = 0.05,
+        secret: bytes | None = None,
+        perf_name: str | None = None,
+        max_inflight_per_osd: int | None = None,
+    ) -> None:
+        self.monitor = monitor
+        self.max_attempts = max_attempts
+        self.op_timeout = op_timeout
+        self.backoff = backoff
+        if max_inflight_per_osd is None:
+            from ceph_tpu_torch.utils import config
+
+            max_inflight_per_osd = config.get("objecter_inflight_per_osd")
+        self.max_inflight_per_osd = max_inflight_per_osd
+        # client-side op counters (the objecter half of `perf dump`:
+        # the reference's l_osdc_op_active/op_resend family). Opt-in
+        # by name so ordinary clients stay registration-free; loadgen
+        # passes one so runs are observable from the admin socket /
+        # exporter like daemon-side ops.
+        self.perf = (
+            _client_perf(perf_name) if perf_name is not None else None
+        )
+        #: per-pool op/byte accounting (the l_osdc op_w/op_r family
+        #: sliced by pool — ROADMAP #2's per-tenant seed observable):
+        #: lazily one counter set per pool, named
+        #: ``<perf_name>.pool.<pool>`` so the exporter renders a
+        #: ``pool`` label
+        self._pool_perf: dict[str, object] = {}
+        self._inflight = 0
+        # cluster PSK (keyring role): all client connections sealed
+        self.messenger = Messenger("client", secret=secret)
+        self.messenger.set_dispatcher(self._dispatch)
+        self._conns: dict[tuple[str, int], Connection] = {}
+        self._tids = itertools.count(1)
+        # osd_reqid_t analog: (client instance, seq) names a LOGICAL op
+        # across resends, so a primary that already applied an attempt
+        # whose reply was lost replays the result instead of
+        # re-applying (the reference dedups via pg-log reqids).
+        import uuid
+
+        self.client_id = uuid.uuid4().hex[:12]
+        self._reqs = itertools.count(1)
+        self._lock = DebugLock("client.objecter")
+        #: wire tid -> _AsyncOp awaiting that attempt's reply
+        self._waiting: dict[int, _AsyncOp] = {}
+        #: osd id -> in-flight window + parked queue
+        self._sessions: dict[int, _Session] = {}
+        # timer machinery: one daemon thread drives retries (backoff
+        # ladder) and per-attempt deadlines, so no caller thread ever
+        # sleeps inside the engine
+        self._timers: list[tuple[float, int, str, _AsyncOp, int]] = []
+        self._timer_seq = itertools.count(1)
+        self._timer_cv = threading.Condition(self._lock)
+        self._timer_thread: threading.Thread | None = None
+        self._closed = False
+        #: watch cookie -> callback(oid, payload)
+        self._watch_cbs: dict[str, object] = {}
+        self._watch_seq = itertools.count(1)
+        #: ops resent so far (visible to tests: the resend contract)
+        self.resends = 0
+
+    # -- transport ------------------------------------------------------
+    def _conn(self, addr: tuple[str, int]) -> Connection:
+        with self._lock:
+            conn = self._conns.get(addr)
+        if conn is not None and conn.alive:
+            return conn
+        conn = self.messenger.connect(addr)
+        with self._lock:
+            self._conns[addr] = conn
+        return conn
+
+    def _dispatch(self, conn: Connection, msg) -> None:
+        if isinstance(msg, WatchNotify):
+            self._handle_watch_notify(conn, msg)
+            return
+        if not isinstance(msg, OSDOpReply):
+            return
+        aop = self._take_waiting(msg.tid)
+        if aop is not None:
+            self._handle_reply(aop, msg)
+
+    def _handle_watch_notify(self, conn: Connection, msg) -> None:
+        """Watch event push from a primary: run the registered
+        callback (reader thread — keep it quick, like librados
+        watch callbacks), then ack so the notifier unblocks."""
+        with self._lock:
+            cb = self._watch_cbs.get(msg.cookie)
+        if cb is not None:
+            try:
+                cb(msg.oid, msg.payload)
+            except Exception:
+                pass  # a broken callback must still ack
+        try:
+            conn.send(NotifyAck(msg.notify_id, msg.cookie))
+        except (ConnectionError, OSError):
+            pass
+
+    # -- timer thread (retry ladder + attempt deadlines) ----------------
+    def _ensure_timer(self) -> None:
+        with self._lock:
+            if self._timer_thread is not None or self._closed:
+                return
+            self._timer_thread = threading.Thread(
+                target=self._timer_loop, daemon=True,
+                name="objecter-timer",
+            )
+            self._timer_thread.start()
+
+    def _at(self, when: float, kind: str, aop: _AsyncOp, tid: int) -> None:
+        with self._timer_cv:
+            heapq.heappush(
+                self._timers,
+                (when, next(self._timer_seq), kind, aop, tid),
+            )
+            self._timer_cv.notify()
+
+    def _timer_loop(self) -> None:
+        while True:
+            with self._timer_cv:
+                if self._closed:
+                    return
+                if not self._timers:
+                    self._timer_cv.wait(0.5)
+                    continue
+                when = self._timers[0][0]
+                now = time.monotonic()
+                if when > now:
+                    self._timer_cv.wait(min(when - now, 0.5))
+                    continue
+                _w, _s, kind, aop, tid = heapq.heappop(self._timers)
+            if kind == "retry":
+                self._start_attempt(aop)
+            else:  # attempt deadline
+                self._expire_attempt(aop, tid)
+
+    def _expire_attempt(self, aop: _AsyncOp, tid: int) -> None:
+        """Per-attempt deadline fired: if the attempt is still on the
+        wire, the reply is lost — ambiguous, retry. A reply that beat
+        the deadline already consumed the tid; do nothing then."""
+        if self._take_waiting(tid) is not aop:
+            return
+        aop.last = f"osd.{aop.osd} timed out"
+        aop.ambiguous = True
+        aop.tracked.mark_event("attempt_timeout", osd=aop.osd)
+        self._retry(aop)
+
+    # -- op submission (the op_submit → _calc_target loop) --------------
+    def submit_async(
+        self,
+        pool: str,
+        oid: str,
+        op: str,
+        offset: int = 0,
+        length: int = 0,
+        data: bytes = b"",
+        name: str = "",
+        snap: int = 0,
+        on_complete=None,
+        tenant: str = "",
+    ) -> "Completion":
+        """Enqueue one op without blocking: targeting, send, retries
+        and the per-attempt deadline all run off the caller's thread;
+        the returned Completion resolves when the op terminally
+        succeeds or fails (callback first, then waiters). ``tenant``
+        rides the wire as the op's QoS identity (cluster/qos.py)."""
+        aop = _AsyncOp(
+            pool, oid, op, offset, length, bytes(data), name, snap,
+            f"{self.client_id}.{next(self._reqs)}", on_complete,
+            tenant=tenant,
+        )
+        if self.perf is not None:
+            with self._lock:
+                self._inflight += 1
+                self.perf.set("op_inflight", self._inflight)
+        self._ensure_timer()
+        # the op's trace context is captured ONCE and rides every
+        # attempt (resends continue the same client trace)
+        with tracer.span("client_op", op=op, pool=pool, oid=oid):
+            aop.trace = tracer.current()
+            aop.tracked = op_tracker.register(
+                "client_op",
+                daemon=self.perf.name if self.perf is not None
+                else "client",
+                trace_id=aop.trace[0],
+                op=op, pool=pool, oid=oid, reqid=aop.reqid,
+            )
+            aop.tracked.mark_event("queued")
+            self._start_attempt(aop)
+        return aop.completion
+
+    def submit(
+        self,
+        pool: str,
+        oid: str,
+        op: str,
+        offset: int = 0,
+        length: int = 0,
+        data: bytes = b"",
+        name: str = "",
+        snap: int = 0,
+        tenant: str = "",
+    ) -> OSDOpReply:
+        """Synchronous facade over the async engine: submit + wait.
+        Raises the op's terminal error (FileNotFoundError, KeyError,
+        IOError, NoPrimary) exactly like the classic blocking loop."""
+        c = self.submit_async(
+            pool, oid, op, offset, length, data, name, snap,
+            tenant=tenant,
+        )
+        # generous cap: the engine already bounds every attempt with
+        # op_timeout and the ladder with max_attempts — this wait only
+        # guards against an engine bug wedging a caller forever
+        cap = self.max_attempts * (self.op_timeout + 1.0) + sum(
+            self.backoff * (2 ** a) for a in range(self.max_attempts)
+        ) + 30.0
+        return c.wait_for_complete(cap)
+
+    def _start_attempt(self, aop: _AsyncOp) -> None:
+        """Run one targeting + send attempt (caller thread for the
+        first, timer thread for retries). Never raises — every failure
+        either schedules a retry or resolves the completion."""
+        if self._closed:
+            self._resolve(aop, None, ConnectionError("objecter shut down"))
+            return
+        aop.attempt += 1
+        if aop.attempt > self.max_attempts:
+            self._resolve(aop, None, NoPrimary(
+                f"{aop.op} {aop.pool}/{aop.oid}: gave up after "
+                f"{self.max_attempts} attempts ({aop.last})"
+            ))
+            return
+        if aop.attempt > 1:
+            # count STARTED re-attempts (the classic loop's contract)
+            self.resends += 1
+            if self.perf is not None:
+                self.perf.inc("op_resend")
+        osdmap = self.monitor.osdmap  # refresh before each attempt
+        try:
+            if aop.op == "pgls":  # PG-addressed: offset carries pgid
+                primary = osdmap.pg_primary(aop.pool, aop.offset)
+            else:
+                primary = osdmap.primary(aop.pool, aop.oid)
+        except KeyError as e:
+            self._resolve(aop, None, FileNotFoundError(str(e)))
+            return
+        if primary == SHARD_NONE:
+            aop.last = "no live primary"
+            self._retry(aop)
+            return
+        addr = osdmap.get_addr(primary)
+        if addr is None:
+            aop.last = f"osd.{primary} has no address"
+            self._retry(aop)
+            return
+        aop.osd = primary
+        aop.addr = addr
+        tid = next(self._tids)
+        aop.tid = tid
+        with self._lock:
+            self._waiting[tid] = aop
+            sess = self._sessions.setdefault(primary, _Session())
+            if len(sess.inflight) >= self.max_inflight_per_osd:
+                # window full: park behind it — the completion of any
+                # in-flight op on this session pumps the queue
+                sess.queue.append(aop)
+                aop.tracked.mark_event("parked_behind_window", osd=primary)
+                return
+            sess.inflight.add(tid)
+        self._send_attempt(aop)
+
+    def _send_attempt(self, aop: _AsyncOp) -> None:
+        try:
+            t_id, t_span = aop.trace
+            self._conn(aop.addr).send(
+                OSDOp(aop.tid, self.monitor.osdmap.epoch, aop.pool,
+                      aop.oid, aop.op, aop.offset, aop.length, aop.data,
+                      aop.name, reqid=aop.reqid, snap=aop.snap,
+                      trace_id=t_id, parent_span=t_span,
+                      tenant=aop.tenant)
+            )
+        except (ConnectionError, OSError):
+            aop.last = f"osd.{aop.osd} connection failed"
+            aop.ambiguous = True  # the send may still have landed
+            aop.tracked.mark_event("send_failed", osd=aop.osd)
+            self._take_waiting(aop.tid)
+            with self._lock:
+                self._conns.pop(aop.addr, None)
+            self._retry(aop)
+            return
+        aop.tracked.mark_event(
+            "sent", osd=aop.osd, attempt=aop.attempt
+        )
+        self._at(
+            time.monotonic() + self.op_timeout, "deadline", aop, aop.tid
+        )
+
+    def _take_waiting(self, tid: int) -> "_AsyncOp | None":
+        """Consume one wire tid: unregister it and free its session
+        window slot, pumping parked ops into the freed slot.
+        ``op_coalesced`` counts ops dispatched FROM the parked queue
+        (they shared the session window with other in-flight ops by
+        definition) and ``batch_size`` histograms the window occupancy
+        at each flush — together they show whether the configured
+        queue depth actually reaches the wire."""
+        pump: list[_AsyncOp] = []
+        occupancy = 0
+        with self._lock:
+            aop = self._waiting.pop(tid, None)
+            if aop is None:
+                return None
+            sess = self._sessions.get(aop.osd)
+            if sess is not None:
+                sess.inflight.discard(tid)
+                while sess.queue and (
+                    len(sess.inflight) < self.max_inflight_per_osd
+                ):
+                    nxt = sess.queue.popleft()
+                    if nxt.tid not in self._waiting:
+                        continue  # retried/resolved while parked
+                    sess.inflight.add(nxt.tid)
+                    pump.append(nxt)
+                occupancy = len(sess.inflight)
+        if pump:
+            if self.perf is not None:
+                self.perf.inc("op_coalesced", len(pump))
+                self.perf.hinc("batch_size", occupancy)
+            for nxt in pump:
+                self._send_attempt(nxt)
+        return aop
+
+    def _retry(self, aop: _AsyncOp) -> None:
+        """Schedule the next attempt on the backoff ladder
+        (osdc/Objecter.cc resend-with-backoff)."""
+        delay = self.backoff * (2 ** max(aop.attempt - 1, 0))
+        self._ensure_timer()
+        self._at(time.monotonic() + delay, "retry", aop, aop.tid)
+
+    def _handle_reply(self, aop: _AsyncOp, reply: OSDOpReply) -> None:
+        if reply.error == "eagain":
+            aop.last = (
+                f"osd.{aop.osd} not primary (its epoch {reply.epoch})"
+            )
+            aop.tracked.mark_event("eagain", osd=aop.osd)
+            self._retry(aop)
+            return
+        if reply.error == "enoent":
+            if aop.op == "remove" and aop.ambiguous:
+                # The reqid dedup cache is primary-local; after a
+                # failover the new primary cannot replay the lost
+                # reply. When an earlier attempt's outcome is
+                # unknown, enoent on the resent remove means it
+                # already applied — the object is gone, which is
+                # what the caller asked for. (eagain-only retries
+                # stay unambiguous and surface enoent normally.)
+                self._resolve(aop, reply, None)
+                return
+            self._resolve(
+                aop, None, FileNotFoundError(f"{aop.pool}/{aop.oid}")
+            )
+            return
+        if reply.error == "enodata":
+            self._resolve(
+                aop, None, KeyError(f"{aop.pool}/{aop.oid}: no such xattr")
+            )
+            return
+        if reply.error == "eio":
+            self._resolve(aop, None, IOError(
+                reply.data.decode() or f"eio on {aop.pool}/{aop.oid}"
+            ))
+            return
+        self._resolve(aop, reply, None)
+
+    #: mutating client ops (per-pool write accounting); anything else
+    #: counts as a read
+    _WRITE_OPS = frozenset(
+        {"write", "writefull", "append", "truncate", "remove",
+         "rollback", "setxattr", "rmxattr", "omapset", "notify"}
+    )
+
+    def _pool_perf_for(self, pool: str):
+        with self._lock:
+            pc = self._pool_perf.get(pool)
+        if pc is not None:
+            return pc
+        from ceph_tpu_torch.utils import PerfCountersBuilder, perf_collection
+
+        pc = (
+            PerfCountersBuilder(
+                perf_collection, f"{self.perf.name}.pool.{pool}"
+            )
+            .add_u64_counter("pool_op_w", "completed write-class ops")
+            .add_u64_counter("pool_op_r", "completed read-class ops")
+            .add_u64_counter("pool_bytes_w", "payload bytes written")
+            .add_u64_counter("pool_bytes_r", "payload bytes read")
+            .create_perf_counters()
+        )
+        with self._lock:
+            pc = self._pool_perf.setdefault(pool, pc)
+        return pc
+
+    def _pool_account(self, aop: _AsyncOp, reply) -> None:
+        pc = self._pool_perf_for(aop.pool)
+        if aop.op in self._WRITE_OPS:
+            pc.inc("pool_op_w")
+            if aop.data:
+                pc.inc("pool_bytes_w", len(aop.data))
+        else:
+            pc.inc("pool_op_r")
+            if reply is not None and reply.data:
+                pc.inc("pool_bytes_r", len(reply.data))
+
+    def _resolve(self, aop: _AsyncOp, reply, error) -> None:
+        if self.perf is not None:
+            with self._lock:
+                self._inflight -= 1
+                self.perf.set("op_inflight", self._inflight)
+            self.perf.inc("op_error" if error is not None
+                          else "op_completed")
+            if error is None:
+                self._pool_account(aop, reply)
+        aop.tracked.finish(
+            "done" if error is None
+            else f"error:{type(error).__name__}"
+        )
+        aop.completion._resolve(reply, error, aop.on_complete)
+
+    def aio_submit(
+        self,
+        pool: str,
+        oid: str,
+        op: str,
+        offset: int = 0,
+        length: int = 0,
+        data: bytes = b"",
+        on_complete=None,
+        tenant: str = "",
+    ) -> Completion:
+        """Asynchronous submit (rados_aio_*): alias of ``submit_async``
+        kept for the librados-shaped surface; the returned Completion
+        fires when the op terminally succeeds or fails."""
+        return self.submit_async(
+            pool, oid, op, offset, length, data,
+            on_complete=on_complete, tenant=tenant,
+        )
+
+    def shutdown(self) -> None:
+        with self._timer_cv:
+            self._closed = True
+            pending = list(self._waiting.values()) + [
+                a for s in self._sessions.values() for a in s.queue
+            ]
+            self._waiting.clear()
+            for s in self._sessions.values():
+                s.queue.clear()
+                s.inflight.clear()
+            self._timer_cv.notify_all()
+        t = self._timer_thread
+        if t is not None:
+            t.join(timeout=2.0)
+        for aop in pending:
+            # nobody may block forever on an op the engine abandoned
+            self._resolve(
+                aop, None, ConnectionError("objecter shut down")
+            )
+        self.messenger.shutdown()
+
+
+class Completion:
+    """Async-op handle (rados_completion_t): poll ``is_complete``,
+    block in ``wait_for_complete``, or get a callback. The callback
+    runs BEFORE waiters wake (and its exceptions are isolated), so
+    side effects it makes are visible to anyone past
+    ``wait_for_complete``."""
+
+    def __init__(self) -> None:
+        self._event = threading.Event()
+        self.reply: OSDOpReply | None = None
+        self.error: Exception | None = None
+
+    def _resolve(self, reply, error, on_complete) -> None:
+        self.reply = reply
+        self.error = error
+        if on_complete is not None:
+            try:
+                on_complete(self)
+            except Exception:
+                pass  # a callback bug must not change the op's outcome
+        self._event.set()
+
+    def is_complete(self) -> bool:
+        return self._event.is_set()
+
+    def wait_for_complete(self, timeout: float | None = None):
+        """Block until done; returns the result (or raises the op's
+        error) like get() on a future."""
+        if not self._event.wait(timeout):
+            raise TimeoutError("aio op incomplete")
+        if self.error is not None:
+            raise self.error
+        return self.reply
+
+
+class IoCtx:
+    """Per-pool op facade (librados IoCtx).  ``tenant`` tags every op
+    submitted through this handle with a QoS identity: the OSD front
+    end schedules it under the dmClock class ``client.<tenant>``
+    (``client.<pool>`` when empty — cluster/qos.py)."""
+
+    def __init__(
+        self, objecter: Objecter, pool: str, tenant: str = ""
+    ) -> None:
+        self.objecter = objecter
+        self.pool = pool
+        self.tenant = tenant
+
+    # every op funnels through these three so the tenant tag never
+    # needs repeating at the ~25 librados-shaped call sites
+    def _submit(self, *args, **kw):
+        return self.objecter.submit(*args, tenant=self.tenant, **kw)
+
+    def _submit_async(self, *args, **kw):
+        return self.objecter.submit_async(
+            *args, tenant=self.tenant, **kw
+        )
+
+    def _aio_submit(self, *args, **kw):
+        return self.objecter.aio_submit(
+            *args, tenant=self.tenant, **kw
+        )
+
+    def write(self, oid: str, data: bytes, offset: int = 0) -> int:
+        """Write bytes at offset; returns the new object size."""
+        return self._submit(
+            self.pool, oid, "write", offset=offset, data=bytes(data)
+        ).size
+
+    def write_full(self, oid: str, data: bytes) -> int:
+        """Replace the object with exactly ``data``
+        (rados_write_full): one primary-side op — write + shrink under
+        the daemon's op lock, so no other client observes a
+        half-replaced object (the old remove+write sugar had a
+        no-object window)."""
+        return self._submit(
+            self.pool, oid, "writefull", data=bytes(data)
+        ).size
+
+    def append(self, oid: str, data: bytes) -> int:
+        """Append at the current size (rados_append): the offset
+        resolves on the primary under its op lock, so concurrent
+        appends serialize without overlap."""
+        return self._submit(
+            self.pool, oid, "append", data=bytes(data)
+        ).size
+
+    def truncate(self, oid: str, size: int) -> int:
+        """Resize (rados_trunc): shrink cuts, grow reads back as
+        zeros (hole semantics)."""
+        return self._submit(
+            self.pool, oid, "truncate", offset=size
+        ).size
+
+    def read(
+        self,
+        oid: str,
+        offset: int = 0,
+        length: int = 0,
+        snap: "int | str" = 0,
+    ) -> bytes:
+        """Read the head, or the object's state at a pool snapshot
+        (``snap`` by name or id — rados_ioctx_snap_set_read role)."""
+        return self._submit(
+            self.pool, oid, "read", offset=offset, length=length,
+            snap=self._snapid(snap),
+        ).data
+
+    def stat(self, oid: str) -> int:
+        return self._submit(self.pool, oid, "stat").size
+
+    def remove(self, oid: str) -> None:
+        self._submit(self.pool, oid, "remove")
+
+    # -- pool snapshots (rados_ioctx_snap_*, librados_c.cc:1749) -------
+    def _spec(self):
+        spec = self.objecter.monitor.osdmap.pools.get(self.pool)
+        if spec is None:
+            raise FileNotFoundError(f"no such pool {self.pool!r}")
+        return spec
+
+    def _snapid(self, snap: "int | str") -> int:
+        if isinstance(snap, int):
+            return snap
+        for sid, name, _e in self._spec().snaps:
+            if name == snap:
+                return sid
+        raise FileNotFoundError(f"{self.pool}: no such snap {snap!r}")
+
+    def snap_create(self, name: str) -> int:
+        self.objecter.monitor.osd_pool_snap_create(self.pool, name)
+        return self._snapid(name)
+
+    def snap_remove(self, name: str) -> None:
+        self.objecter.monitor.osd_pool_snap_rm(self.pool, name)
+
+    def snap_list(self) -> list[tuple[int, str]]:
+        return [(sid, n) for sid, n, _e in self._spec().snaps]
+
+    def snap_rollback(self, oid: str, snap: "int | str") -> None:
+        """Head becomes the object's state at the snapshot
+        (rados_ioctx_snap_rollback)."""
+        self._submit(
+            self.pool, oid, "rollback", snap=self._snapid(snap)
+        )
+
+    # -- watch / notify (rados_watch / rados_notify) -------------------
+    def watch(self, oid: str, callback) -> str:
+        """Register ``callback(oid, payload)`` for notifies on the
+        object; returns the watch cookie. Soft state on the primary —
+        re-watch after a primary change (the reference's watch
+        timeout/re-watch contract, collapsed to explicit re-watch)."""
+        cookie = (
+            f"{self.objecter.client_id}.w"
+            f"{next(self.objecter._watch_seq)}"
+        )
+        with self.objecter._lock:
+            self.objecter._watch_cbs[cookie] = callback
+        try:
+            self._submit(self.pool, oid, "watch", name=cookie)
+        except Exception:
+            with self.objecter._lock:  # failed watch leaves no residue
+                self.objecter._watch_cbs.pop(cookie, None)
+            raise
+        return cookie
+
+    def unwatch(self, oid: str, cookie: str) -> None:
+        self._submit(self.pool, oid, "unwatch", name=cookie)
+        with self.objecter._lock:
+            self.objecter._watch_cbs.pop(cookie, None)
+
+    def notify(
+        self, oid: str, payload: bytes = b"", timeout_ms: int = 1000
+    ) -> dict:
+        """Deliver ``payload`` to every watcher; returns
+        {"acked": [cookies], "missed": [cookies]} once all ack or the
+        timeout lapses. Delivery is AT-LEAST-ONCE: a lost reply makes
+        the objecter resend, and watchers may see the payload again
+        (the reference's notify has the same retry face; make
+        callbacks idempotent). The wait is bounded below the op
+        timeout so a slow-acking watcher set cannot force a resend by
+        itself."""
+        import json as _json
+
+        cap_ms = max(int((self.objecter.op_timeout - 5.0) * 1000), 100)
+        reply = self._submit(
+            self.pool, oid, "notify",
+            data=bytes(payload), length=min(timeout_ms, cap_ms),
+        )
+        return _json.loads(reply.data.decode())
+
+    # -- xattrs (rados_{get,set,rm}xattr + getxattrs) ------------------
+    def setxattr(self, oid: str, name: str, value: bytes) -> None:
+        self._submit(
+            self.pool, oid, "setxattr", data=bytes(value), name=name
+        )
+
+    def getxattr(self, oid: str, name: str) -> bytes:
+        return self._submit(
+            self.pool, oid, "getxattr", name=name
+        ).data
+
+    def rmxattr(self, oid: str, name: str) -> None:
+        self._submit(self.pool, oid, "rmxattr", name=name)
+
+    def getxattrs(self, oid: str) -> dict[str, bytes]:
+        import json as _json
+
+        reply = self._submit(self.pool, oid, "getxattrs")
+        return {
+            k: bytes.fromhex(v)
+            for k, v in _json.loads(reply.data.decode()).items()
+        }
+
+    # -- omap (rados omap_set / get_vals_by_keys / get_keys2) ----------
+    def omap_set(self, oid: str, kv: dict[str, bytes]) -> None:
+        import json as _json
+
+        self._submit(
+            self.pool, oid, "omapset",
+            data=_json.dumps(
+                {k: v.hex() for k, v in kv.items()}
+            ).encode(),
+        )
+
+    def omap_rm(self, oid: str, keys: list[str]) -> None:
+        import json as _json
+
+        self._submit(
+            self.pool, oid, "omapset",
+            data=_json.dumps({k: None for k in keys}).encode(),
+        )
+
+    def omap_get(
+        self, oid: str, keys: "list[str] | None" = None
+    ) -> dict[str, bytes]:
+        import json as _json
+
+        reply = self._submit(
+            self.pool, oid, "omapget",
+            data=_json.dumps(keys).encode() if keys is not None else b"",
+        )
+        return {
+            k: bytes.fromhex(v)
+            for k, v in _json.loads(reply.data.decode()).items()
+        }
+
+    def omap_list(
+        self, oid: str, after: str = "", max_return: int = 0
+    ) -> list[tuple[str, bytes]]:
+        """Sorted (key, value) page starting strictly after ``after``."""
+        import json as _json
+
+        reply = self._submit(
+            self.pool, oid, "omaplist", length=max_return, name=after
+        )
+        return [
+            (k, bytes.fromhex(v))
+            for k, v in _json.loads(reply.data.decode())
+        ]
+
+    def list_objects(self) -> list[str]:
+        """rados ls: PGLS every PG through its primary (the reference
+        client iterates placement groups the same way). The per-PG
+        scans go out as ONE pipelined async wave — the listing costs
+        max(PG round trips), not their sum."""
+        import json as _json
+
+        spec = self.objecter.monitor.osdmap.pools.get(self.pool)
+        if spec is None:
+            raise FileNotFoundError(f"no such pool: {self.pool!r}")
+        comps = [
+            self._submit_async(
+                self.pool, f"pg{pgid}", "pgls", offset=pgid
+            )
+            for pgid in range(spec.pg_num)
+        ]
+        oids: set[str] = set()
+        for c in comps:
+            reply = c.wait_for_complete(self.objecter.op_timeout + 30)
+            oids.update(_json.loads(reply.data.decode()))
+        return sorted(oids)
+
+    # -- async surface (rados_aio_write/read/remove) -------------------
+    def aio_write(
+        self, oid: str, data: bytes, offset: int = 0, on_complete=None
+    ) -> Completion:
+        return self._aio_submit(
+            self.pool, oid, "write", offset=offset, data=bytes(data),
+            on_complete=on_complete,
+        )
+
+    def aio_write_full(self, oid: str, data: bytes, on_complete=None
+                       ) -> Completion:
+        """Async full-object replace (rados_aio_write_full)."""
+        return self._aio_submit(
+            self.pool, oid, "writefull", data=bytes(data),
+            on_complete=on_complete,
+        )
+
+    def aio_read(
+        self, oid: str, offset: int = 0, length: int = 0, on_complete=None
+    ) -> Completion:
+        return self._aio_submit(
+            self.pool, oid, "read", offset=offset, length=length,
+            on_complete=on_complete,
+        )
+
+    def aio_remove(self, oid: str, on_complete=None) -> Completion:
+        return self._aio_submit(
+            self.pool, oid, "remove", on_complete=on_complete
+        )
+
+
+class RadosClient:
+    """Cluster handle (rados_t): monitor session + shared Objecter."""
+
+    def __init__(self, monitor, **objecter_kw) -> None:
+        self.monitor = monitor
+        self.objecter = Objecter(monitor, **objecter_kw)
+
+    def open_ioctx(self, pool: str, tenant: str = "") -> IoCtx:
+        if pool not in self.monitor.osdmap.pools:
+            raise FileNotFoundError(f"no such pool: {pool!r}")
+        return IoCtx(self.objecter, pool, tenant=tenant)
+
+    def shutdown(self) -> None:
+        self.objecter.shutdown()

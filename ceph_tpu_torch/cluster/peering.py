@@ -1,0 +1,796 @@
+r"""Per-PG peering state machine — the ``PeeringState.cc`` analog.
+
+Round 8 found (and round 12 pins) the cost of *implicit* peering: the
+election, the self-rewind, the returning-member catch-up and the
+interval fences lived as cooperating threads inside ``osd_daemon.py``,
+composed only by locks and flags (``_peering``/``_repeer``/the
+``peered`` Event). Under churn the composition raced — most visibly,
+a daemon whose OWN position healed after a down/up flap treated itself
+as a returning *member* and ran the replica catch-up against itself
+(``peers.list_pg(self)``, an RPC to nobody), failed, and reverted its
+own primary position to a hole: every committed object then answered
+ENOENT and writes tore stripes around the phantom hole (ROADMAP #1's
+"zeros-head torn write_full / committed-read ENOENT").
+
+This module makes the composition *explicit*: one small state machine
+per PG, where every map-epoch advance, kick, retry and catch-up
+completion is an **event** processed by at most one drainer thread at
+a time. Interleavings that used to need careful locking are now
+impossible to express — a catch-up admission cannot overlap an
+election, a gate cannot open with an interval event still queued, and
+a daemon's own healed position is re-admitted by the election that
+judged its store, never by a peer RPC to itself.
+
+State map (reference analogs, osd/PeeringState.{h,cc}):
+
+====================  ==================================================
+state                 PeeringState.cc analog
+====================  ==================================================
+``reset``             Reset — interval accepted, per-interval state torn
+                      down (``on_new_interval``)
+``getinfo``           Peering/GetInfo — query every up member for its
+                      pg_info (les, last_update); answering fences the
+                      member against older-interval sub-writes
+                      (``require_same_or_newer_map``)
+``getlog``            Peering/GetLog — ``find_best_info`` (:1565): elect
+                      the authoritative log over (les, last_update)
+``getmissing``        Peering/GetMissing — reconcile SELF against the
+                      elected authority: divergent objects roll back,
+                      divergent creates are removed
+                      (``PGLog::rewind_divergent_log``), objects the
+                      authority committed while this primary was away
+                      are rebuilt into its store (the pg_missing_t
+                      recovery set, collapsed to synchronous repair),
+                      and each repaired object adopts the authority's
+                      HashInfo + reqid-window attrs (rebuilds verify
+                      against the elected truth; stale windows would
+                      re-seed ancient suspect reqids that classify
+                      ambiguous forever)
+``activating``        Active/Activating — les := interval epoch, durable
+                      on self and every reachable member (the MOSDPGLog
+                      activation push)
+``active``            Active — gate open, serving; the primary drains
+                      every ``recovering`` mark it now owns by driving
+                      the member catch-ups itself (the peering ->
+                      recovery handoff; only the serving primary pushes,
+                      and its pushes serialize with its own live writes
+                      under the op lock)
+``replica``           Started/ReplicaActive — not the serving primary
+                      this interval; trivially peered (sub-ops are
+                      driven by the peered primary)
+``down``              Down — fewer live members than k: nothing can be
+                      served or judged until the map changes
+``incomplete``        Incomplete — the election could not complete
+                      (no votes, interval moved mid-pass, transition
+                      fault); the gate stays closed and the tick retries
+====================  ==================================================
+
+Transitions::
+
+                       map_advance / kick
+                             |
+                             v
+        +------------------ reset ------------------+
+        |                    |                      |
+        | (not primary)      | (primary, live>=k)   | (live<k)
+        v                    v                      v
+     replica              getinfo                 down
+        ^                    |        \
+        |                    v         \ (no votes / moved)
+        |                 getlog -------> incomplete <--- (fault)
+        |                    |                ^  (tick retry
+        |     (lost election)|                |   re-enters reset)
+        |                    v                |
+        |               getmissing -----------+
+        |                    |
+        |                    v
+        |               activating -----------+
+        |                    |
+        |                    v
+        +<--------------- active  <--- catchup_done admits members
+
+Election replies are gathered synchronously *inside* the GetInfo
+transition — the transition is atomic with respect to every other
+event, which is the serialization that matters; a map advance arriving
+mid-gather queues behind the pass and re-runs it from ``reset``.
+
+Crash points: every transition passes named yield points
+(``peering.<state>.<point>``; ``catchup.*`` fire on the legacy path
+too) through the process-global :data:`crash_points` registry, in the
+spirit of ``loadgen/faults.py``'s op-offset hooks — tests arm a point
+to pause (and later release), fail the transition, kill the daemon, or
+run a callback, turning 1-in-20 loadgen interleavings into pinned,
+repeatable regression tests.
+
+The pre-refactor thread-and-flags peering (the ``osd_peering_fsm=
+false`` bisection escape hatch) was folded out in round 16 after four
+rounds of green soaks — the FSM is the only peering driver, which is
+also what keeps the lockdep certification surface single
+(ROADMAP closeout 1b).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+
+from ceph_tpu_torch.utils.lockdep import DebugLock
+
+from .osdmap import SHARD_NONE
+
+# -- states --------------------------------------------------------------
+RESET = "reset"
+GETINFO = "getinfo"
+GETLOG = "getlog"
+GETMISSING = "getmissing"
+ACTIVATING = "activating"
+ACTIVE = "active"
+REPLICA = "replica"
+DOWN = "down"
+INCOMPLETE = "incomplete"
+
+STATES = (
+    RESET, GETINFO, GETLOG, GETMISSING, ACTIVATING, ACTIVE,
+    REPLICA, DOWN, INCOMPLETE,
+)
+
+#: state dwell-time histogram bounds, ms (log2)
+_DWELL_BUCKETS_MS = [0.25 * (1 << i) for i in range(16)]
+
+
+def make_peering_perf(name: str):
+    """The per-daemon ``peering`` counter set (``perf dump`` section
+    ``osd.<id>.peering``, Prometheus via the exporter): elections run,
+    self-rewinds, sub-writes rejected by the interval fence, per-state
+    dwell times and whole-pass peering latency."""
+    from ceph_tpu_torch.utils import PerfCountersBuilder, perf_collection
+
+    return (
+        PerfCountersBuilder(perf_collection, name)
+        .add_u64_counter(
+            "elections_run",
+            "authoritative-log elections run (GetInfo rounds)",
+        )
+        .add_u64_counter(
+            "rewinds",
+            "elections this daemon lost and reconciled itself "
+            "against the winner (GetMissing passes)",
+        )
+        .add_u64_counter(
+            "interval_fences_rejected",
+            "sub-writes rejected for carrying a superseded interval "
+            "epoch (same_interval_since discards)",
+        )
+        .add_histogram(
+            "state_dwell_ms", _DWELL_BUCKETS_MS,
+            "time spent in each peering state, ms (log2 buckets)",
+        )
+        .add_avg(
+            "peering_ms",
+            "interval-accepted to gate-open, ms, per completed pass",
+        )
+        .create_perf_counters()
+    )
+
+
+# -- crash-point fault injection -----------------------------------------
+# The registry moved to the neutral utils layer (round 13) so the RMW
+# pipeline fires points too without a pipeline -> cluster import; the
+# peering surface re-exports it unchanged (same singleton object).
+from ceph_tpu_torch.utils.crash_points import (  # noqa: F401  (re-export)
+    ArmedPoint,
+    CrashPointAbort,
+    CrashPointRegistry,
+    crash_points,
+)
+
+
+# -- the per-PG state machine --------------------------------------------
+class PgPeeringFsm:
+    """One PG's peering driver. Events (``map_advance``, ``kick``,
+    ``retry``, ``catchup_admit``) enqueue via :meth:`post`; a single
+    drainer thread at a time processes them in order, so transitions
+    never overlap. The ``peered`` gate on the PG stays the op-path
+    surface — this machine is the only writer of it."""
+
+    def __init__(self, daemon, pg) -> None:
+        from .osd_daemon import first_live
+
+        self.daemon = daemon
+        self.pg = pg
+        # born in role: a non-primary instance is trivially peered
+        # from construction (its gate is pre-set by the _PG ctor) and
+        # may never receive an event until the next interval
+        self.state = (
+            RESET if first_live(pg.acting) == daemon.osd_id
+            else REPLICA
+        )
+        self._mu = DebugLock("osd.peering_events")
+        self._events: deque = deque()
+        self._draining = False
+        self._entered_at = time.monotonic()
+        self._pass_started = None  # monotonic, reset -> active timing
+        #: transition trail (bounded) — test/debug observability
+        self.history: deque = deque(maxlen=64)
+        #: live tracked op of the pass in flight (dump_ops_in_flight
+        #: shows a wedged election with its state timeline)
+        self._pass_top = None
+
+    # -- event surface --------------------------------------------------
+    def post_interval(self) -> None:
+        """An interval change (map advance / kick). The gate flips
+        synchronously — callers rely on ops eagain-ing the moment the
+        interval moves, exactly like the legacy ``_kick_peering`` —
+        and the election pass runs from the drainer."""
+        d, pg = self.daemon, self.pg
+        from .osd_daemon import first_live
+
+        if first_live(pg.acting) == d.osd_id:
+            pg.peered.clear()
+        else:
+            pg.peered.set()
+        self.post("map_advance")
+
+    def post(self, kind: str, **kw) -> None:
+        with self._mu:
+            self._events.append((kind, kw))
+            if self._draining:
+                return
+            self._draining = True
+        threading.Thread(
+            target=self._drain, daemon=True,
+            name=f"peering-osd.{self.daemon.osd_id}-"
+                 f"{self.pg.pool}.{self.pg.pgid}",
+        ).start()
+
+    def admit_caught_up(self, shard: int, timeout: float = 30.0) -> bool:
+        """Catch-up completion as an event: the final clean-check and
+        admission run on the drainer, serialized with elections (a
+        member can never be admitted mid-judgment). Returns False when
+        the FSM is not serving (interval moved — the caller reverts
+        the position to a hole and the tick re-heals it under the new
+        interval)."""
+        done = threading.Event()
+        res: list[bool] = []
+        self.post("catchup_admit", shard=shard, done=done, res=res)
+        if not done.wait(timeout):
+            return False
+        return bool(res and res[0])
+
+    # -- drainer ---------------------------------------------------------
+    def _drain(self) -> None:
+        while True:
+            with self._mu:
+                if not self._events or self.daemon._stopped:
+                    self._events.clear()
+                    self._draining = False
+                    return
+                kind, kw = self._events.popleft()
+            try:
+                if kind == "catchup_admit":
+                    self._handle_admit(**kw)
+                else:
+                    self._run_tracked_pass()
+            except Exception as e:
+                self.daemon.log.error(
+                    "pg", f"{self.pg.pool}/{self.pg.pgid}:",
+                    "peering pass failed",
+                    f"({type(e).__name__}: {e}); gate stays closed",
+                )
+                from ceph_tpu_torch.utils.cluster_log import cluster_log
+
+                cluster_log.log(
+                    f"osd.{self.daemon.osd_id}", "peering_stalled",
+                    f"pg {self.pg.pool}/{self.pg.pgid} peering pass "
+                    f"failed ({type(e).__name__}: {e}); gate stays "
+                    "closed",
+                    severity="WRN", epoch=self.daemon.osdmap.epoch,
+                )
+                self._enter(INCOMPLETE)
+
+    def _run_tracked_pass(self) -> None:
+        """One peering pass as a live tracked op: every state entry is
+        a mark_event, so a pass wedged mid-election shows up in
+        dump_ops_in_flight with exactly where it is parked."""
+        from ceph_tpu_torch.utils.optracker import op_tracker
+
+        with op_tracker.track(
+            "peering", daemon=f"osd.{self.daemon.osd_id}",
+            pool=self.pg.pool, pgid=self.pg.pgid,
+        ) as top:
+            self._pass_top = top
+            try:
+                self._peer_pass()
+            finally:
+                self._pass_top = None
+
+    def _enter(self, state: str) -> None:
+        now = time.monotonic()
+        dwell_ms = (now - self._entered_at) * 1e3
+        try:
+            self.daemon.peering_pc.hinc("state_dwell_ms", dwell_ms)
+        except Exception:
+            pass  # counters must never fault a transition
+        if self._pass_top is not None:
+            self._pass_top.mark_event(state)
+        self.history.append((self.state, state))
+        self.state = state
+        self._entered_at = now
+
+    def _interval_moved(self, epoch0: int, acting0: list) -> bool:
+        return (
+            self.daemon.osdmap.epoch != epoch0
+            or list(self.pg.acting) != acting0
+        )
+
+    # -- the peering pass (reset -> ... -> active) -----------------------
+    def _peer_pass(self) -> None:
+        d, pg = self.daemon, self.pg
+        if d._stopped:
+            return
+        self._enter(RESET)
+        self._pass_started = time.monotonic()
+        crash_points.fire("peering.reset", daemon=d, pg=pg)
+        with d._pg_lock:
+            acting0 = list(pg.acting)
+            epoch0 = d.osdmap.epoch
+        spec = d.osdmap.pools.get(pg.pool)
+        from .osd_daemon import first_live
+
+        if spec is None:
+            self._enter(DOWN)  # pool deleted under the PG
+            return
+        if first_live(acting0) != d.osd_id:
+            # not the serving primary this interval: trivially peered
+            # (the primary's election judges this member; sub-ops are
+            # fenced by epoch, not by this gate)
+            self._enter(REPLICA)
+            self._admit_self_positions(acting0)
+            pg.peered.set()
+            return
+        # electing: the gate is closed for the whole pass. Interval
+        # events already closed it synchronously; tick retries and
+        # self-heal re-kicks close it here so a rewind can never race
+        # in-flight client ops.
+        pg.peered.clear()
+        live = sum(1 for o in acting0 if o != SHARD_NONE)
+        if live < pg.rmw.sinfo.k:
+            # Down: too few members to serve OR to judge — reads
+            # could not decode and an election over < k members
+            # cannot establish authority. Ops eagain until a map
+            # brings members back.
+            self._enter(DOWN)
+            from ceph_tpu_torch.utils.cluster_log import cluster_log
+
+            cluster_log.log(
+                f"osd.{d.osd_id}", "pg_down",
+                f"pg {pg.pool}/{pg.pgid} down: {live} live members "
+                f"< k={pg.rmw.sinfo.k}",
+                severity="WRN", epoch=epoch0,
+            )
+            return
+
+        # -- GetInfo: fence + query every votable member ----------------
+        self._enter(GETINFO)
+        crash_points.fire(
+            "peering.getinfo.pre_fence", daemon=d, pg=pg, epoch=epoch0
+        )
+        try:
+            my_pos = acting0.index(d.osd_id)
+        except ValueError:
+            self._enter(INCOMPLETE)
+            return
+        d.peering_pc.inc("elections_run")
+        infos: dict[int, tuple[int, tuple[int, int]]] = {}
+        for idx, osd in enumerate(acting0):
+            if osd == SHARD_NONE:
+                continue
+            if (
+                idx in pg.backend.recovering
+                and osd != d.osd_id
+            ):
+                # mid-catch-up member: its stamps are mid-JUDGMENT;
+                # it votes again once admitted (via catchup_admit,
+                # which this queue serializes after us)
+                continue
+            if osd == d.osd_id:
+                d._bump_fence(spec.pool_id, pg.pgid, epoch0)
+                infos[osd] = d._own_pg_info(
+                    spec.pool_id, spec.pg_num, pg.pgid
+                )
+                continue
+            try:
+                infos[osd] = d.peers.get_pg_info(
+                    osd, spec.pool_id, spec.pg_num, pg.pgid,
+                    epoch=epoch0,
+                )
+            except Exception:
+                continue  # down members don't vote
+        crash_points.fire(
+            "peering.getinfo.queried", daemon=d, pg=pg, infos=infos
+        )
+        if d.osd_id not in infos:
+            self._enter(INCOMPLETE)
+            return
+
+        # -- GetLog: elect the authoritative log ------------------------
+        self._enter(GETLOG)
+        best = max(
+            infos, key=lambda o: (infos[o], o == d.osd_id, -o)
+        )
+        crash_points.fire(
+            "peering.getlog.elected", daemon=d, pg=pg, best=best
+        )
+        if self._interval_moved(epoch0, acting0):
+            self._enter(INCOMPLETE)  # the queued advance re-runs
+            return
+
+        # -- GetMissing: reconcile self against the winner --------------
+        adopted: dict = {}
+        if best != d.osd_id and infos[best] > infos[d.osd_id]:
+            self._enter(GETMISSING)
+            d.log.info(
+                "pg", f"{pg.pool}/{pg.pgid}:", "peering: osd.", best,
+                "has the authoritative log", infos[best],
+                "over mine", infos[d.osd_id], "- reconciling self"
+            )
+            crash_points.fire(
+                "peering.getmissing.pre_rewind", daemon=d, pg=pg,
+                best=best,
+            )
+            adopted = self._recover_from_authority(
+                spec, my_pos, best
+            )
+            crash_points.fire(
+                "peering.getmissing.post_rewind", daemon=d, pg=pg
+            )
+
+        # -- Activating: les := epoch, durable everywhere ---------------
+        self._enter(ACTIVATING)
+        if self._interval_moved(epoch0, acting0):
+            self._enter(INCOMPLETE)
+            return
+        crash_points.fire(
+            "peering.activating.pre_les", daemon=d, pg=pg, epoch=epoch0
+        )
+        d._pgmeta_write_les(
+            spec.pool_id, pg.pgid, epoch0, acting=acting0
+        )
+        for osd in acting0:
+            if osd in (SHARD_NONE, d.osd_id):
+                continue
+            try:
+                d.peers.activate_pg(osd, spec.pool_id, pg.pgid, epoch0)
+            except Exception:
+                pass  # a partitioned member keeps its old les — that
+                #       is what future elections rank it down by
+        crash_points.fire(
+            "peering.activating.post_les", daemon=d, pg=pg
+        )
+
+        # -- Active: gate-open, atomic wrt queued interval events -------
+        with self._mu:
+            if any(k != "catchup_admit" for k, _ in self._events):
+                # a newer interval is already queued: opening the
+                # gate now would serve exactly the unpeered window
+                # this machine exists to prevent
+                self._enter(INCOMPLETE)
+                return
+            if self._interval_moved(epoch0, acting0):
+                self._enter(INCOMPLETE)
+                self._events.append(("retry", {}))
+                return
+            self._enter(ACTIVE)
+            # serve the NEW interval from the store, not the last
+            # primacy's in-memory projections...
+            pg.rmw.on_interval_change()
+            # ...then re-adopt the elected authority's knowledge: the
+            # wipe above must not un-know objects committed while this
+            # primary was away (their absence from MY store would
+            # otherwise answer committed reads with ENOENT)
+            for loc, (size, aev) in adopted.items():
+                if aev != (0, 0):
+                    pg.rmw.prime_object(
+                        loc, max(size, 0), eversion=aev
+                    )
+            self._admit_self_positions(acting0)
+            pg.peered.set()
+            if self._pass_started is not None:
+                d.peering_pc.ainc(
+                    "peering_ms",
+                    (time.monotonic() - self._pass_started) * 1e3,
+                )
+        d.log.info(
+            "pg", f"{pg.pool}/{pg.pgid}:", "peered at epoch", epoch0,
+            "(authority: osd.", best, ")"
+        )
+        from ceph_tpu_torch.utils.cluster_log import cluster_log
+
+        cluster_log.log(
+            f"osd.{d.osd_id}", "pg_peered",
+            f"pg {pg.pool}/{pg.pgid} peered at epoch {epoch0} "
+            f"(authority: osd.{best})",
+            epoch=epoch0,
+        )
+        # Drain every recovering mark the primary now owns: _on_map
+        # marks healed (down -> up) members on EVERY instance, but
+        # only the serving primary may drive the catch-up — a mark
+        # left by a map transition this instance saw while NOT the
+        # primary would otherwise persist forever, keeping the member
+        # un-votable and un-pollable (the eagain-forever wedge the
+        # chaos tier caught). Content-staleness judgment itself stays
+        # with the catch-up's stamp-divergence pass — the gathered
+        # (les, lu) infos are NOT a staleness oracle (a divergent
+        # self-inflated lu would rank every healthy member 'behind'
+        # and storm rollbacks toward a bogus authority).
+        drain: list[int] = []
+        with d._pg_lock:
+            for idx, osd in enumerate(acting0):
+                if osd in (SHARD_NONE, d.osd_id):
+                    continue
+                if (
+                    pg.acting[idx] == osd
+                    and idx in pg.backend.recovering
+                ):
+                    drain.append(idx)
+        for idx in drain:
+            d._spawn_catch_up(pg, idx)
+        crash_points.fire("peering.active", daemon=d, pg=pg)
+
+    def _admit_self_positions(self, acting: list) -> None:
+        """Re-admit this daemon's OWN healed positions. The legacy
+        path ran the replica catch-up against itself here — an RPC to
+        nobody that failed and holed the position (THE round-8 flake).
+        The election pass that just completed already judged and
+        repaired this store (GetMissing), so admission is a
+        bookkeeping flip, not a transfer."""
+        d, pg = self.daemon, self.pg
+        for pos, osd in enumerate(acting):
+            if osd != d.osd_id:
+                continue
+            if pos in pg.backend.recovering:
+                pg.backend.recovering.discard(pos)
+                pg.rmw.on_shard_recovered(pos)
+            if self.state == ACTIVE:
+                pg.born_holes.discard(pos)
+
+    def _recover_from_authority(
+        self, spec, my_pos: int, best: int
+    ) -> dict:
+        """GetMissing: reconcile my shard against the elected
+        authority (``PGLog::rewind_divergent_log`` applied to the
+        ex-primary itself, plus the pg_missing_t recovery the legacy
+        rewind skipped). Three legs:
+
+        - divergent object (my stamp not in authoritative history):
+          rebuild my shard from survivors — failure fails the pass
+          (serving divergent bytes is the one forbidden outcome);
+        - divergent create (only I ever heard of it): remove;
+        - missing object (authority committed it while I was away):
+          rebuild my shard best-effort — on failure the adopted prime
+          still serves it degraded (reads decode from survivors).
+
+        Returns the adopted authority map ``loc -> (size, eversion)``
+        for re-priming after the gate-open cache wipe."""
+        from ceph_tpu_torch.pipeline.rmw import OI_KEY, parse_oi
+        from ceph_tpu_torch.store import Transaction
+
+        from .osd_daemon import shard_key
+
+        d, pg = self.daemon, self.pg
+        d.peering_pc.inc("rewinds")
+        listing = d.peers.list_pg(
+            best, spec.pool_id, spec.pg_num, pg.pgid
+        )
+        auth: dict[str, tuple[int, tuple[int, int]]] = {}
+        for loc, _si, size, *ev in listing:
+            aev = tuple(ev) if len(ev) == 2 else (0, 0)
+            if loc not in auth or aev > auth[loc][1]:
+                auth[loc] = (size, aev)
+        # my own pristine stamps, BEFORE any recovery can overwrite
+        mine: dict[str, tuple[int, int]] = {}
+        for loc, si in d._scan_pg_keys(
+            spec.pool_id, spec.pg_num, pg.pgid
+        ):
+            if si != my_pos:
+                continue
+            try:
+                _size, ev = parse_oi(
+                    d.store.getattr(shard_key(loc, si), OI_KEY)
+                )
+            except (FileNotFoundError, KeyError, ValueError):
+                continue
+            mine[loc] = tuple(ev)
+        # adopt the authority's knowledge: later judgments must answer
+        # from the elected history, not from my divergent attrs
+        for loc, (size, aev) in auth.items():
+            if aev != (0, 0):
+                pg.rmw.prime_object(loc, max(size, 0), eversion=aev)
+        divergent = sorted(
+            loc for loc, mev in mine.items()
+            if mev != (0, 0) and loc in auth and auth[loc][1] != mev
+        )
+        creates = sorted(
+            loc for loc, mev in mine.items()
+            if mev != (0, 0) and loc not in auth
+        )
+        missing = sorted(
+            loc for loc, (size, aev) in auth.items()
+            if loc not in mine and aev != (0, 0)
+            and not d.store.exists(shard_key(loc, my_pos))
+        )
+        # the AUTHORITY's HashInfo for every object about to be
+        # rebuilt: the recovery verify must check the rebuild against
+        # the elected truth — my own cached/stored hinfo may be the
+        # divergent interval's, and verifying against it false-fails
+        # the rollback and wedges the pass (observed on the legacy
+        # path as a HashInfo-verify peering failure)
+        with d._pg_lock:
+            best_pos = (
+                pg.acting.index(best) if best in pg.acting else None
+            )
+        auth_hinfos, auth_reqs = (
+            self._fetch_auth_attrs(
+                best, best_pos, divergent + missing
+            )
+            if best_pos is not None else ({}, {})
+        )
+
+        def _reprime(loc: str) -> None:
+            size, aev = auth[loc]
+            pg.rmw.forget_object(loc)  # drop my stale hinfo/stamps
+            pg.rmw.prime_object(
+                loc, max(size, 0), hinfo=auth_hinfos.get(loc),
+                eversion=aev,
+            )
+
+        for loc in creates:
+            d.log.info(
+                "pg", f"{pg.pool}/{pg.pgid}:",
+                "peering: divergent create", loc, "- removing"
+            )
+            key = shard_key(loc, my_pos)
+            d.store.queue_transactions(
+                Transaction().touch(key).remove(key)
+            )
+            pg.rmw.forget_object(loc)
+            d.rmw_crash_pc.inc("divergent_removes")
+        def _adopt_req_window(loc: str) -> None:
+            # my shard's reqid-dedup attr must advance to the
+            # AUTHORITY's window alongside the rebuilt bytes: my own
+            # (stale) window would otherwise re-seed ancient suspect
+            # reqids that classify ambiguous forever and wedge the
+            # object in eagain (chaos-tier find)
+            raw = auth_reqs.get(loc)
+            if raw is None:
+                return
+            from .osd_daemon import REQ_KEY
+
+            key = shard_key(loc, my_pos)
+            if d.store.exists(key):
+                d.store.queue_transactions(
+                    Transaction().setattr(key, REQ_KEY, raw)
+                )
+
+        for loc in divergent:
+            d.log.info(
+                "pg", f"{pg.pool}/{pg.pgid}:",
+                "peering: divergent object", loc,
+                "- rolling back from survivors"
+            )
+            # NO QoS admission: peering is control plane and must
+            # never wait on the data plane (the worker may be parked
+            # in the peering gate)
+            _reprime(loc)
+            pg.recovery.recover_object(loc, {my_pos})
+            _adopt_req_window(loc)
+            d.rmw_crash_pc.inc("rollbacks")
+        for loc in missing:
+            try:
+                _reprime(loc)
+                size = auth[loc][0]
+                pg.recovery.recover_object(
+                    loc, {my_pos}, size=size if size > 0 else None
+                )
+                _adopt_req_window(loc)
+                d.rmw_crash_pc.inc("rollforwards")
+            except Exception as e:
+                # best-effort: the adopted prime serves it degraded;
+                # scrub / the next pass repairs the shard copy
+                d.log.info(
+                    "pg", f"{pg.pool}/{pg.pgid}:",
+                    "peering: missing object", loc,
+                    "not rebuilt yet", f"({type(e).__name__}: {e})"
+                )
+        return auth
+
+    def _fetch_auth_attrs(
+        self, best: int, best_pos: int, locs: list
+    ) -> tuple[dict, dict]:
+        """One concurrent fan-out for the elected authority's HINFO +
+        reqid-window attrs (all shards carry the same cumulative-crc
+        attr, so the winner's copy at its own position is the elected
+        truth; the window attr is the freshest committed dedup
+        state). Fetch failures simply omit the loc — the rebuild then
+        skips the hash verify rather than wedging on an unverifiable
+        one, and the window keeps its (settleable-or-not) old value."""
+        from ceph_tpu_torch.pipeline.hashinfo import HashInfo
+        from ceph_tpu_torch.pipeline.rmw import HINFO_KEY
+
+        from .osd_daemon import REQ_KEY, shard_key
+
+        d = self.daemon
+        hinfos: dict = {}
+        reqs: dict = {}
+        pending: set = set()
+
+        def on_reply(loc: str, r) -> None:
+            pending.discard(loc)
+            if isinstance(r, Exception) or getattr(r, "error", None):
+                return
+            raw = r.attrs.get(HINFO_KEY)
+            if raw:
+                try:
+                    hinfos[loc] = HashInfo.from_bytes(
+                        raw, self.daemon.device
+                    )
+                except (TypeError, ValueError):
+                    pass
+            rq = r.attrs.get(REQ_KEY)
+            if rq:
+                reqs[loc] = bytes(rq)
+        for loc in locs:
+            key = shard_key(loc, best_pos)
+            if d.peers.get_attrs_async(
+                best, key, [HINFO_KEY, REQ_KEY],
+                lambda r, l=loc: on_reply(l, r),
+            ):
+                pending.add(loc)
+        if pending:
+            try:
+                d.peers.drain_until(
+                    lambda: not pending, timeout=d.op_timeout
+                )
+            except TimeoutError:
+                pass  # non-repliers omit: verify skipped, not wedged
+        return hinfos, reqs
+
+    # -- catch-up admission ---------------------------------------------
+    def _handle_admit(self, shard: int, done, res: list) -> None:
+        """Admit a caught-up member — on the drainer, so it cannot
+        interleave an election (the round-5 'mid-judgment member
+        voted' class is unexpressible). The final clean-check runs
+        under the op lock: client writes cannot append dirty entries
+        between the check and the admit. Admission does NOT require
+        the gate to be open — a member clean against the current
+        pglog is admissible in any state (rejecting mid-pass forced
+        full catch-up restarts under churn, stretching the degraded
+        window until reads starved below k); the position must still
+        be a live member, though."""
+        d, pg = self.daemon, self.pg
+        ok = False
+        try:
+            crash_points.fire(
+                "peering.admit", daemon=d, pg=pg, shard=shard
+            )
+            if pg.acting[shard] != SHARD_NONE:
+                def _dirty() -> bool:
+                    return bool(
+                        pg.pglog.dirty_extents(shard)
+                        or pg.pglog.dirty_deletes(shard)
+                        or pg.pglog.dirty_xattrs(shard)
+                    )
+
+                # the shard lock this PG's client ops serialize
+                # under (== d._op_lock at osd_op_num_shards=1)
+                with d._op_lock_for(pg.pool, pg.pgid):
+                    if _dirty():
+                        pg.recovery.recover_from_log(pg.pglog, shard)
+                    if not _dirty():
+                        pg.backend.recovering.discard(shard)
+                        pg.rmw.on_shard_recovered(shard)
+                        ok = True
+        finally:
+            res.append(ok)
+            done.set()

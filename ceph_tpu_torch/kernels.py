@@ -106,13 +106,16 @@ def _library(stem: str) -> ctypes.CDLL:
 
 class Kernel:
     """One C entry point of one source. ``launches`` counts the
-    launches that returned no error."""
+    launches that returned no error, from any thread (the OSD daemons
+    launch from op workers, coalesce groups, recovery threads and the
+    dispatcher's thread at once)."""
 
     def __init__(self, source: str, symbol: str, argtypes: list) -> None:
         self.source = source
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
+        self._count_lock = threading.Lock()
         self._fn = None
 
     def _load(self):
@@ -133,7 +136,8 @@ class Kernel:
         if code:
             msg = self._err(code).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {code} ({msg})")
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1
 
 
 _P = ctypes.c_void_p

@@ -1,0 +1,954 @@
+"""Typed, versioned sub-op messages — the MOSDECSubOp* analog.
+
+Mirrors the message vocabulary of the EC fan-out
+(src/messages/MOSDECSubOpWrite.h / MOSDECSubOpRead.h and their
+replies; payload structs osd/ECMsgTypes.{h,cc}): a write carries the
+target shard's transaction (+ the op tid for the in-order commit
+protocol); a read carries per-object extent lists and optional
+sub-chunk selectors; replies carry ack / buffers / per-object errors.
+
+Each message encodes as wire-frame segments: segment 0 is a compact
+header (json — these are tiny), further segments carry bulk bytes
+(transaction payloads, read buffers) so big data is never re-encoded.
+The version byte in the header follows the reference's
+versioned-message pattern (msg/Message.h HEAD_VERSION/COMPAT_VERSION).
+"""
+
+from __future__ import annotations
+
+import json
+from dataclasses import dataclass, field
+
+from ceph_tpu_torch.store import Transaction
+
+# Frame type ids.
+MSG_EC_SUB_WRITE = 108        # MOSDECSubOpWrite
+MSG_EC_SUB_WRITE_REPLY = 109  # MOSDECSubOpWriteReply
+MSG_EC_SUB_READ = 110         # MOSDECSubOpRead
+MSG_EC_SUB_READ_REPLY = 111   # MOSDECSubOpReadReply
+MSG_PING = 112                # MOSDPing analog (heartbeats)
+MSG_PONG = 113
+MSG_OSD_OP = 114              # MOSDOp (client op to the primary)
+MSG_OSD_OP_REPLY = 115        # MOSDOpReply
+MSG_PG_LIST = 116             # backfill object discovery
+MSG_PG_LIST_REPLY = 117
+MSG_GET_ATTRS = 118           # per-shard attr fetch (scrub consensus)
+MSG_GET_ATTRS_REPLY = 119
+MSG_WATCH_NOTIFY = 120        # MWatchNotify (daemon -> watcher push)
+MSG_NOTIFY_ACK = 121          # watcher ack back to the primary
+MSG_DCN_HELLO = 122           # DCN worker-host handshake
+MSG_DCN_CMD = 123             # DCN control-plane op broadcast
+MSG_DCN_REPLY = 124           # DCN per-host op result
+MSG_PG_INFO = 125             # peering info exchange (MOSDPGInfo)
+MSG_PG_INFO_REPLY = 126
+MSG_PG_ACTIVATE = 127         # interval activation (les push)
+MSG_PG_ACTIVATE_ACK = 128
+MSG_BACKFILL_RESERVE = 129    # MBackfillReserve (request/release)
+MSG_BACKFILL_RESERVE_REPLY = 130
+MSG_EC_SUB_WRITE_BATCH = 131        # one frame, many sub-writes
+MSG_EC_SUB_WRITE_BATCH_REPLY = 132
+
+VERSION = 1
+
+
+def _header(kind: str, fields: dict) -> bytes:
+    return json.dumps({"v": VERSION, "kind": kind, **fields}).encode()
+
+
+def _parse(seg: bytes, kind: str) -> dict:
+    obj = json.loads(seg.decode())
+    if obj.get("v", 0) > VERSION:
+        raise ValueError(f"{kind} from the future: v{obj['v']}")
+    if obj.get("kind") != kind:
+        raise ValueError(f"expected {kind}, got {obj.get('kind')!r}")
+    return obj
+
+
+@dataclass
+class ECSubWrite:
+    """Per-shard write sub-op (ECSubWrite, osd/ECMsgTypes.h).
+
+    ``epoch``/``from_osd`` carry the sender's map interval for the
+    replica-side fence (the MOSDECSubOpWrite map_epoch role): a
+    superseded primary whose map lags must not commit through
+    replicas that already serve a newer interval — the replica
+    rejects, the stale op never acks, and the client's resend lands
+    on the real primary (OSD::require_same_or_newer_map)."""
+
+    tid: int
+    shard: int
+    txn: Transaction
+    trace_id: str | None = None
+    parent_span: str | None = None
+    epoch: int = 0
+    from_osd: int = -1
+
+    def encode(self) -> list[bytes]:
+        h = {"tid": self.tid, "shard": self.shard}
+        if self.trace_id is not None:  # keep untraced wire bytes lean
+            h["trace"] = [self.trace_id, self.parent_span]
+        if self.epoch:
+            h["e"] = [self.epoch, self.from_osd]
+        return [_header("sub_write", h), self.txn.to_bytes()]
+
+    @classmethod
+    def decode(cls, segments: list[bytes]) -> "ECSubWrite":
+        h = _parse(segments[0], "sub_write")
+        trace = h.get("trace") or [None, None]
+        e = h.get("e") or [0, -1]
+        return cls(
+            h["tid"], h["shard"], Transaction.from_bytes(segments[1]),
+            trace[0], trace[1], e[0], e[1],
+        )
+
+
+@dataclass
+class ECSubWriteReply:
+    tid: int
+    shard: int
+    committed: bool = True
+
+    def encode(self) -> list[bytes]:
+        return [
+            _header(
+                "sub_write_reply",
+                {"tid": self.tid, "shard": self.shard,
+                 "committed": self.committed},
+            )
+        ]
+
+    @classmethod
+    def decode(cls, segments: list[bytes]) -> "ECSubWriteReply":
+        h = _parse(segments[0], "sub_write_reply")
+        return cls(h["tid"], h["shard"], h["committed"])
+
+
+@dataclass
+class ECSubWriteBatch:
+    """A tick's worth of sub-writes for ONE peer OSD in one framed
+    message (the round-10 fan-out batching): the primary's coalesced
+    op batch stages every sub-write destined for a peer and flushes
+    them together, so N concurrent client ops cost one frame per peer
+    instead of N. Each item keeps its own tid, logical shard, and
+    interval stamp — the receiver fences and applies items
+    INDEPENDENTLY (one stale item must not poison its batch-mates)
+    and answers with per-item outcomes in one reply frame.
+
+    ``tid`` is the batch's own wire id (reply routing only); item
+    tids are the sub-write tids the sender's pending table knows."""
+
+    tid: int
+    shard: int  # echo key for reply routing (the peer's osd id)
+    #: (tid, shard, epoch, from_osd, txn) per sub-write
+    items: list = field(default_factory=list)
+
+    def encode(self) -> list[bytes]:
+        blobs = [txn.to_bytes() for *_m, txn in self.items]
+        return [
+            _header(
+                "sub_write_batch",
+                {
+                    "tid": self.tid,
+                    "shard": self.shard,
+                    "items": [
+                        list(meta) for *meta, _txn in self.items
+                    ],
+                    "lens": [len(b) for b in blobs],
+                },
+            ),
+            b"".join(blobs),
+        ]
+
+    @classmethod
+    def decode(cls, segments: list[bytes]) -> "ECSubWriteBatch":
+        h = _parse(segments[0], "sub_write_batch")
+        blob, pos, items = segments[1], 0, []
+        for meta, ln in zip(h["items"], h["lens"]):
+            txn = Transaction.from_bytes(blob[pos : pos + ln])
+            pos += ln
+            items.append(tuple(meta) + (txn,))
+        return cls(h["tid"], h["shard"], items)
+
+
+@dataclass
+class ECSubWriteBatchReply:
+    """Per-item outcomes for one ECSubWriteBatch: (tid, committed)
+    pairs. Items the receiver never acked (injected drop, abort) are
+    simply absent — the sender's pending entries expire exactly like
+    a lost single-sub-write ack."""
+
+    tid: int
+    shard: int
+    results: list = field(default_factory=list)  # (tid, committed)
+
+    def encode(self) -> list[bytes]:
+        return [
+            _header(
+                "sub_write_batch_reply",
+                {
+                    "tid": self.tid,
+                    "shard": self.shard,
+                    "results": [list(r) for r in self.results],
+                },
+            )
+        ]
+
+    @classmethod
+    def decode(cls, segments: list[bytes]) -> "ECSubWriteBatchReply":
+        h = _parse(segments[0], "sub_write_batch_reply")
+        return cls(
+            h["tid"], h["shard"], [tuple(r) for r in h["results"]]
+        )
+
+
+@dataclass
+class ECSubRead:
+    """Per-shard read sub-op: oid -> extent list (+ sub-chunk
+    selectors, the CLAY plumbing of ECCommon.h:85)."""
+
+    tid: int
+    shard: int
+    oid: str
+    extents: list[tuple[int, int]]  # (start, end) pairs
+    subchunks: list[tuple[int, int]] | None = None
+    #: logical EC shard index the caller believes this store holds;
+    #: the server cross-checks it against the stored SI attr so a
+    #: CRUSH remap can't serve misplaced bytes (None = don't check).
+    logical: int | None = None
+    trace_id: str | None = None
+    parent_span: str | None = None
+
+    def encode(self) -> list[bytes]:
+        h = {
+            "tid": self.tid,
+            "shard": self.shard,
+            "oid": self.oid,
+            "extents": self.extents,
+            "subchunks": self.subchunks,
+            "logical": self.logical,
+        }
+        if self.trace_id is not None:
+            h["trace"] = [self.trace_id, self.parent_span]
+        return [_header("sub_read", h)]
+
+    @classmethod
+    def decode(cls, segments: list[bytes]) -> "ECSubRead":
+        h = _parse(segments[0], "sub_read")
+        sub = h["subchunks"]
+        trace = h.get("trace") or [None, None]
+        return cls(
+            h["tid"],
+            h["shard"],
+            h["oid"],
+            [tuple(e) for e in h["extents"]],
+            [tuple(s) for s in sub] if sub is not None else None,
+            h.get("logical"),
+            trace[0],
+            trace[1],
+        )
+
+
+@dataclass
+class ECSubReadReply:
+    """Buffers (offset-keyed) or an error for one sub-read."""
+
+    tid: int
+    shard: int
+    offsets: list[int] = field(default_factory=list)
+    buffers: list[bytes] = field(default_factory=list)
+    error: str = ""  # "" | "eio" | "missing"
+
+    def encode(self) -> list[bytes]:
+        segs = [
+            _header(
+                "sub_read_reply",
+                {
+                    "tid": self.tid,
+                    "shard": self.shard,
+                    "offsets": self.offsets,
+                    "error": self.error,
+                },
+            )
+        ]
+        # One bulk segment: per-segment crc covers all buffers; the
+        # header's offsets + lengths let the receiver re-split.
+        segs.append(
+            json.dumps([len(b) for b in self.buffers]).encode()
+        )
+        segs.append(b"".join(self.buffers))
+        return segs
+
+    @classmethod
+    def decode(cls, segments: list[bytes]) -> "ECSubReadReply":
+        h = _parse(segments[0], "sub_read_reply")
+        lengths = json.loads(segments[1].decode())
+        blob = segments[2]
+        buffers, pos = [], 0
+        for ln in lengths:
+            buffers.append(blob[pos : pos + ln])
+            pos += ln
+        return cls(h["tid"], h["shard"], h["offsets"], buffers, h["error"])
+
+
+@dataclass
+class Ping:
+    """Heartbeat probe (the OSD::handle_osd_ping analog)."""
+
+    tid: int
+    shard: int
+
+    def encode(self) -> list[bytes]:
+        return [_header("ping", {"tid": self.tid, "shard": self.shard})]
+
+    @classmethod
+    def decode(cls, segments: list[bytes]) -> "Ping":
+        h = _parse(segments[0], "ping")
+        return cls(h["tid"], h["shard"])
+
+
+@dataclass
+class Pong:
+    tid: int
+    shard: int
+
+    def encode(self) -> list[bytes]:
+        return [_header("pong", {"tid": self.tid, "shard": self.shard})]
+
+    @classmethod
+    def decode(cls, segments: list[bytes]) -> "Pong":
+        h = _parse(segments[0], "pong")
+        return cls(h["tid"], h["shard"])
+
+
+@dataclass
+class OSDOp:
+    """Client op to the object's primary OSD (MOSDOp,
+    src/messages/MOSDOp.h). ``epoch`` is the client's map epoch — a
+    primary that disagrees about who owns the object answers
+    ``eagain`` + its epoch and the client re-targets (the
+    resend-on-map-change contract, osdc/Objecter.cc:2127)."""
+
+    tid: int
+    epoch: int
+    pool: str
+    oid: str
+    op: str  # write | read | stat | remove | pgls | *xattr*
+    offset: int = 0
+    length: int = 0
+    data: bytes = b""
+    name: str = ""  # xattr name for the *xattr ops
+    #: stable across resends (osd_reqid_t analog): the primary dedups
+    #: re-applied mutations by replaying the completed op's result
+    reqid: str = ""
+    #: snapshot id a read targets (0 = head); the primary resolves
+    #: the clone (rados_ioctx_snap_set_read role)
+    snap: int = 0
+    #: distributed-trace context (ZTracer/blkin role: the reference
+    #: threads trace handles through op messages); optional and
+    #: version-tolerant
+    trace_id: str | None = None
+    parent_span: str | None = None
+    #: QoS identity (the MOSDOp entity/client role): the OSD front end
+    #: schedules the op under the dmClock class ``client.<tenant>``,
+    #: falling back to ``client.<pool>`` when empty (cluster/qos.py)
+    tenant: str = ""
+
+    def encode(self) -> list[bytes]:
+        return [
+            _header(
+                "osd_op",
+                {
+                    "tid": self.tid,
+                    "epoch": self.epoch,
+                    "pool": self.pool,
+                    "oid": self.oid,
+                    "op": self.op,
+                    "offset": self.offset,
+                    "length": self.length,
+                    "name": self.name,
+                    "reqid": self.reqid,
+                    "snap": self.snap,
+                    **(
+                        {"trace": [self.trace_id, self.parent_span]}
+                        if self.trace_id is not None else {}
+                    ),
+                    **({"tenant": self.tenant} if self.tenant else {}),
+                },
+            ),
+            self.data,
+        ]
+
+    @classmethod
+    def decode(cls, segments: list[bytes]) -> "OSDOp":
+        h = _parse(segments[0], "osd_op")
+        trace = h.get("trace") or [None, None]
+        return cls(
+            h["tid"], h["epoch"], h["pool"], h["oid"], h["op"],
+            h["offset"], h["length"], segments[1], h.get("name", ""),
+            h.get("reqid", ""), h.get("snap", 0),
+            trace[0], trace[1], h.get("tenant", ""),
+        )
+
+
+@dataclass
+class OSDOpReply:
+    """MOSDOpReply: result + data, or a retryable/terminal error.
+    ``error`` ∈ {"", "eagain", "enoent", "eio"}; eagain carries the
+    primary's (newer) epoch so the client refreshes before resending."""
+
+    tid: int
+    epoch: int
+    error: str = ""
+    size: int = 0
+    data: bytes = b""
+
+    def encode(self) -> list[bytes]:
+        return [
+            _header(
+                "osd_op_reply",
+                {
+                    "tid": self.tid,
+                    "epoch": self.epoch,
+                    "error": self.error,
+                    "size": self.size,
+                },
+            ),
+            self.data,
+        ]
+
+    @classmethod
+    def decode(cls, segments: list[bytes]) -> "OSDOpReply":
+        h = _parse(segments[0], "osd_op_reply")
+        return cls(h["tid"], h["epoch"], h["error"], h["size"], segments[1])
+
+
+@dataclass
+class PGList:
+    """Ask a peer which objects of one PG it holds (the backfill
+    scan — the reference's backfill interval scan over the PG
+    collection). Placement params travel in the message so the peer
+    answers correctly even with a lagging map."""
+
+    tid: int
+    shard: int  # echo key for reply routing (the peer's osd id)
+    pool_id: int
+    pg_num: int
+    pgid: int
+
+    def encode(self) -> list[bytes]:
+        return [
+            _header(
+                "pg_list",
+                {
+                    "tid": self.tid,
+                    "shard": self.shard,
+                    "pool_id": self.pool_id,
+                    "pg_num": self.pg_num,
+                    "pgid": self.pgid,
+                },
+            )
+        ]
+
+    @classmethod
+    def decode(cls, segments: list[bytes]) -> "PGList":
+        h = _parse(segments[0], "pg_list")
+        return cls(h["tid"], h["shard"], h["pool_id"], h["pg_num"], h["pgid"])
+
+
+@dataclass
+class PGListReply:
+    """Oids this peer holds for the PG, with the logical shard index
+    each one's bytes belong to (the SI attr) and the stored ro size."""
+
+    tid: int
+    shard: int
+    oids: list[tuple[str, int, int]] = field(default_factory=list)
+    # (oid, held_shard_index or -1 if unknown, ro_size or -1)
+
+    def encode(self) -> list[bytes]:
+        return [
+            _header(
+                "pg_list_reply",
+                {"tid": self.tid, "shard": self.shard, "oids": self.oids},
+            )
+        ]
+
+    @classmethod
+    def decode(cls, segments: list[bytes]) -> "PGListReply":
+        h = _parse(segments[0], "pg_list_reply")
+        return cls(
+            h["tid"], h["shard"], [tuple(o) for o in h["oids"]]
+        )
+
+
+@dataclass
+class PGInfo:
+    """Ask a peer for its pg_info_t analog for one PG: the interval
+    ledger (last_epoch_started) plus its log head (last_update = max
+    committed eversion over its shard copies). The peering info
+    exchange (MOSDPGInfo / PeeringState::proc_replica_info) that
+    feeds authoritative-log election (find_best_info,
+    osd/PeeringState.cc:1565). Answered from the peer's STORE, not
+    its in-memory PG (the peer may not have instantiated one)."""
+
+    tid: int
+    shard: int  # echo key for reply routing (the peer's osd id)
+    pool_id: int
+    pg_num: int
+    pgid: int
+    #: the querying election's map epoch: answering FENCES the member
+    #: against sub-writes from older intervals of this PG (the
+    #: MOSDPGQuery epoch role) -- see OSDDaemon._sub_write_interval_ok
+    epoch: int = 0
+
+    def encode(self) -> list[bytes]:
+        return [
+            _header(
+                "pg_info",
+                {
+                    "tid": self.tid,
+                    "shard": self.shard,
+                    "pool_id": self.pool_id,
+                    "pg_num": self.pg_num,
+                    "pgid": self.pgid,
+                    "epoch": self.epoch,
+                },
+            )
+        ]
+
+    @classmethod
+    def decode(cls, segments: list[bytes]) -> "PGInfo":
+        h = _parse(segments[0], "pg_info")
+        return cls(
+            h["tid"], h["shard"], h["pool_id"], h["pg_num"], h["pgid"],
+            h.get("epoch", 0),
+        )
+
+
+@dataclass
+class PGInfoReply:
+    """(last_epoch_started, last_update) for one PG on one peer."""
+
+    tid: int
+    shard: int
+    les: int
+    lu_epoch: int
+    lu_tid: int
+
+    def encode(self) -> list[bytes]:
+        return [
+            _header(
+                "pg_info_reply",
+                {
+                    "tid": self.tid,
+                    "shard": self.shard,
+                    "les": self.les,
+                    "lu_epoch": self.lu_epoch,
+                    "lu_tid": self.lu_tid,
+                },
+            )
+        ]
+
+    @classmethod
+    def decode(cls, segments: list[bytes]) -> "PGInfoReply":
+        h = _parse(segments[0], "pg_info_reply")
+        return cls(
+            h["tid"], h["shard"], h["les"], h["lu_epoch"], h["lu_tid"]
+        )
+
+
+@dataclass
+class PGActivate:
+    """Interval activation push: after the elected primary finishes
+    peering at map epoch E, every up member records
+    last_epoch_started = E in its own durable pgmeta — the
+    PeeringState::activate / MOSDPGLog activation role. A member that
+    misses this push (partitioned) keeps its old les, which is
+    exactly what makes a later election rank it non-authoritative."""
+
+    tid: int
+    shard: int
+    pool_id: int
+    pgid: int
+    epoch: int
+
+    def encode(self) -> list[bytes]:
+        return [
+            _header(
+                "pg_activate",
+                {
+                    "tid": self.tid,
+                    "shard": self.shard,
+                    "pool_id": self.pool_id,
+                    "pgid": self.pgid,
+                    "epoch": self.epoch,
+                },
+            )
+        ]
+
+    @classmethod
+    def decode(cls, segments: list[bytes]) -> "PGActivate":
+        h = _parse(segments[0], "pg_activate")
+        return cls(
+            h["tid"], h["shard"], h["pool_id"], h["pgid"], h["epoch"]
+        )
+
+
+@dataclass
+class PGActivateAck:
+    tid: int
+    shard: int
+
+    def encode(self) -> list[bytes]:
+        return [
+            _header(
+                "pg_activate_ack", {"tid": self.tid, "shard": self.shard}
+            )
+        ]
+
+    @classmethod
+    def decode(cls, segments: list[bytes]) -> "PGActivateAck":
+        h = _parse(segments[0], "pg_activate_ack")
+        return cls(h["tid"], h["shard"])
+
+
+@dataclass
+class BackfillReserve:
+    """The MBackfillReserve analog (backfill_reservation.rst): a
+    backfill primary asks each target OSD for a remote slot before
+    moving data; ``action`` is "request" or "release". The reply to a
+    request may be DELAYED — the target's remote AsyncReserver grants
+    it when a slot frees, so a busy target throttles the primary
+    instead of rejecting it."""
+
+    tid: int
+    shard: int
+    action: str  # NOT "kind": that key frames the message envelope
+    pool_id: int
+    pgid: int
+    prio: int = 0
+
+    def encode(self) -> list[bytes]:
+        return [
+            _header(
+                "backfill_reserve",
+                {
+                    "tid": self.tid,
+                    "shard": self.shard,
+                    "action": self.action,
+                    "pool_id": self.pool_id,
+                    "pgid": self.pgid,
+                    "prio": self.prio,
+                },
+            )
+        ]
+
+    @classmethod
+    def decode(cls, segments: list[bytes]) -> "BackfillReserve":
+        h = _parse(segments[0], "backfill_reserve")
+        return cls(
+            h["tid"], h["shard"], h["action"], h["pool_id"], h["pgid"],
+            h["prio"],
+        )
+
+
+@dataclass
+class BackfillReserveReply:
+    tid: int
+    shard: int
+    granted: bool = True
+
+    def encode(self) -> list[bytes]:
+        return [
+            _header(
+                "backfill_reserve_reply",
+                {
+                    "tid": self.tid,
+                    "shard": self.shard,
+                    "granted": self.granted,
+                },
+            )
+        ]
+
+    @classmethod
+    def decode(cls, segments: list[bytes]) -> "BackfillReserveReply":
+        h = _parse(segments[0], "backfill_reserve_reply")
+        return cls(h["tid"], h["shard"], h["granted"])
+
+
+@dataclass
+class GetAttrs:
+    """Fetch named attrs from one shard's store — the getattr sub-op
+    (the extension point deep scrub needs to vote on HashInfo copies
+    instead of trusting the primary's own)."""
+
+    tid: int
+    shard: int
+    oid: str          # full store key (shard_key applied by caller)
+    names: list[str]
+
+    def encode(self) -> list[bytes]:
+        return [
+            _header(
+                "get_attrs",
+                {
+                    "tid": self.tid,
+                    "shard": self.shard,
+                    "oid": self.oid,
+                    "names": self.names,
+                },
+            )
+        ]
+
+    @classmethod
+    def decode(cls, segments: list[bytes]) -> "GetAttrs":
+        h = _parse(segments[0], "get_attrs")
+        return cls(h["tid"], h["shard"], h["oid"], list(h["names"]))
+
+
+@dataclass
+class GetAttrsReply:
+    """Requested attrs as raw bytes (hex on the wire); absent names
+    map to None, a missing object sets error."""
+
+    tid: int
+    shard: int
+    attrs: dict = field(default_factory=dict)  # name -> bytes | None
+    error: str | None = None
+
+    def encode(self) -> list[bytes]:
+        return [
+            _header(
+                "get_attrs_reply",
+                {
+                    "tid": self.tid,
+                    "shard": self.shard,
+                    "attrs": {
+                        k: (v.hex() if v is not None else None)
+                        for k, v in self.attrs.items()
+                    },
+                    "error": self.error,
+                },
+            )
+        ]
+
+    @classmethod
+    def decode(cls, segments: list[bytes]) -> "GetAttrsReply":
+        h = _parse(segments[0], "get_attrs_reply")
+        return cls(
+            h["tid"],
+            h["shard"],
+            {
+                k: (bytes.fromhex(v) if v is not None else None)
+                for k, v in h["attrs"].items()
+            },
+            h.get("error"),
+        )
+
+
+def serve_get_attrs(store, shard_id: int, conn, msg: "GetAttrs") -> None:
+    """Serve one GetAttrs against a local store — shared by the
+    shard-server and OSD-daemon dispatchers (one source of truth for
+    the absent-name/enoent semantics)."""
+    try:
+        attrs = store.getattrs(msg.oid)
+        conn.send(GetAttrsReply(
+            msg.tid, shard_id, {n: attrs.get(n) for n in msg.names},
+        ))
+    except FileNotFoundError:
+        conn.send(GetAttrsReply(msg.tid, shard_id, error="enoent"))
+
+
+@dataclass
+class WatchNotify:
+    """Primary -> watcher event push (MWatchNotify,
+    src/messages/MWatchNotify.h): carries the notify payload to every
+    registered watcher of the object; the watcher answers with
+    NotifyAck so the notifier learns who saw it."""
+
+    notify_id: int
+    cookie: str   # the watcher's registration cookie
+    pool: str
+    oid: str
+    payload: bytes = b""
+
+    def encode(self) -> list[bytes]:
+        return [
+            _header(
+                "watch_notify",
+                {
+                    "notify_id": self.notify_id,
+                    "cookie": self.cookie,
+                    "pool": self.pool,
+                    "oid": self.oid,
+                },
+            ),
+            self.payload,
+        ]
+
+    @classmethod
+    def decode(cls, segments: list[bytes]) -> "WatchNotify":
+        h = _parse(segments[0], "watch_notify")
+        return cls(
+            h["notify_id"], h["cookie"], h["pool"], h["oid"],
+            segments[1],
+        )
+
+
+@dataclass
+class NotifyAck:
+    """Watcher -> primary completion of one notify delivery."""
+
+    notify_id: int
+    cookie: str
+
+    def encode(self) -> list[bytes]:
+        return [
+            _header(
+                "notify_ack",
+                {"notify_id": self.notify_id, "cookie": self.cookie},
+            ),
+        ]
+
+    @classmethod
+    def decode(cls, segments: list[bytes]) -> "NotifyAck":
+        h = _parse(segments[0], "notify_ack")
+        return cls(h["notify_id"], h["cookie"])
+
+
+@dataclass
+class DcnHello:
+    """DCN host-process handshake: which rank this is and what slice
+    of the global device mesh it owns (the multi-controller analog of
+    the messenger's peer identification)."""
+
+    rank: int
+    n_processes: int
+    local_devices: int
+    global_devices: int
+
+    def encode(self) -> list[bytes]:
+        return [_header("dcn_hello", {
+            "rank": self.rank, "n": self.n_processes,
+            "local": self.local_devices, "global": self.global_devices,
+        })]
+
+    @classmethod
+    def decode(cls, segments: list[bytes]) -> "DcnHello":
+        h = _parse(segments[0], "dcn_hello")
+        return cls(h["rank"], h["n"], h["local"], h["global"])
+
+
+@dataclass
+class DcnCmd:
+    """One DCN control-plane op. Every host receives the SAME op
+    metadata (the multi-controller SPMD discipline: identical program
+    on every host) with its OWN shard-slice payload — the sub-op
+    shard fan-out of MOSDECSubOpWrite mapped onto hosts."""
+
+    tid: int
+    kind: str          # "encode" | "decode" | "shutdown"
+    meta: dict         # json-serializable op parameters
+    payload: bytes = b""   # this host's shard-slice bytes
+
+    def encode(self) -> list[bytes]:
+        return [
+            _header("dcn_cmd", {
+                "tid": self.tid, "op": self.kind, "meta": self.meta,
+            }),
+            self.payload,
+        ]
+
+    @classmethod
+    def decode(cls, segments: list[bytes]) -> "DcnCmd":
+        h = _parse(segments[0], "dcn_cmd")
+        return cls(h["tid"], h["op"], h["meta"], segments[1])
+
+
+@dataclass
+class DcnReply:
+    tid: int
+    rank: int
+    meta: dict
+    payload: bytes = b""
+
+    def encode(self) -> list[bytes]:
+        return [
+            _header("dcn_reply", {
+                "tid": self.tid, "rank": self.rank, "meta": self.meta,
+            }),
+            self.payload,
+        ]
+
+    @classmethod
+    def decode(cls, segments: list[bytes]) -> "DcnReply":
+        h = _parse(segments[0], "dcn_reply")
+        return cls(h["tid"], h["rank"], h["meta"], segments[1])
+
+
+_DECODERS = {
+    MSG_EC_SUB_WRITE: ECSubWrite.decode,
+    MSG_EC_SUB_WRITE_REPLY: ECSubWriteReply.decode,
+    MSG_EC_SUB_READ: ECSubRead.decode,
+    MSG_EC_SUB_READ_REPLY: ECSubReadReply.decode,
+    MSG_PING: Ping.decode,
+    MSG_PONG: Pong.decode,
+    MSG_OSD_OP: OSDOp.decode,
+    MSG_OSD_OP_REPLY: OSDOpReply.decode,
+    MSG_PG_LIST: PGList.decode,
+    MSG_PG_LIST_REPLY: PGListReply.decode,
+    MSG_GET_ATTRS: GetAttrs.decode,
+    MSG_GET_ATTRS_REPLY: GetAttrsReply.decode,
+    MSG_WATCH_NOTIFY: WatchNotify.decode,
+    MSG_NOTIFY_ACK: NotifyAck.decode,
+    MSG_DCN_HELLO: DcnHello.decode,
+    MSG_DCN_CMD: DcnCmd.decode,
+    MSG_DCN_REPLY: DcnReply.decode,
+    MSG_PG_INFO: PGInfo.decode,
+    MSG_PG_INFO_REPLY: PGInfoReply.decode,
+    MSG_PG_ACTIVATE: PGActivate.decode,
+    MSG_PG_ACTIVATE_ACK: PGActivateAck.decode,
+    MSG_BACKFILL_RESERVE: BackfillReserve.decode,
+    MSG_BACKFILL_RESERVE_REPLY: BackfillReserveReply.decode,
+    MSG_EC_SUB_WRITE_BATCH: ECSubWriteBatch.decode,
+    MSG_EC_SUB_WRITE_BATCH_REPLY: ECSubWriteBatchReply.decode,
+}
+
+_TYPE_OF = {
+    ECSubWrite: MSG_EC_SUB_WRITE,
+    ECSubWriteReply: MSG_EC_SUB_WRITE_REPLY,
+    ECSubRead: MSG_EC_SUB_READ,
+    ECSubReadReply: MSG_EC_SUB_READ_REPLY,
+    Ping: MSG_PING,
+    Pong: MSG_PONG,
+    OSDOp: MSG_OSD_OP,
+    OSDOpReply: MSG_OSD_OP_REPLY,
+    PGList: MSG_PG_LIST,
+    PGListReply: MSG_PG_LIST_REPLY,
+    GetAttrs: MSG_GET_ATTRS,
+    GetAttrsReply: MSG_GET_ATTRS_REPLY,
+    WatchNotify: MSG_WATCH_NOTIFY,
+    NotifyAck: MSG_NOTIFY_ACK,
+    DcnHello: MSG_DCN_HELLO,
+    DcnCmd: MSG_DCN_CMD,
+    DcnReply: MSG_DCN_REPLY,
+    PGInfo: MSG_PG_INFO,
+    PGInfoReply: MSG_PG_INFO_REPLY,
+    PGActivate: MSG_PG_ACTIVATE,
+    PGActivateAck: MSG_PG_ACTIVATE_ACK,
+    BackfillReserve: MSG_BACKFILL_RESERVE,
+    BackfillReserveReply: MSG_BACKFILL_RESERVE_REPLY,
+    ECSubWriteBatch: MSG_EC_SUB_WRITE_BATCH,
+    ECSubWriteBatchReply: MSG_EC_SUB_WRITE_BATCH_REPLY,
+}
+
+
+def message_type(msg) -> int:
+    return _TYPE_OF[type(msg)]
+
+
+def decode_message(msg_type: int, segments: list[bytes]):
+    dec = _DECODERS.get(msg_type)
+    if dec is None:
+        raise ValueError(f"unknown message type {msg_type}")
+    return dec(segments)

@@ -110,6 +110,15 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ctpu_ring_pop.argtypes = [
         ctypes.c_void_p, u8p, ctypes.POINTER(ctypes.c_uint32), ctypes.c_int,
     ]
+    lib.ctpu_ring_push_timed.restype = ctypes.c_int
+    lib.ctpu_ring_push_timed.argtypes = [
+        ctypes.c_void_p, u8p, ctypes.c_uint32, ctypes.c_int32,
+    ]
+    lib.ctpu_ring_pop_timed.restype = ctypes.c_int
+    lib.ctpu_ring_pop_timed.argtypes = [
+        ctypes.c_void_p, u8p, ctypes.POINTER(ctypes.c_uint32),
+        ctypes.c_int32,
+    ]
     lib.ctpu_ring_count.restype = ctypes.c_uint32
     lib.ctpu_ring_count.argtypes = [ctypes.c_void_p]
     lib.ctpu_ring_total_pushed.restype = ctypes.c_uint64
@@ -125,6 +134,10 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint64, ctypes.c_uint32,
         ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_uint64),
         u8p,
+    ]
+    lib.ctpu_frame_verify.restype = ctypes.c_int
+    lib.ctpu_frame_verify.argtypes = [
+        ctypes.c_char_p, ctypes.c_uint32, ctypes.c_char_p, ctypes.c_uint64,
     ]
 
 
@@ -186,9 +199,7 @@ def frame_encode(msg_type: int, flags: int, seq: int, segments) -> bytes:
     """Assemble a clear-mode wire frame (header + segment table with
     per-segment crc32c + payloads) in one native call. ``segments`` is
     a sequence of bytes-like objects; compressed segments arrive
-    pre-deflated. The wire layer (``msg/``) is not ported yet; the
-    frame bytes equal ``ceph_tpu``'s native and pure-Python clear-mode
-    frames (tests/test_torch_native.py)."""
+    pre-deflated; ``msg/wire.py`` is the caller."""
     lib = _load()
     if lib is None:
         raise RuntimeError("native runtime unavailable")
@@ -207,6 +218,20 @@ def frame_encode(msg_type: int, flags: int, seq: int, segments) -> bytes:
             f"frame encode size mismatch: {written} != {total}"
         )
     return bytes(out)
+
+
+def frame_verify(table, payload) -> int:
+    """Batch-verify per-segment CRCs of a received clear frame. Returns
+    -1 when all segments match, -2 on a length/table mismatch, else the
+    index of the first bad segment."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native runtime unavailable")
+    if not isinstance(table, bytes):
+        table = bytes(table)
+    if not isinstance(payload, bytes):
+        payload = bytes(payload)
+    return lib.ctpu_frame_verify(table, len(table) // 8, payload, len(payload))
 
 
 # -- GF region ops -------------------------------------------------------
@@ -288,6 +313,40 @@ class RingBuffer:
         if rc != 1:
             return None
         return out[: ln.value].tobytes()
+
+    def push_timed(self, data, timeout: "float | None" = None) -> int:
+        """Push with a bounded wait: 1 = pushed, 0 = ring closed,
+        -2 = timed out (timeout is seconds; None waits forever)."""
+        if not isinstance(data, bytes):
+            data = bytes(data)
+        ms = -1 if timeout is None else max(0, int(timeout * 1000))
+        # zero-copy view of the bytes object (c_char_p cast, no staging
+        # copy — the C side memcpys straight into the slot)
+        ptr = ctypes.cast(
+            ctypes.c_char_p(data), ctypes.POINTER(ctypes.c_uint8)
+        )
+        rc = self._lib.ctpu_ring_push_timed(self._ring, ptr, len(data), ms)
+        if rc == -1:
+            raise ValueError(
+                f"slot overflow: {len(data)} > {self.slot_bytes}"
+            )
+        return rc
+
+    def pop_timed(self, timeout: "float | None" = None):
+        """Pop with a bounded wait: (1, chunk) on success, (0, None)
+        when the ring is closed and drained, (-2, None) on timeout."""
+        ms = -1 if timeout is None else max(0, int(timeout * 1000))
+        out = bytearray(self.slot_bytes)
+        ln = ctypes.c_uint32()
+        rc = self._lib.ctpu_ring_pop_timed(
+            self._ring,
+            (ctypes.c_uint8 * self.slot_bytes).from_buffer(out),
+            ctypes.byref(ln),
+            ms,
+        )
+        if rc != 1:
+            return rc, None
+        return 1, bytes(out[: ln.value])
 
     def close(self) -> None:
         self._lib.ctpu_ring_close(self._ring)

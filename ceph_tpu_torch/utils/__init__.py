@@ -1,7 +1,9 @@
 """Runtime utilities: perf counters, config, tracing, the op tracker and
-cluster log — the ``src/common/`` analog layer — plus device choice
-(``device``). Crash points (``crash_points``) and the lock-order checker
-(``lockdep``) are imported from their modules."""
+cluster log, the admin command surface — the ``src/common/`` analog
+layer — plus device choice (``device``). Crash points
+(``crash_points``), the lock-order checker (``lockdep``), logging
+(``log``), the dmClock scheduler (``mclock``) and the reservers
+(``reserver``) are imported from their modules."""
 
 from .perf_counters import (
     PerfCounters,
@@ -13,6 +15,7 @@ from .config import ConfigProxy, Option, config
 from .trace import Tracer, tracer
 from .optracker import NULL_OP, OpTracker, TrackedOp, op_tracker
 from .cluster_log import ClusterLog, cluster_log
+from .admin_socket import AdminSocket, admin_socket
 
 __all__ = [
     "PerfCounters",
@@ -30,4 +33,6 @@ __all__ = [
     "op_tracker",
     "ClusterLog",
     "cluster_log",
+    "AdminSocket",
+    "admin_socket",
 ]

@@ -1,0 +1,203 @@
+"""Admin command surface — the admin_socket / ``ceph tell`` analog.
+
+The reference exposes runtime introspection and control through a unix
+socket (common/admin_socket.cc): ``perf dump``, ``config show``/
+``config set``, ``dump_historic_ops``, and the EC error-inject tell
+commands. Here the same registry is an in-process command table (the
+transport is trivial to add; every consumer in-tree is in-process).
+
+Built-in commands (perf/config/trace plus the ECInject operator
+surface — the qa suites drive injection exactly this way,
+qa/tasks/ceph_manager.py `ceph tell osd.N injectargs`) register
+lazily on first socket use, so importing a module that registers a
+command does not import the pipeline.
+"""
+
+from __future__ import annotations
+
+import threading
+from collections.abc import Callable
+
+
+class AdminSocket:
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._commands: dict[str, tuple[Callable[..., object], str]] = {}
+        self._builtin_lock = threading.RLock()
+        self._builtins_done = False
+        self._builtins_registering = False
+
+    def _ensure_builtins(self) -> None:
+        # Builtins register on first use, not at import: the registration
+        # pulls in the pipeline. The dedicated RLock makes concurrent
+        # first users wait for the full table while the builtins' own
+        # register() calls re-enter; the done-flag flips only after
+        # success so a transient failure retries on the next call.
+        with self._builtin_lock:
+            if self._builtins_done or self._builtins_registering:
+                return
+            self._builtins_registering = True
+            try:
+                _register_builtins(self)
+                self._builtins_done = True
+            finally:
+                self._builtins_registering = False
+
+    def register(self, command: str, fn: Callable[..., object], desc: str = "") -> None:
+        self._ensure_builtins()
+        with self._lock:
+            if command in self._commands:
+                raise ValueError(f"command {command!r} already registered")
+            self._commands[command] = (fn, desc)
+
+    def unregister(self, command: str) -> None:
+        # Builtins load first so an unregister sticks: a later first
+        # execute() must not resurrect what the caller removed.
+        self._ensure_builtins()
+        with self._lock:
+            self._commands.pop(command, None)
+
+    def execute(self, command: str, **kwargs):
+        self._ensure_builtins()
+        with self._lock:
+            entry = self._commands.get(command)
+        if entry is None:
+            raise KeyError(f"unknown admin command {command!r}")
+        return entry[0](**kwargs)
+
+    def help(self) -> dict[str, str]:
+        self._ensure_builtins()
+        with self._lock:
+            return {cmd: desc for cmd, (_, desc) in sorted(self._commands.items())}
+
+
+admin_socket = AdminSocket()
+
+
+def _register_builtins(sock: AdminSocket) -> None:
+    from ceph_tpu_torch.utils.config import config
+    from ceph_tpu_torch.utils.perf_counters import perf_collection
+    from ceph_tpu_torch.utils.trace import tracer
+
+    sock.register(
+        "perf dump", lambda: perf_collection.dump(),
+        "dump all perf counters",
+    )
+    sock.register(
+        "config show", lambda: config.show(),
+        "effective config values with their source layer",
+    )
+    sock.register(
+        "config set",
+        lambda name, value: (config.set(name, value), config.get(name))[1],
+        "set a runtime config override",
+    )
+    sock.register(
+        "config get", lambda name: config.get(name),
+        "read one effective config value",
+    )
+    sock.register(
+        "dump_historic_ops",
+        lambda limit=None: tracer.dump_historic(limit),
+        "recently completed trace spans",
+    )
+
+    from ceph_tpu_torch.utils.cluster_log import cluster_log
+    from ceph_tpu_torch.utils.optracker import op_tracker
+
+    sock.register(
+        "dump_ops_in_flight",
+        lambda daemon=None: op_tracker.dump_ops_in_flight(daemon),
+        "live tracked ops, oldest first, with event timelines",
+    )
+    sock.register(
+        "perf reset",
+        lambda name=None: perf_collection.reset(name),
+        "zero one named counter set, or all of them",
+    )
+
+    from ceph_tpu_torch.utils import lockdep
+
+    sock.register(
+        "lockdep", lambda: lockdep.dump(),
+        "lock-dependency graph + findings (order-inversion cycles, "
+        "rank violations, blocking-under-lock sites) from the "
+        "runtime lockdep detector",
+    )
+    # (the "pgmap" command registers from cluster/pgmap.py at its own
+    # import — the admin surface must not reach UP into the cluster
+    # tier; ECLint EC101 pins the layering)
+
+    sock.register(
+        "log last",
+        lambda n=20, daemon=None, severity=None: cluster_log.last(
+            int(n), daemon, severity
+        ),
+        "recent cluster-log events (the ceph.log / `ceph log last` "
+        "analog; severity filters at-or-above)",
+    )
+
+    from ceph_tpu_torch.utils.log import root_log
+
+    sock.register(
+        "log dump",
+        lambda reason="admin": root_log.dump_recent(reason),
+        "dump the ring of recent (gathered) log entries",
+    )
+    sock.register(
+        "log flush", lambda: root_log.flush(),
+        "flush queued log entries to the sink",
+    )
+    sock.register(
+        "log set",
+        lambda subsys, level, gather=None: (
+            root_log.set_level(
+                subsys, int(level),
+                None if gather is None else int(gather),
+            ),
+            root_log.dump_levels().get(subsys),
+        )[1],
+        "set a subsystem's log/gather levels (debug_<subsys> analog)",
+    )
+    sock.register(
+        "log levels", lambda: root_log.dump_levels(),
+        "per-subsystem log/gather level pairs",
+    )
+
+    def _inject(kind: str):
+        def run(oid, type, when=0, duration=1, shard=None):
+            from ceph_tpu_torch.pipeline.inject import ANY_SHARD, ec_inject
+
+            fn = getattr(ec_inject, kind)
+            return fn(oid, int(type), when=int(when), duration=int(duration),
+                      shard=ANY_SHARD if shard is None else int(shard))
+
+        return run
+
+    sock.register(
+        "injectecreaderr", _inject("read_error"),
+        "inject EC read errors (type 0=EIO, 1=missing)",
+    )
+    sock.register(
+        "injectecwriteerr", _inject("write_error"),
+        "inject EC write errors (type 0=abort, 1=dropped sub-write)",
+    )
+
+    def _clear(kind: str):
+        def run(oid, type, shard=None):
+            from ceph_tpu_torch.pipeline.inject import ANY_SHARD, ec_inject
+
+            fn = getattr(ec_inject, kind)
+            return fn(oid, int(type),
+                      shard=ANY_SHARD if shard is None else int(shard))
+
+        return run
+
+    sock.register(
+        "injectecclearreaderr", _clear("clear_read_error"),
+        "clear injected EC read errors",
+    )
+    sock.register(
+        "injectecclearwriteerr", _clear("clear_write_error"),
+        "clear injected EC write errors",
+    )

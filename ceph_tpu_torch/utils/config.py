@@ -205,6 +205,213 @@ OPTIONS: tuple[Option, ...] = (
              "role); empty = in-memory ring only. Applied when the "
              "first event lands after the value changes",
     ),
+    # -- the cluster tier: monitor, messenger, OSD daemons, client --
+    Option(
+        "erasure_code_default_plugin", str, "isa",
+        desc="plugin used when a profile names none "
+             "(osd_pool_default_erasure_code_profile analog)",
+        enum_values=("isa", "jerasure", "lrc", "shec", "clay"),
+        level="basic",
+    ),
+    Option(
+        "erasure_code_default_profile", str, "k=2 m=2",
+        desc="default EC profile key=value pairs",
+        level="basic",
+    ),
+    Option(
+        "objecter_inflight_per_osd", int, 64,
+        desc="async objecter per-OSD session window: ops in flight to "
+             "one OSD before further submissions park behind it "
+             "(objecter_inflight_ops sliced per session)",
+        min=1,
+    ),
+    Option(
+        "osd_op_coalescing", bool, True,
+        desc="coalesce concurrent client EC write ops queued at an "
+             "OSD into one per-tick batch: the bookkeeping prelude "
+             "runs serially under the op lock, per-PG groups execute "
+             "concurrently, encodes share batched device dispatches "
+             "(pipeline/dispatcher.py ring), and sub-writes pack one "
+             "framed message per peer OSD",
+    ),
+    Option(
+        "osd_coalesce_max", int, 16,
+        desc="max client write ops coalesced into one tick batch",
+        min=2,
+    ),
+    Option(
+        "osd_peer_rpc_timeout", float, 10.0,
+        desc="seconds an OSD waits for a peer sub-op reply before the "
+             "RPC expires (reads error and re-plan; writes park; the "
+             "peer is down-marked). Chaos/loadgen runs lower this so "
+             "frames lost to the injected fault plane resolve within "
+             "the client's resend ladder instead of stalling ticks",
+        min=0.05,
+    ),
+    Option(
+        "osd_subop_resend_interval", float, 0.0,
+        desc="seconds before an un-replied peer sub-op (read or "
+             "write) is retransmitted on a doubling ladder, 0 = never "
+             "(the default: TCP links are lossless so a missing ack "
+             "means a dead peer, and parked-write semantics stand). "
+             "Lossy-link/chaos runs arm it so frames eaten by the "
+             "injected fault plane resolve in fractions of the RPC "
+             "deadline; retransmits are safe — sub-writes are "
+             "idempotent (absolute extents + attrs), interval-fenced, "
+             "and duplicate acks are absorbed exactly-once",
+        min=0.0,
+    ),
+    Option(
+        "msgr_fault_plane", bool, True,
+        desc="consult the seeded network-fault plane "
+             "(msg.messenger.net_faults) on framed links; off is the "
+             "operator escape hatch that makes every armed rule inert "
+             "without clearing it",
+    ),
+    Option(
+        "msgr_native_codec", bool, True,
+        desc="assemble/verify clear-mode wire frames through the "
+             "native C codec (one call per frame: header + segment "
+             "table + per-segment crc32c) when the native tier loads; "
+             "off (or CEPH_TPU_TORCH_NO_NATIVE) routes every frame through "
+             "the bit-identical pure-Python path — the codec A/B's "
+             "baseline arm",
+    ),
+    Option(
+        "msgr_transport", str, "tcp",
+        desc="transport lane for co-located peers: 'shm_ring' "
+             "upgrades connections whose peer address resolves "
+             "in-process to a shared-memory byte-ring pair "
+             "(msg/shm_ring.py) at connect time, skipping the kernel "
+             "socket round-trip; 'tcp' (default) keeps every link on "
+             "loopback TCP. Remote/unresolved addresses always fall "
+             "back to tcp; the net-fault plane injects above the "
+             "transport either way",
+        enum_values=("tcp", "shm_ring"),
+    ),
+    Option(
+        "osd_op_num_shards", int, 1,
+        desc="op-execution worker shards per OSD (osd_op_num_shards "
+             "analog): ops route to a shard by (pool, pg) hash, each "
+             "shard runs its own worker thread and op lock, so one "
+             "EC write parked in drain_until no longer wedges every "
+             "other PG's queue head (the flood-kill p99 cliff). 1 = "
+             "the legacy single-worker path, bit-compatible with "
+             "every existing test",
+        min=1,
+        max=64,
+    ),
+    Option(
+        "osd_max_backfills", int, 1,
+        desc="max concurrent backfills an OSD participates in, as "
+             "primary (local reservation) or target (remote "
+             "reservation) — the backfill_reservation.rst throttle",
+        min=1,
+    ),
+    Option(
+        "osd_scrub_min_interval", float, 86400.0,
+        desc="seconds between scheduled (shallow) scrubs of a PG",
+        min=0.0,
+    ),
+    Option(
+        "osd_deep_scrub_interval", float, 604800.0,
+        desc="seconds between scheduled deep scrubs of a PG "
+             "(osd_deep_scrub_interval)",
+        min=0.0,
+    ),
+    Option(
+        "osd_scrub_interval_randomize_ratio", float, 0.5,
+        desc="spread scheduled scrubs by up to this fraction of the "
+             "interval (avoids synchronized scrub storms)",
+        min=0.0,
+    ),
+    Option(
+        "osd_deep_scrub_randomize_ratio", float, 0.15,
+        desc="chance a scheduled shallow scrub deepens early "
+             "(spreads deep-scrub load inside the deep interval)",
+        min=0.0,
+    ),
+    Option(
+        "osd_scrub_auto_repair", bool, False,
+        desc="scheduled deep scrubs repair inconsistencies they find "
+             "(osd_scrub_auto_repair)",
+    ),
+    Option(
+        "osd_max_scrubs", int, 1,
+        desc="concurrent scheduled scrubs per daemon (reservation "
+             "cap, osd_max_scrubs)",
+        min=1,
+    ),
+    Option(
+        "osd_stats_report_interval", float, 0.5,
+        desc="seconds between a primary's PG-stats reports to the "
+             "monitor (the MPGStats cadence feeding the PGMap "
+             "aggregate: state bits, object/byte counts, degraded/"
+             "misplaced tallies, cumulative client+recovery IO). "
+             "0 disables reporting — the bench cluster phase's "
+             "stats-off A/B arm",
+        min=0.0,
+    ),
+    Option(
+        "osd_device_capacity_bytes", int, 1 << 30,
+        desc="notional device capacity an OSD reports in its osd_stat "
+             "when its store has no real device size (MemStore); "
+             "feeds `df` totals and the OSD_NEARFULL check",
+        min=1,
+    ),
+    Option(
+        "mon_pg_stuck_threshold", float, 30.0,
+        desc="seconds a PG may stay non-clean before the mgr health "
+             "model raises PG_STUCK (mon_pg_stuck_threshold analog; "
+             "ages derive from the stats plane's last-clean stamps)",
+        min=0.0,
+    ),
+    Option(
+        "mon_osd_nearfull_ratio", float, 0.85,
+        desc="osd_stat fill fraction at which the mgr health model "
+             "raises OSD_NEARFULL (mon_osd_nearfull_ratio analog)",
+        min=0.0, max=1.0,
+    ),
+    Option(
+        "mon_osd_min_down_reporters", int, 2,
+        desc="distinct peer reports required before the monitor marks "
+             "an OSD down (mon_osd_min_down_reporters analog)", min=1,
+    ),
+    Option(
+        "mon_osd_down_out_interval", float, 600.0,
+        desc="seconds an OSD may stay down before the monitor marks "
+             "it out and data rebalances", min=0,
+    ),
+    Option(
+        "osd_op_qos", bool, True,
+        desc="schedule client ops under per-tenant dmClock classes "
+             "(client.<tenant> / client.<pool>) with byte-"
+             "proportional cost and pool-metadata QoS specs; off is "
+             "the escape hatch that collapses every client op back "
+             "into the single undifferentiated 'client' class — the "
+             "noisy-neighbor A/B's unprotected arm",
+    ),
+    Option(
+        "osd_mclock_profile", str, "balanced",
+        desc="recovery-vs-client slosh knob (osd_mclock_profile "
+             "analog): which fraction of osd_mclock_capacity each "
+             "base class is guaranteed. high_client starves "
+             "background work for client latency; high_recovery "
+             "floors client share to drain degraded PGs fast; "
+             "reservations clients measurably don't use re-grant to "
+             "recovery/backfill each tick (cluster/qos.py "
+             "derive_profiles)",
+        enum_values=("high_client", "balanced", "high_recovery"),
+        level="basic",
+    ),
+    Option(
+        "osd_mclock_capacity", float, 1000.0,
+        desc="notional OSD service rate in mClock cost units/s "
+             "(1 unit = one op quantum or 64 KiB of payload) that "
+             "profile fractions and QoS reservations divide "
+             "(osd_mclock_max_capacity_iops analog)",
+        min=1.0,
+    ),
 )
 
 

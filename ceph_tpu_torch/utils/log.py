@@ -1,0 +1,209 @@
+"""Async ring-buffered logging — the log/Log.cc + common/dout.h analog.
+
+The reference's logger has one property everything else leans on: a
+log line is CHEAP unless it is actually flushed. ``dout(N)`` entries
+are gathered into an in-memory ring at verbosity up to the subsystem's
+*gather* level, but only entries at or below its *log* level go to the
+sink — and a crash dumps the most recent ring entries so the verbose
+context that was "too expensive to write" is exactly what you get in
+the post-mortem (Log::dump_recent, log/Log.cc; the ``dout_subsys``
+level pairs of common/dout.h, e.g. ``debug_osd = 1/5``).
+
+Mirrored here:
+
+- ``Logger.dout(prio, msg)``: gathered into a bounded ring when
+  ``prio <= gather_level``; queued for the async flusher when
+  ``prio <= log_level``. Message objects are formatted lazily — a
+  suppressed line never str()s its arguments.
+- One background flusher thread per ``Log`` drains the queue to the
+  sink (stderr or file), so daemon threads never block on IO
+  (Log::entry's queue-swap loop).
+- ``dump_recent()`` flushes, then writes the whole gather ring with a
+  banner — wired into daemon crash paths and the admin socket
+  (``log dump``).
+- Per-subsystem ``log_level/gather_level`` pairs adjustable at
+  runtime (``log set``), defaulting to the reference's 1/5 stance.
+"""
+
+from __future__ import annotations
+
+import collections
+import queue
+import sys
+import threading
+import time
+
+DEFAULT_LOG_LEVEL = 1
+DEFAULT_GATHER_LEVEL = 5
+MAX_RECENT = 10000
+
+
+class Entry:
+    __slots__ = ("stamp", "subsys", "prio", "thread", "parts")
+
+    def __init__(self, subsys: str, prio: int, parts: tuple) -> None:
+        self.stamp = time.time()
+        self.subsys = subsys
+        self.prio = prio
+        self.thread = threading.current_thread().name
+        self.parts = parts  # formatted lazily at flush/dump time
+
+    def render(self) -> str:
+        msg = " ".join(str(p) for p in self.parts)
+        ts = time.strftime("%H:%M:%S", time.localtime(self.stamp))
+        frac = int((self.stamp % 1) * 1000)
+        return (
+            f"{ts}.{frac:03d} {self.thread} {self.prio:2d} "
+            f"{self.subsys}: {msg}"
+        )
+
+
+class Log:
+    """Process logger: gather ring + async flusher (log/Log.cc)."""
+
+    def __init__(
+        self,
+        sink=None,
+        max_recent: int = MAX_RECENT,
+    ) -> None:
+        self._sink = sink if sink is not None else sys.stderr
+        self._levels: dict[str, tuple[int, int]] = {}
+        self._recent: collections.deque[Entry] = collections.deque(
+            maxlen=max_recent
+        )
+        self._queue: "queue.Queue[Entry | None]" = queue.Queue()
+        self._lock = threading.Lock()
+        self._flusher = threading.Thread(
+            target=self._flush_loop, name="log-flusher", daemon=True
+        )
+        self._started = False
+
+    # -- levels --------------------------------------------------------
+    def set_level(
+        self, subsys: str, log_level: int, gather_level: int | None = None
+    ) -> None:
+        """``debug_<subsys> = log/gather`` (dout.h level pairs)."""
+        if gather_level is None:
+            gather_level = max(log_level, DEFAULT_GATHER_LEVEL)
+        with self._lock:
+            self._levels[subsys] = (log_level, max(log_level, gather_level))
+
+    def levels(self, subsys: str) -> tuple[int, int]:
+        with self._lock:
+            return self._levels.get(
+                subsys, (DEFAULT_LOG_LEVEL, DEFAULT_GATHER_LEVEL)
+            )
+
+    def dump_levels(self) -> dict[str, str]:
+        with self._lock:
+            return {
+                s: f"{lo}/{hi}" for s, (lo, hi) in sorted(self._levels.items())
+            }
+
+    # -- submission (the dout seam) ------------------------------------
+    def submit(self, subsys: str, prio: int, parts: tuple) -> None:
+        log_level, gather_level = self.levels(subsys)
+        if prio > gather_level:
+            return
+        entry = Entry(subsys, prio, parts)
+        self._recent.append(entry)  # deque append is thread-safe
+        if prio <= log_level:
+            if not self._started:
+                with self._lock:
+                    if not self._started:
+                        self._flusher.start()
+                        self._started = True
+            self._queue.put(entry)
+
+    # -- flushing ------------------------------------------------------
+    def _write(self, line: str) -> None:
+        try:
+            self._sink.write(line + "\n")
+        except Exception:
+            pass  # a broken sink must never take the daemon down
+
+    def _flush_loop(self) -> None:
+        while True:
+            entry = self._queue.get()
+            try:
+                if entry is None:
+                    return
+                self._write(entry.render())
+            finally:
+                self._queue.task_done()
+
+    def flush(self, timeout: float = 5.0) -> None:
+        """Drain queued entries synchronously (Log::flush). Tracks
+        in-flight work via task_done, not queue emptiness — an entry
+        the flusher has popped but not yet written still counts."""
+        if not self._started:
+            return
+        deadline = time.monotonic() + timeout
+        while (
+            self._queue.unfinished_tasks and time.monotonic() < deadline
+        ):
+            time.sleep(0.005)
+        try:
+            self._sink.flush()
+        except Exception:
+            pass
+
+    def dump_recent(self, reason: str = "crash") -> list[str]:
+        """Write the whole gather ring to the sink with banners and
+        return the lines (Log::dump_recent — the crash-context dump).
+        """
+        self.flush()
+        entries = list(self._recent)
+        lines = [e.render() for e in entries]
+        self._write(f"--- begin dump of recent events ({reason}) ---")
+        for line in lines:
+            self._write(line)
+        self._write(f"--- end dump of recent events ({len(lines)}) ---")
+        try:
+            self._sink.flush()
+        except Exception:
+            pass
+        return lines
+
+    def set_sink(self, sink) -> None:
+        with self._lock:
+            self._sink = sink
+
+    def stop(self) -> None:
+        if self._started:
+            self._queue.put(None)
+            self._flusher.join(timeout=2.0)
+
+
+# Process-global log, like the reference's per-CephContext logger.
+root_log = Log()
+
+
+class Logger:
+    """Per-subsystem handle — the ``dout_subsys`` binding."""
+
+    def __init__(self, subsys: str, log: Log | None = None) -> None:
+        self.subsys = subsys
+        self._log = log if log is not None else root_log
+
+    def dout(self, prio: int, *parts) -> None:
+        self._log.submit(self.subsys, prio, parts)
+
+    # Convenience tiers matching common dout conventions: error/info
+    # flush by default; debug is ring-gathered only (visible in a
+    # crash dump); deep needs raised levels even to gather.
+    def error(self, *parts) -> None:
+        self._log.submit(self.subsys, -1, parts)
+
+    def info(self, *parts) -> None:
+        self._log.submit(self.subsys, 0, parts)
+
+    def debug(self, *parts) -> None:
+        self._log.submit(self.subsys, 5, parts)
+
+    def deep(self, *parts) -> None:
+        self._log.submit(self.subsys, 10, parts)
+
+
+def get_logger(subsys: str) -> Logger:
+    return Logger(subsys)

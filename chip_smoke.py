@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``ceph_tpu_torch``) on one card.
 
-Drives five paths through the package's public entry points, at
+Drives six paths through the package's public entry points, at
 BlueStore's 4 KiB csum block, each counted on its own:
 
 1. set-up: the card's name and power limit; build the native host tier
@@ -92,6 +92,25 @@ BlueStore's 4 KiB csum block, each counted on its own:
    the read-back is exact and the scrub clean. The ring's
    ``ec_stream`` counters and the native tier's calls join the route
    split.
+8. the cluster path, the system's entry point: a ``Monitor`` and 12
+   ``OSDDaemon``s on the card (``osd.0``-``osd.11``) over ``MemStore``s,
+   one pool of the pipeline's ISA EC(8,4) profile at a 4 KiB stripe
+   unit with 32 PGs (Ceph's ``osd_pool_default_pg_num``), and 16 client
+   threads with a ``RadosClient`` each, over TCP on loopback: the
+   ``write_full`` of 64 objects of 4 MiB with ``ec_streaming_dispatch``
+   off, the same over fresh stores with it on (stores equal in bytes
+   and HINFO), 64 objects of 128 KiB through the ring (one Kernel B
+   launch a batch), the read-back, 64 overwrites of 4 KiB (host parity
+   deltas), osd.3 and osd.7 stopped and marked down and every object
+   read degraded (Kernel A or D, as the map's lost positions ask), 16
+   objects rewritten while they are down, osd.3 back with its store
+   (catch-up from the log) and osd.7 marked out (backfill), every
+   object read with osd.10 down, the deep scrub on every primary
+   (Kernel C), and one byte flipped in one OSD's ``MemStore``: the
+   scrub of its PG reports it, ``scrub_all(repair=True)`` repairs it,
+   and a further scrub is clean. Every read is held against a numpy
+   model, every phase's routes, the ring's counters and the daemons'
+   ``osd.N.coalesce`` counters against ``predict_cluster``.
 
 Kernel launch counts and the ``ec_dispatch`` / ``checksum.backends``
 counters are zeroed just before each path and read just after it: every
@@ -209,6 +228,19 @@ STORE_FLIP_SHARD = 3
 STORE_RANGES, STORE_RANGE = 64, 64 * 1024
 STREAM_KEYS = ("ops", "batches", "batched_ops", "max_batch", "batch_faults",
                "solo_retries")
+
+# the cluster path: a Monitor, 12 OSD daemons over MemStores, one pool of
+# the pipeline's EC(8,4) profile, 16 client threads over TCP on loopback
+CLUSTER_OSDS = 12
+CLUSTER_PG_NUM = 32  # osd_pool_default_pg_num
+CLUSTER_OBJECTS = 64
+CLUSTER_CLIENTS = 16
+CLUSTER_SMALL = 128 * 1024  # the ring phase's objects: one ring slot each
+CLUSTER_OVERWRITES = 64
+CLUSTER_DOWN = (3, 7)  # both stopped; osd.3 returns, osd.7 goes out
+CLUSTER_DEGRADED_WRITES = 16  # objects rewritten while both are down
+CLUSTER_THIRD = 10  # down for the read that the recovered shards serve
+CLUSTER_TICK = 0.5  # s: the daemons' retry seam (peering, catch-up, backfill)
 
 #: Kernel A, B, C and D edge cases (phase 2)
 A_EDGE_N = (1, 15, 16, 17, 4095, MIB + 37)
@@ -2480,6 +2512,560 @@ def store_path(rng, dev) -> Counted:
     return counted
 
 
+class ClusterRoutes(Routes):
+    """``Routes`` plus the ring's ``ec_stream`` counters
+    (``stream.<name>``), the daemons' ``osd.N.coalesce`` counters summed
+    over every daemon started (``coalesce.<name>``; a returning OSD is a
+    new daemon with counters of its own) and the decode calls the
+    codecs took (``ClusterRoutes.decodes``: present shards, wanted
+    shards, input bytes, whether the input was on the host), which
+    ``predict_cluster`` routes by their matrices."""
+
+    COALESCE_KEYS = ("op_coalesced", "subwrite_batches",
+                     "subwrite_batched_ops")
+
+    def __init__(self, daemons: list) -> None:
+        super().__init__()
+        self.daemons = daemons  # every daemon started, stopped ones too
+        self.decodes: list[tuple] = []
+        self.phase_decodes: dict[str, list[tuple]] = {}
+
+    def _now(self) -> dict[str, int]:
+        from ceph_tpu_torch.pipeline.dispatcher import _stream_counters
+
+        out = Routes._now()
+        pc = _stream_counters()
+        out.update({f"stream.{n}": pc.get(n) for n in STREAM_KEYS
+                    if n != "max_batch"})
+        for key in self.COALESCE_KEYS:
+            out[f"coalesce.{key}"] = sum(
+                d.coalesce_pc.get(key) for d in list(self.daemons))
+        return out
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        start = len(self.decodes)
+        with Routes.__call__(self, name):
+            yield
+        self.phase_decodes[name] = self.decodes[start:]
+
+    @contextlib.contextmanager
+    def recording(self):
+        """Record every ISA decode (``MatrixErasureCodec.decode_chunks``)
+        from any thread, and restore the method on exit."""
+        import threading
+
+        import torch
+
+        from ceph_tpu_torch.codecs.matrix_codec import MatrixErasureCodec
+
+        lock = threading.Lock()
+        orig = MatrixErasureCodec.decode_chunks
+
+        def decode_chunks(codec, want_to_read, chunks):
+            want = tuple(sorted(w for w in want_to_read if w not in chunks))
+            if want:
+                bufs = list(chunks.values())
+                call = (tuple(sorted(chunks)), want,
+                        sum(int(b.nbytes) for b in bufs),
+                        not any(isinstance(b, torch.Tensor) for b in bufs))
+                with lock:
+                    self.decodes.append(call)
+            return orig(codec, want_to_read, chunks)
+
+        MatrixErasureCodec.decode_chunks = decode_chunks
+        try:
+            yield self
+        finally:
+            MatrixErasureCodec.decode_chunks = orig
+
+
+def cluster_reads(osdmap, pool: str, oids, k: int, n: int) -> list[tuple]:
+    """The decode each whole-object read of ``oids`` needs under
+    ``osdmap``: the lost data positions (holes below k) from the first k
+    live positions; none when only parity positions are lost."""
+    from ceph_tpu_torch.cluster.osdmap import SHARD_NONE
+
+    out = []
+    for oid in oids:
+        acting = osdmap.object_to_acting(pool, oid)
+        holes = {i for i, o in enumerate(acting) if o == SHARD_NONE}
+        want = tuple(sorted(h for h in holes if h < k))
+        if want:
+            present = tuple([i for i in range(n) if i not in holes][:k])
+            out.append((present, want))
+    return out
+
+
+def predict_cluster(
+    on_card: bool, decodes: dict[str, list[tuple]], ring: dict[str, int],
+    scrubbed: dict[str, int], verifies: dict[str, int],
+) -> dict[str, dict[str, int]]:
+    """The routes of the cluster path's phases, from the op sizes and,
+    for every decode the codecs took, its matrix: a whole 4 MiB write
+    is one fused encode+csum (Kernel B) — too large for a ring slot, so
+    it runs per op even with ``ec_streaming_dispatch`` on — while the
+    128 KiB writes of the ring phase stage in the ring, one Kernel B
+    launch a batch (``ring``: the ring's batches and batched ops, which
+    depend on the clients' timing); a 4 KiB overwrite is a parity delta on the
+    host GF tables; a decode whose input is at or below
+    ``ec_host_dispatch_bytes`` on the host takes the host tables, one
+    whose rows are an XOR (a lost data shard beside the all-ones parity
+    8) Kernel D, any other Kernel A; deep scrub hashes every live shard
+    of every object last written whole once on Kernel C (``scrubbed``:
+    the shards of a pass), and a repair verifies the rebuilt shard once
+    more.
+    Recovery verifies each object it rebuilt whole against its
+    HashInfo: ``verifies`` holds their count, which follows the PG
+    logs, and the prediction holds their route (Kernel C). On the CPU (a rehearsal) the kernel routes are
+    their plain forms and nothing launches."""
+    from ceph_tpu_torch.codecs import registry
+    from ceph_tpu_torch.utils import config
+
+    route = "kernel" if on_card else "plain"
+    limit = int(config.get("ec_host_dispatch_bytes"))
+    codec = registry.factory("isa", PIPE_PROFILE, device="cpu")
+
+    def merge(*parts):
+        out: dict[str, int] = {}
+        for part in parts:
+            for key, val in part.items():
+                out[key] = out.get(key, 0) + val
+        return out
+
+    def fused(count):
+        out = {f"{route}_encode": count, "fused_encode": count}
+        if on_card and count:
+            out["launch.gf_apply_csum"] = count
+        return out if count else {}
+
+    def decode(present, want, nbytes, host):
+        if 0 < limit and host and nbytes <= limit:
+            return {"host_decode": 1}
+        mat = codec._build_decode_bytes(list(present), list(want))
+        if xor_route(on_card, mat):
+            return {"sched_decode": 1, "launch.xor_schedule": 1}
+        out = {f"{route}_decode": 1}
+        if on_card:
+            out["launch.gf_apply"] = 1
+        return out
+
+    def decoded(phase):
+        return merge(*(decode(*call) for call in decodes.get(phase, [])))
+
+    def crc(count):
+        if not count:
+            return {}
+        if not on_card:
+            return {"backend.plain": count}
+        return {"backend.kernel": count, "launch.crc32c_blocks": count}
+
+    return {
+        "write": fused(CLUSTER_OBJECTS),
+        "write_streaming": fused(CLUSTER_OBJECTS),
+        "write_ring": merge(fused(ring["batches"]), {
+            "stream.ops": CLUSTER_OBJECTS, "stream.batches": ring["batches"],
+            "stream.batched_ops": ring["batched_ops"]}),
+        "read": {},
+        "overwrite": {"host_delta": CLUSTER_OVERWRITES},
+        "degraded_read": decoded("degraded_read"),
+        "degraded_write": fused(CLUSTER_DEGRADED_WRITES),
+        "catch_up": merge(decoded("catch_up"), crc(verifies["catch_up"])),
+        "backfill": merge(decoded("backfill"), crc(verifies["backfill"])),
+        "read_recovered": decoded("read_recovered"),
+        "deep_scrub": crc(scrubbed["deep_scrub"]),
+        "flipped_byte_scrub": crc(scrubbed["flipped_byte_scrub"]),
+        "repair": merge(crc(scrubbed["repair"] + 1), decoded("repair")),
+        "scrub_after_repair": crc(scrubbed["scrub_after_repair"]),
+    }
+
+
+def cluster_path(rng, dev) -> Counted:
+    """The cluster path: a ``Monitor``, 12 ``OSDDaemon``s on the card
+    over ``MemStore``s, one ISA EC(8,4) pool of 32 PGs, and 16 client
+    threads, each with its own ``RadosClient`` over TCP on loopback.
+    Writes, the ring's batched writes, read-back, overwrites, a degraded
+    read with two OSDs down, writes while they are down, the return of
+    one (catch-up from the log) and the other marked out (backfill), a
+    read with a third down, deep scrub, and one flipped byte found,
+    repaired and scrubbed clean. Each phase's routes are held against
+    ``predict_cluster``, each read against a numpy model."""
+    import threading
+
+    from ceph_tpu_torch.cluster import Monitor, OSDDaemon, RadosClient
+    from ceph_tpu_torch.cluster.osd_daemon import make_loc, shard_key
+    from ceph_tpu_torch.cluster.osdmap import SHARD_NONE
+    from ceph_tpu_torch.pipeline.dispatcher import (
+        _stream_counters,
+        shutdown_all,
+    )
+    from ceph_tpu_torch.pipeline.rmw import HINFO_KEY
+    from ceph_tpu_torch.store import Transaction
+    from ceph_tpu_torch.utils import config
+
+    k, m = int(PIPE_PROFILE["k"]), int(PIPE_PROFILE["m"])
+    n = k + m
+    size = OBJECT_BYTES
+    pool = "rbd"
+    oids = [f"rbd_data.{i:016x}" for i in range(CLUSTER_OBJECTS)]
+    small = [f"rbd_header.{i:016x}" for i in range(CLUSTER_OBJECTS)]
+    model = {oid: rng.integers(0, 256, size, dtype=np.uint8) for oid in oids}
+    small_model = {oid: rng.integers(0, 256, CLUSTER_SMALL, dtype=np.uint8)
+                   for oid in small}
+    down_a, down_b = CLUSTER_DOWN
+
+    def boot():
+        """A monitor, the daemons, the pool, and CLUSTER_CLIENTS
+        clients, connected before any phase's clock starts."""
+        mon = Monitor(device=dev)
+        for i in range(CLUSTER_OSDS):
+            mon.osd_crush_add(i)
+        daemons = [start_osd(mon, i) for i in range(CLUSTER_OSDS)]
+        mon.osd_erasure_code_profile_set(
+            "isa84", {"plugin": "isa", **PIPE_PROFILE})
+        mon.osd_pool_create(pool, CLUSTER_PG_NUM, "isa84")
+        for _ in range(CLUSTER_CLIENTS):
+            client = RadosClient(mon, backoff=0.01)
+            open_clients.append(client)
+            ioctxs.append(client.open_ioctx(pool))
+        return mon, daemons
+
+    def start_osd(mon, i, store=None):
+        d = OSDDaemon(i, mon, store=store, chunk_size=PIPE_UNIT,
+                      tick_period=CLUSTER_TICK, device=dev)
+        # The tick's scrub scheduler takes a PG it has never scrubbed
+        # as due at once (its stamps start at 0; Ceph stamps a PG when
+        # the pool creates it), so every PG would deep-scrub one tick
+        # after boot, and again on each new primary, with launches in
+        # every phase. The smoke stamps them (before the pool exists,
+        # and before the daemon's first tick) as Ceph's pool creation
+        # does, and scrubs in a phase of its own.
+        now = time.monotonic()
+        d._scrub_stamps.update(
+            {(pool, pg): [now, now] for pg in range(CLUSTER_PG_NUM)})
+        started.append(d)
+        d.start()
+        return d
+
+    def clients(fn, items):
+        """``fn(ioctx, item)`` over ``items`` from CLUSTER_CLIENTS
+        threads, each on its own RadosClient; raises the first error,
+        and fails if a thread outlives its deadline."""
+        errors: list = []
+
+        def run(io, part):
+            try:
+                for item in part:
+                    fn(io, item)
+            except Exception as e:  # reported by the joining thread
+                errors.append(e)
+
+        threads = [threading.Thread(target=run,
+                                    args=(io, items[t::CLUSTER_CLIENTS]),
+                                    name=f"client-{t}")
+                   for t, io in enumerate(ioctxs)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        check(not any(th.is_alive() for th in threads),
+              "a client thread of the cluster path hung")
+        if errors:
+            raise errors[0]
+
+    def settle(live, what, deadline_s=300.0):
+        """Wait until the cluster is quiet: no pg_temp, every PG a live
+        daemon leads peered, no catch-up, backfill or peering pass in
+        flight. Fails loudly at the deadline."""
+        end = time.monotonic() + deadline_s
+        while True:
+            busy = [("pg_temp", key) for key in mon.osdmap.pg_temp]
+            for d in live:
+                with d._pg_lock:
+                    pgs = list(d._pgs.items())
+                for (pl, pgid), pg in pgs:
+                    if pg._catchup_inflight or pg.fsm._draining:
+                        busy.append((d.osd_id, pgid, "recovering"))
+                    elif (mon.osdmap.pg_primary(pl, pgid) == d.osd_id
+                          and not pg.peered.is_set()):
+                        busy.append((d.osd_id, pgid, "peering"))
+                busy += [(d.osd_id, key, "backfill")
+                         for key, th in list(d._backfills.items())
+                         if th.is_alive()]
+            if not busy:
+                return
+            check(time.monotonic() < end, f"the cluster did not settle "
+                  f"{what} within {deadline_s} s: {busy[:8]}")
+            time.sleep(0.05)
+
+    def stores_of(daemons, objs):
+        """{osd: {shard key: (bytes, HINFO attr)}} of ``objs``."""
+        pool_id = mon.osdmap.pools[pool].pool_id
+        locs = {make_loc(pool_id, oid) for oid in objs}
+        out = {}
+        for d in daemons:
+            st = d.store
+            out[d.osd_id] = {
+                key: (st.read(key), st.getattr(key, HINFO_KEY))
+                for key in st.list_objects()
+                if key.partition("#")[0] in locs
+            }
+        return out
+
+    def read_all(io, oid):
+        got = io.read(oid)
+        check(got == model[oid].tobytes(),
+              f"{oid} read back other bytes than the model's")
+
+    def scrub(live, repair=False):
+        """Deep-scrub every PG on its primary: {oid: ScrubResult}."""
+        out = {}
+        for d in live:
+            for results in d.scrub_all(repair=repair).values():
+                for res in results:
+                    out[res.oid] = res
+        return out
+
+    def hashed_shards(objs):
+        """The live shards of ``objs`` a deep scrub hashes: those of
+        objects whose HashInfo (read from a live shard's HINFO attr)
+        holds shard hashes. A 4 KiB overwrite clears them, and so does
+        a ``write_full`` over an object that has them (it overwrites
+        before it truncates); a ``write_full`` over a cleared object
+        hashes afresh."""
+        pool_id = mon.osdmap.pools[pool].pool_id
+        total = 0
+        for oid in objs:
+            acting = mon.osdmap.object_to_acting(pool, oid)
+            live_pos = [i for i, o in enumerate(acting) if o != SHARD_NONE]
+            raw = daemons[acting[live_pos[0]]].store.getattr(
+                shard_key(make_loc(pool_id, oid), live_pos[0]), HINFO_KEY)
+            if json.loads(raw)["total_chunk_size"]:
+                total += len(live_pos)
+        return total
+
+    started: list = []
+    open_clients: list = []
+    ioctxs: list = []
+
+    def stop_all():
+        while open_clients:
+            open_clients.pop().shutdown()
+        ioctxs.clear()
+        for d in started:
+            if not d._stopped:
+                d.stop()
+        shutdown_all()
+
+    routes = ClusterRoutes(started)
+    write_bytes = CLUSTER_OBJECTS * size
+    with contextlib.ExitStack() as stack:
+        stack.callback(stop_all)
+        stack.enter_context(config.override(
+            csum_block_size=CSUM_BLOCK, osd_deep_scrub_stride=524288))
+        counted = stack.enter_context(Counted("cluster"))
+        stack.enter_context(routes.recording())
+        _stream_counters().reset()
+
+        # -- 1. write every object, ec_streaming_dispatch off -----------
+        mon, daemons = boot()
+        with config.override(ec_streaming_dispatch=False), \
+                routes("write"), Phase("cluster_write", write_bytes):
+            clients(lambda io, oid: io.write_full(oid, model[oid].tobytes()),
+                    oids)
+        first = stores_of(daemons, oids)
+        stop_all()
+
+        # -- 2. the same over fresh stores, ec_streaming_dispatch on ----
+        mon, daemons = boot()
+        with config.override(ec_streaming_dispatch=True):
+            with routes("write_streaming"), \
+                    Phase("cluster_write_streaming", write_bytes):
+                clients(lambda io, oid: io.write_full(
+                    oid, model[oid].tobytes()), oids)
+            check(stores_of(daemons, oids) == first,
+                  "the stores after the streaming write differ from the "
+                  "first write's in bytes or HINFO")
+            del first
+            # 128 KiB objects fit a ring slot: batched Kernel B launches
+            with routes("write_ring"), Phase(
+                    "cluster_write_ring", CLUSTER_OBJECTS * CLUSTER_SMALL):
+                clients(lambda io, oid: io.write_full(
+                    oid, small_model[oid].tobytes()), small)
+        stream = {n_: _stream_counters().get(n_) for n_ in STREAM_KEYS}
+        print(f"cluster path ec_stream: {stream}")
+
+        def read_small(io, oid):
+            check(io.read(oid) == small_model[oid].tobytes(),
+                  f"{oid} read back other bytes than were written")
+            io.remove(oid)
+
+        clients(read_small, small)
+
+        # -- 3. read-back of every object -------------------------------
+        with routes("read"), Phase("cluster_read", write_bytes):
+            clients(read_all, oids)
+
+        # -- 4. overwrites of 4 KiB at seeded offsets -------------------
+        patches = [(oids[int(rng.integers(0, len(oids)))],
+                    int(rng.integers(0, size // PIPE_UNIT)) * PIPE_UNIT,
+                    rng.integers(0, 256, PIPE_UNIT, dtype=np.uint8))
+                   for _ in range(CLUSTER_OVERWRITES)]
+        io = ioctxs[0]
+        with routes("overwrite"), Phase(
+                "cluster_overwrite", CLUSTER_OVERWRITES * PIPE_UNIT):
+            for oid, off, patch in patches:
+                io.write(oid, patch.tobytes(), offset=off)
+                model[oid][off:off + PIPE_UNIT] = patch
+        for oid in sorted({p[0] for p in patches}):
+            read_all(io, oid)
+
+        # -- 5. two OSDs stopped and marked down: degraded read ---------
+        for i in CLUSTER_DOWN:
+            daemons[i].stop()
+            mon.osd_down(i)
+        live = [d for d in daemons if d.osd_id not in CLUSTER_DOWN]
+        settle(live, "after two OSDs went down")
+        want_reads = cluster_reads(mon.osdmap, pool, oids, k, n)
+        with routes("degraded_read"), Phase("cluster_degraded_read",
+                                            write_bytes):
+            clients(read_all, oids)
+        rewritten = oids[:CLUSTER_DEGRADED_WRITES]
+        for oid in rewritten:
+            model[oid] = rng.integers(0, 256, size, dtype=np.uint8)
+        with routes("degraded_write"), Phase(
+                "cluster_degraded_write", len(rewritten) * size):
+            clients(lambda io, oid: io.write_full(oid, model[oid].tobytes()),
+                    rewritten)
+
+        # -- 6. one returns and catches up, the other goes out ----------
+        with routes("catch_up"), Phase("cluster_catch_up",
+                                       len(rewritten) * size):
+            daemons[down_a] = start_osd(mon, down_a, daemons[down_a].store)
+            live.append(daemons[down_a])
+            settle(live, f"after osd.{down_a} returned")
+        catch_up_want = {pos for oid in oids for pos, o in enumerate(
+            mon.osdmap.object_to_acting(pool, oid)) if o == down_a}
+        with routes("backfill"), Phase("cluster_backfill", write_bytes):
+            mon.osd_out(down_b)
+            settle(live, f"after osd.{down_b} went out")
+        third = CLUSTER_THIRD
+        daemons[third].stop()
+        mon.osd_down(third)
+        live = [d for d in live if d.osd_id != third]
+        settle(live, f"after osd.{third} went down")
+        want_recovered = cluster_reads(mon.osdmap, pool, oids, k, n)
+        with routes("read_recovered"), Phase("cluster_read_recovered",
+                                             write_bytes):
+            clients(read_all, oids)
+
+        # -- 7. deep scrub, a flipped byte, repair ----------------------
+        shard_bytes = size // k
+        scrubbed = {"deep_scrub": hashed_shards(oids)}
+        with routes("deep_scrub"), Phase(
+                "cluster_deep_scrub", scrubbed["deep_scrub"] * shard_bytes):
+            results = scrub(live)
+        check(len(results) == len(oids)
+              and all(r.ok for r in results.values()),
+              f"deep scrub not clean: "
+              f"{[(o, r.errors) for o, r in results.items() if not r.ok]}")
+        pool_id = mon.osdmap.pools[pool].pool_id
+        victim = next(oid for oid in rewritten if hashed_shards([oid]))
+        acting = mon.osdmap.object_to_acting(pool, victim)
+        pos = next(i for i in range(k - 1, -1, -1) if acting[i] != SHARD_NONE)
+        key = shard_key(make_loc(pool_id, victim), pos)
+        store = daemons[acting[pos]].store
+        at = 12345
+        byte = store.read(key, at, 1)[0]
+        store.queue_transactions(Transaction().write(
+            key, at, bytes([byte ^ 0x5A])))
+        # the victim's PG alone finds it; the repair pass takes them all
+        pgid = mon.osdmap.object_to_pg(pool, victim)
+        pg_objs = [oid for oid in oids
+                   if mon.osdmap.object_to_pg(pool, oid) == pgid]
+        scrubbed["flipped_byte_scrub"] = hashed_shards(pg_objs)
+        with routes("flipped_byte_scrub"), Phase(
+                "cluster_flipped_byte_scrub",
+                scrubbed["flipped_byte_scrub"] * shard_bytes):
+            found = daemons[mon.osdmap.primary(pool, victim)].scrub_pg(
+                pool, pgid)
+        bad = {r.oid: sorted({e.shard for e in r.errors})
+               for r in found if not r.ok}
+        check(bad == {make_loc(pool_id, victim): [pos]},
+              f"the scrub over the flipped byte reported {bad}, want "
+              f"{victim} shard {pos}")
+        scrubbed["repair"] = scrubbed["deep_scrub"]
+        with routes("repair"), Phase("cluster_repair",
+                                     scrubbed["repair"] * shard_bytes):
+            fixed = scrub(live, repair=True)
+        check([o for o, r in fixed.items() if getattr(r, "repaired", False)]
+              == [make_loc(pool_id, victim)],
+              "the repair pass did not repair exactly the flipped object")
+        scrubbed["scrub_after_repair"] = hashed_shards(oids)
+        with routes("scrub_after_repair"), Phase(
+                "cluster_scrub_after_repair",
+                scrubbed["scrub_after_repair"] * shard_bytes):
+            again = scrub(live)
+        check(all(r.ok for r in again.values()),
+              "the scrub after the repair is not clean")
+        read_all(io, victim)
+
+    on_card = dev.type == "cuda"
+    rows = routes.rows
+    decodes = routes.phase_decodes
+    for phase, want in (("degraded_read", want_reads),
+                        ("read_recovered", want_recovered)):
+        got = sorted(call[:2] for call in decodes[phase])
+        check(got == sorted(want), f"cluster phase {phase} decoded "
+              f"{got}, the map asks for {sorted(want)}")
+    check(all(call[1] and set(call[1]) <= catch_up_want
+              for call in decodes["catch_up"]),
+          f"the catch-up rebuilt other shards than osd.{down_a}'s: "
+          f"{decodes['catch_up']}")
+    ring = {"batches": rows["write_ring"].get("stream.batches", 0),
+            "batched_ops": rows["write_ring"].get("stream.batched_ops", 0)}
+    check(stream["batch_faults"] == 0 and stream["solo_retries"] == 0,
+          f"the ring split batches: {stream}")
+    verifies = {phase: sum(v for key, v in rows[phase].items()
+                           if key.startswith("backend."))
+                for phase in ("catch_up", "backfill")}
+    coalesce = {phase: {key: row.pop(f"coalesce.{key}", 0)
+                        for key in ClusterRoutes.COALESCE_KEYS}
+                for phase, row in rows.items()}
+    coalesced = {phase: c["op_coalesced"] for phase, c in coalesce.items()}
+    client_writes = {"write": CLUSTER_OBJECTS,
+                     "write_streaming": CLUSTER_OBJECTS,
+                     "write_ring": CLUSTER_OBJECTS,
+                     "overwrite": CLUSTER_OVERWRITES,
+                     "degraded_write": CLUSTER_DEGRADED_WRITES}
+    for phase, ops in coalesced.items():
+        check(ops <= client_writes.get(phase, 0),
+              f"cluster phase {phase}: {ops} ops coalesced, more than its "
+              f"{client_writes.get(phase, 0)} client writes")
+    print("cluster coalesce counters: " + json.dumps(
+        {p: c for p, c in coalesce.items() if any(c.values())}))
+    predicted = predict_cluster(on_card, decodes, ring, scrubbed, verifies)
+    print("cluster route split: " + json.dumps(
+        {"predicted": predicted, "observed": rows}))
+    for phase, want in predicted.items():
+        check(rows.get(phase, {}) == want,
+              f"cluster phase {phase} routes {rows.get(phase)}, predicted "
+              f"{want}")
+    launches = rows["write_ring"].get("launch.gf_apply_csum", 0)
+    print(f"cluster outputs: {CLUSTER_OBJECTS} objects of {size} B written "
+          f"twice by {CLUSTER_CLIENTS} clients over TCP (one Kernel B "
+          f"launch an op, stores equal in bytes and HINFO), "
+          f"{CLUSTER_OBJECTS} objects of {CLUSTER_SMALL} B through the "
+          f"ring ({ring['batches']} batches, {launches} Kernel B launches, "
+          f"{ring['batched_ops']} batched ops), read back, overwritten, "
+          f"read degraded with osd.{down_a} and osd.{down_b} down, "
+          f"{len(rewritten)} rewritten, osd.{down_a} caught up, "
+          f"osd.{down_b} backfilled out, read with osd.{third} down, "
+          "scrubbed clean; a flipped byte found, repaired and scrubbed "
+          "clean")
+    return counted
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2536,6 +3122,8 @@ def main(argv=None) -> int:
     paths.append(pipeline_path(rng, dev))
     torch.cuda.empty_cache()
     paths.append(store_path(rng, dev))
+    torch.cuda.empty_cache()
+    paths.append(cluster_path(rng, dev))
 
     print(json.dumps({"phases": Phase.results}))
     kern_rows = []

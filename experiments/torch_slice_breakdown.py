@@ -20,7 +20,10 @@ data shards other than 5, the degraded read of every object with shards
 scrub, and xxhash64 over 64 MiB on the card; and the store path's write
 over 12 BlockStores (16 objects of 4 MiB in 128 KiB appends): 8 PG
 threads through the streaming dispatcher's ring against the same
-appends per op on one thread (``store_phases``). Prints per phase:
+appends per op on one thread (``store_phases``); and the cluster path
+(``cluster_phases``: 12 OSD daemons on the card, 16 clients over TCP,
+16 objects of 4 MiB): write, read-back, degraded read with two OSDs
+down (on a second cluster), deep scrub. Prints per phase:
 
 - host-clock time, and device busy time summed over kernels and copies
   (from the profiler's device events), hence the device idle share, and
@@ -35,7 +38,7 @@ Writes the full report to ``chiprun_out/torch_slice_breakdown.json``.
 Not part of the package; imports nothing of JAX or ceph_tpu.
 
 Usage: python3 experiments/torch_slice_breakdown.py [--seed N]
-       [--only isa|schedule|clay|pipeline|store ...]
+       [--only isa|schedule|clay|pipeline|store|cluster ...]
 """
 
 from __future__ import annotations
@@ -65,6 +68,10 @@ PIPE_SMALL_SHARDS = (0, 1, 2, 3, 4, 6, 7)
 #: the store phases: fewer objects than the smoke's 64 (four runs each)
 STORE_OBJECTS, STORE_THREADS, STORE_APPEND = 16, 8, 128 << 10
 STORE_DEVICE_BYTES = 64 << 20
+#: the cluster phases: 12 OSDs, 32 PGs, 16 clients, as in the smoke, at
+#: fewer objects (each phase runs four times)
+CLUSTER_OSDS, CLUSTER_PG_NUM, CLUSTER_CLIENTS = 12, 32, 16
+CLUSTER_OBJECTS, CLUSTER_DOWN = 16, (3, 7)
 
 
 def phases(payload, dev_name="cuda"):
@@ -414,6 +421,109 @@ def store_phases(rng, dev_name="cuda"):
             "store_per_op_write": lambda: write(False)}
 
 
+def cluster_phases(rng, dev_name="cuda"):
+    """The cluster path of ``chip_smoke.py`` at fewer objects: a Monitor,
+    12 OSDDaemons on the card over MemStores, ISA EC(8,4) at a 4 KiB
+    stripe unit in one pool of 32 PGs, 16 client threads with a
+    RadosClient each over TCP on loopback. Two such clusters: on the
+    healthy one the write takes fresh object names each run, and the
+    read and the deep scrub (every PG on its primary) read what the
+    first write stored; the other holds the same objects with osd.3
+    and osd.7 stopped and marked down, and serves the degraded read.
+    The daemons' scrub stamps are set at boot, as the smoke sets them,
+    so no background scrub runs in a phase."""
+    import threading
+
+    from ceph_tpu_torch.cluster import Monitor, OSDDaemon, RadosClient
+
+    data = [rng.integers(0, 256, PIPE_OBJECT_BYTES, dtype=np.uint8)
+            .tobytes() for _ in range(CLUSTER_OBJECTS)]
+    clients_made, daemons_made = [], []
+
+    def boot():
+        mon = Monitor(device=dev_name)
+        for i in range(CLUSTER_OSDS):
+            mon.osd_crush_add(i)
+        daemons = []
+        for i in range(CLUSTER_OSDS):
+            d = OSDDaemon(i, mon, chunk_size=4096, tick_period=0.5,
+                          device=dev_name)
+            now = time.monotonic()
+            d._scrub_stamps.update({("rbd", pg): [now, now]
+                                    for pg in range(CLUSTER_PG_NUM)})
+            daemons_made.append(d)
+            d.start()
+            daemons.append(d)
+        mon.osd_erasure_code_profile_set(
+            "isa84", {"plugin": "isa", "technique": "reed_sol_van",
+                      "k": str(K), "m": str(M)})
+        mon.osd_pool_create("rbd", CLUSTER_PG_NUM, "isa84")
+        # connected once, before any phase: a client's shutdown closes
+        # its sockets and joins its threads, which is no work of a phase
+        made = [RadosClient(mon, backoff=0.01)
+                for _ in range(CLUSTER_CLIENTS)]
+        clients_made.extend(made)
+        return mon, daemons, [c.open_ioctx("rbd") for c in made]
+
+    def clients(ioctxs, fn, items):
+        errors: list = []
+
+        def run(io, part):
+            try:
+                for item in part:
+                    fn(io, item)
+            except Exception as e:  # reported by the joining thread
+                errors.append(e)
+
+        threads = [threading.Thread(target=run,
+                                    args=(io, items[t::CLUSTER_CLIENTS]))
+                   for t, io in enumerate(ioctxs)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if any(t.is_alive() for t in threads):
+            raise RuntimeError("a client thread hung")
+        if errors:
+            raise errors[0]
+
+    def write_as(ioctxs, prefix):
+        clients(ioctxs, lambda io, i: io.write_full(f"{prefix}.{i}",
+                                                    data[i]),
+                list(range(CLUSTER_OBJECTS)))
+
+    def read_from(ioctxs):
+        def one(io, i):
+            if io.read(f"obj0.{i}") != data[i]:
+                raise RuntimeError(f"obj0.{i} read back other bytes")
+
+        clients(ioctxs, one, list(range(CLUSTER_OBJECTS)))
+
+    _mon, healthy, ioctxs = boot()
+    down_mon, down, down_ioctxs = boot()
+    write_as(down_ioctxs, "obj0")
+    for i in CLUSTER_DOWN:
+        down[i].stop()
+        down_mon.osd_down(i)
+    runs = {"write": 0}
+
+    def write():
+        write_as(ioctxs, f"obj{runs['write']}")
+        runs["write"] += 1
+
+    def deep_scrub():
+        for d in healthy:
+            for results in d.scrub_all().values():
+                if not all(r.ok for r in results):
+                    raise RuntimeError(f"deep scrub on osd.{d.osd_id} "
+                                       "not clean")
+
+    return {"cluster_write": write,
+            "cluster_read": lambda: read_from(ioctxs),
+            "cluster_degraded_read": lambda: read_from(down_ioctxs),
+            "cluster_deep_scrub": deep_scrub}, (clients_made, daemons_made)
+
+
 def device_time_us(prof, spans=()) -> tuple[float, list, int]:
     """Sum of device time over the kernels and copies the card ran, and
     the top ones, from a finished torch.profiler run. Only events that
@@ -443,9 +553,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", nargs="+",
-                    choices=("isa", "schedule", "clay", "pipeline", "store"),
+                    choices=("isa", "schedule", "clay", "pipeline", "store",
+                             "cluster"),
                     default=("isa", "schedule", "clay", "pipeline",
-                             "store"))
+                             "store", "cluster"))
     args = ap.parse_args(argv)
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -466,6 +577,11 @@ def main(argv=None) -> int:
         steps.update(pipeline_phases(np.random.default_rng(args.seed + 3)))
     if "store" in args.only:
         steps.update(store_phases(np.random.default_rng(args.seed + 4)))
+    cluster_parts = ([], [])
+    if "cluster" in args.only:
+        cluster_steps, cluster_parts = cluster_phases(
+            np.random.default_rng(args.seed + 5))
+        steps.update(cluster_steps)
     for fn in steps.values():  # warm-up: build, caches, tables
         fn()
     torch.cuda.synchronize()
@@ -519,6 +635,11 @@ def main(argv=None) -> int:
             print(f"   device {row['device_us']:9.1f} us x{row['count']:<4} "
                   f"{row['name'][:70]}")
         print("\n".join(buf.getvalue().splitlines()[:40]))
+    for client in cluster_parts[0]:
+        client.shutdown()
+    for d in cluster_parts[1]:
+        if not d._stopped:
+            d.stop()
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "torch_slice_breakdown.json").write_text(

@@ -108,7 +108,18 @@ def test_fresh_interpreter_loads_no_jax_or_reference():
         "ceph_tpu_torch.store.blockstore", "ceph_tpu_torch.store.filestore",
         "ceph_tpu_torch.store.kvstore", "ceph_tpu_torch.store.devicefs",
         "ceph_tpu_torch.store.allocator", "ceph_tpu_torch.store.framed_log",
-        "ceph_tpu_torch.codecs.example",
+        "ceph_tpu_torch.codecs.example", "ceph_tpu_torch.placement",
+        "ceph_tpu_torch.crush", "ceph_tpu_torch.utils.log",
+        "ceph_tpu_torch.utils.mclock", "ceph_tpu_torch.utils.reserver",
+        "ceph_tpu_torch.utils.admin_socket", "ceph_tpu_torch.msg.wire",
+        "ceph_tpu_torch.msg.secure", "ceph_tpu_torch.msg.shm_ring",
+        "ceph_tpu_torch.msg.messages", "ceph_tpu_torch.msg.messenger",
+        "ceph_tpu_torch.msg.shard_server", "ceph_tpu_torch.cluster.osdmap",
+        "ceph_tpu_torch.cluster.pgmap", "ceph_tpu_torch.cluster.monitor",
+        "ceph_tpu_torch.cluster.peering", "ceph_tpu_torch.cluster.qos",
+        "ceph_tpu_torch.cluster.osd_daemon",
+        "ceph_tpu_torch.cluster.objecter", "ceph_tpu_torch.cluster.mgr",
+        "ceph_tpu_torch.cluster.striper",
     ):
         assert name in loaded
     assert [m for m in loaded if _forbidden(m)] == []
@@ -117,7 +128,7 @@ def test_fresh_interpreter_loads_no_jax_or_reference():
 HOST_TIER = sorted(
     [*(PKG / "native").rglob("*.py"), *(PKG / "native" / "src").glob("*.cc"),
      PKG / "pipeline" / "dispatcher.py", *(PKG / "store").glob("*.py"),
-     PKG / "checksum" / "host.py"]
+     PKG / "checksum" / "host.py", *(PKG / "msg").glob("*.py")]
 )
 
 
@@ -125,8 +136,8 @@ HOST_TIER = sorted(
     "path", HOST_TIER, ids=[str(p.relative_to(ROOT)) for p in HOST_TIER]
 )
 def test_host_tier_keeps_its_own_switch(path):
-    """The native tier, the dispatcher and the stores read the port's
-    switch (CEPH_TPU_TORCH_NO_NATIVE), never ceph_tpu's, and name no
+    """The native tier, the dispatcher, the stores and the messenger
+    (its native frame codec and ring lane) read the port's switch (CEPH_TPU_TORCH_NO_NATIVE), never ceph_tpu's, and name no
     module of ceph_tpu or JAX even in a string (an importlib call)."""
     text = path.read_text()
     assert not re.search(r"CEPH_TPU_NO_NATIVE", text)
@@ -187,6 +198,16 @@ def test_default_device_entry_points_raise_without_a_card(no_card):
             "o", HINFO_KEY, b'{"total_chunk_size": 0, "hashes": [0]}'))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         be_deep_scrub(StripeInfo(4, 2, 16384), ShardBackend(stores), "o")
+    # the cluster tier: a monitor validates profiles on its device, an
+    # OSD daemon runs every PG's codec, HashInfo and scrub on its own
+    from ceph_tpu_torch.cluster import Monitor, OSDDaemon
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Monitor()
+    mon = Monitor(device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        OSDDaemon(0, mon)
+    assert OSDDaemon(0, mon, device="cpu").device == torch.device("cpu")
     # asking for the CPU is the way onto the plain path
     codec = registry.factory("isa", {"k": "4", "m": "2"}, device="cpu")
     assert codec.device == torch.device("cpu")
@@ -257,3 +278,48 @@ def test_kernel_bindings_match_the_sources(kern):
     params = _c_params(kern.source, kern.symbol)
     assert params[-1] == "void* stream"
     assert [_ctype(p) for p in params] == list(kern.argtypes)
+
+
+def test_launch_and_backend_counts_hold_under_threads(monkeypatch):
+    """The cluster tier launches and hashes from many threads at once
+    (op workers, coalesce groups, recovery, the dispatcher): no
+    increment of a kernel's ``launches`` or of a checksum backend count
+    may be lost. More threads than cores, a short switch interval."""
+    import threading
+    from types import SimpleNamespace
+
+    from ceph_tpu_torch import kernels
+    from ceph_tpu_torch.checksum import backends
+
+    kern = kernels.Kernel("none", "none", [])
+    monkeypatch.setattr(kern, "_load", lambda: lambda *args: 0)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *a: SimpleNamespace(cuda_stream=0))
+    saved = backends.counts()
+    backends.reset()
+    threads_n, calls = 32, 2000
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def work():
+            for _ in range(calls):
+                kern()
+                backends.record("kernel", 4096)
+
+        threads = [threading.Thread(target=work) for _ in range(threads_n)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        assert not any(th.is_alive() for th in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    try:
+        assert kern.launches == threads_n * calls
+        assert backends.counts() == {"kernel": threads_n * calls}
+        assert backends.bytes_hashed() == {"kernel": threads_n * calls * 4096}
+    finally:
+        backends.reset()
+        for name, n in saved.items():
+            for _ in range(n):
+                backends.record(name)

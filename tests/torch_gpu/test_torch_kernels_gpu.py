@@ -654,3 +654,47 @@ def test_xxhash_on_card_matches_reference(cuda, alg, ref):
     for q in (0, 31, 63):
         assert int(vals[q]) == fn(host[q * 4096:(q + 1) * 4096].tobytes(),
                                   (1 << ref) - 1)
+
+
+def test_cluster_write_reaches_the_fused_kernel(cuda):
+    """A 6-OSD cluster on the card (ISA EC(4,2), 4 KiB stripe unit): a
+    client's 4 MiB write over TCP is one Kernel B launch on its primary;
+    a degraded read with one data shard's OSD down decodes on the card;
+    both read back exact."""
+    from ceph_tpu_torch.cluster import Monitor, OSDDaemon, RadosClient
+    from ceph_tpu_torch.codecs.matrix_codec import dispatch_counters
+
+    mon = Monitor(device=cuda)
+    for i in range(6):
+        mon.osd_crush_add(i)
+    daemons = []
+    client = None
+    try:
+        for i in range(6):
+            d = OSDDaemon(i, mon, chunk_size=4096, device=cuda)
+            daemons.append(d)
+            d.start()
+        mon.osd_erasure_code_profile_set(
+            "isa42", {"plugin": "isa", "k": "4", "m": "2"})
+        mon.osd_pool_create("pool", 8, "isa42")
+        client = RadosClient(mon, backoff=0.01)
+        io = client.open_ioctx("pool")
+        data = _data((4 << 20,), seed=11).numpy().tobytes()
+        before = _launches()
+        io.write_full("obj", data)
+        torch.cuda.synchronize()
+        assert _grew(before, _launches()) == {"gf_apply_csum": 1}
+        assert io.read("obj") == data
+        victim = mon.osdmap.object_to_acting("pool", "obj")[1]
+        daemons[victim].stop()
+        mon.osd_down(victim)
+        counts = dispatch_counters()
+        decodes = counts.get("kernel_decode") + counts.get("sched_decode")
+        assert io.read("obj") == data
+        assert counts.get("kernel_decode") + counts.get(
+            "sched_decode") > decodes
+    finally:
+        if client is not None:
+            client.shutdown()
+        for d in daemons:
+            d.stop()
