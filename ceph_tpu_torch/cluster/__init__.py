@@ -9,9 +9,11 @@ ops via the map (src/osdc/Objecter.cc). This package is the analog:
                 up/down/in/out, pg→acting arithmetic with EC holes.
 - ``monitor``:  the map authority — commands, profile validation
                 (trial codecs on the monitor's device), failure
-                reports, subscriptions, incremental catch-up. The
-                replicated, persistent monitor (``mon_quorum``,
-                ``paxos``, ``mon_store``) is not ported yet.
+                reports, subscriptions, incremental catch-up.
+- ``paxos``:    quorum-replicated commit for the monitor store;
+                ``mon_quorum`` runs a Monitor per rank behind it with
+                leader routing and failover, ``mon_store`` persists
+                the committed map versions.
 - ``osd_daemon`` / ``objecter``: the data-plane daemon serving client
                 ops (every PG's codec, HashInfo and scrub hash on the
                 daemon's device, ``"cuda"`` unless the caller asks for

@@ -1,0 +1,760 @@
+"""Closed-loop multi-threaded load driver — the radosbench analog.
+
+N workers (= queue depth) each keep exactly one op in flight through
+the librados-style client against a live cluster: real sockets, the
+map-aware objecter retry loop, device codecs on the primaries, real
+stores. Every op is verified (content byte-equality AND a crc32c
+check of got-vs-expected) and lands in exactly one ledger slot
+(``ops_accounted == ops issued`` at exit — the exactly-once check).
+
+Op classes (spec.mix):
+
+- ``seq_write``        full-object write of the next sequential oid
+                       (wraps to a version bump once max_objects live)
+- ``rand_write``       full-object rewrite of a popular existing oid
+- ``read``             full read + verify of a popular existing oid
+- ``reconstruct_read`` read targeted at an object whose acting set
+                       currently has a dead member — a true degraded/
+                       reconstruct read while the fault schedule has
+                       an OSD down, accounted as plain ``read`` when
+                       the cluster is whole (``reclassified`` counts
+                       them; a mix can't fake degraded coverage)
+- ``rmw_overwrite``    sub-stripe patch at a derived offset (the
+                       parity-delta RMW path), expected image replayed
+                       from the deterministic patch chain
+
+Object contents are pure functions of (spec.seed, object, version,
+patch chain) — verification regenerates, nothing is remembered, so
+the working set can exceed client memory.
+
+Client-side observability: the objecter's ``loadgen_client`` perf
+counters (inflight/completed/retried) are live during the run and the
+driver adds verify-failure and per-class counters to the same set —
+``admin_socket execute("perf dump")`` or the Prometheus exporter can
+watch a run from outside, like daemon-side ops."""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from ceph_tpu_torch.checksum import crc32c_scalar
+from ceph_tpu_torch.cluster.osdmap import SHARD_NONE
+
+from .faults import FaultSchedule
+from .recorder import DeviceClock, RunRecorder
+from ceph_tpu_torch.utils.lockdep import DebugLock
+
+from .spec import (
+    Popularity,
+    WorkloadSpec,
+    expected_image,
+    object_bytes,
+    patch_bytes,
+)
+
+
+@dataclass
+class _ObjState:
+    version: int = 1
+    n_patches: int = 0
+    #: first write landed — readers/overwriters only pick published
+    #: objects (state is allocated BEFORE the create write completes,
+    #: and a concurrent reader could win the object lock first)
+    exists: bool = False
+    lock: threading.Lock = field(default_factory=threading.Lock)
+
+
+class LoadGenerator:
+    """Run a WorkloadSpec against a LoadCluster."""
+
+    def __init__(
+        self,
+        cluster,
+        spec: WorkloadSpec,
+        fault_schedule: FaultSchedule | None = None,
+        io=None,
+        perf_name: str = "loadgen",
+    ) -> None:
+        self.cluster = cluster
+        self.spec = spec
+        self.faults = fault_schedule
+        #: the IoCtx ops go through — a tenant run passes its own
+        #: tenant-tagged ioctx so every op carries the tenant id
+        self.io = io if io is not None else cluster.io
+        self._perf_name = perf_name
+        self.recorder = RunRecorder(warmup_ops=spec.warmup_ops)
+        self._op_seq = 0
+        self._ops_done = 0
+        self._seq_next = 0
+        self._objects: dict[int, _ObjState] = {}
+        self._obj_lock = DebugLock("loadgen.objects")
+        self._pick = Popularity(spec)
+        self._stop = threading.Event()
+        self._errors: list[str] = []
+        #: (oid, version, n_patches, got_len, first_diff) per verify
+        #: failure — the forensic trail a red run is debugged from
+        self.verify_detail: list[tuple] = []
+        self.reclassified = 0  # reconstruct_read served while whole
+        self._class_names = sorted(spec.mix)
+        self._weights = np.array(
+            [spec.mix[c] for c in self._class_names], float
+        )
+        self._weights /= self._weights.sum()
+        #: the objecter's client counter set (inflight/completed/
+        #: resend/verify_failed) — None for perf-less clients
+        self._pc = getattr(
+            self.cluster.client.objecter, "perf", None
+        )
+        self._class_pc = self._build_class_perf()
+
+    def _build_class_perf(self):
+        """Per-class completion counters + one latency histogram in
+        the process perf collection (`perf dump` / exporter surface,
+        updated live per op)."""
+        from ceph_tpu_torch.utils import PerfCountersBuilder, perf_collection
+
+        from .histogram import Log2Histogram
+        from .spec import OP_CLASSES
+
+        b = PerfCountersBuilder(perf_collection, self._perf_name)
+        for cls in OP_CLASSES:
+            b.add_u64_counter(f"ops_{cls}", f"completed {cls} ops")
+        bounds, _ = Log2Histogram().perf_buckets()
+        b.add_histogram(
+            "op_latency", bounds, "op latency (seconds, log2)"
+        )
+        return b.create_perf_counters()
+
+    # -- op bookkeeping -------------------------------------------------
+    def _next_op(self) -> int | None:
+        """Claim the next global op number, or None when done."""
+        with self._obj_lock:
+            if self._op_seq >= self.spec.total_ops:
+                return None
+            self._op_seq += 1
+            return self._op_seq
+
+    def _obj(self, idx: int) -> _ObjState:
+        with self._obj_lock:
+            st = self._objects.get(idx)
+            if st is None:
+                st = self._objects[idx] = _ObjState()
+            return st
+
+    def _live_indices(self) -> list[int]:
+        with self._obj_lock:
+            return sorted(
+                i for i, st in self._objects.items() if st.exists
+            )
+
+    def _oid(self, idx: int) -> str:
+        return f"lg-{self.spec.seed:x}-{idx}"
+
+    # -- verification ---------------------------------------------------
+    def _verify(self, idx: int, got: bytes, version: int,
+                n_patches: int) -> bool:
+        want = expected_image(
+            self.spec.seed, idx, version, n_patches,
+            self.spec.object_size, self.spec.rmw_max_len,
+        )
+        # checksum first (the cheap deep-scrub-style check), then the
+        # definitive byte comparison — both must agree
+        if crc32c_scalar(0xFFFFFFFF, got) == crc32c_scalar(
+            0xFFFFFFFF, want
+        ) and got == want:
+            return True
+        diff = next(
+            (i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+            min(len(got), len(want)),
+        )
+        try:  # placement snapshot: which members served this read
+            acting = self.cluster.mon.osdmap.object_to_acting(
+                self.cluster.pool, self._oid(idx)
+            )
+        except Exception:
+            acting = []
+        self.verify_detail.append(
+            (self._oid(idx), version, n_patches, len(got), diff,
+             list(acting), list(self.cluster.dead),
+             got[:24].hex())
+        )
+        return False
+
+    def _degraded_target(self, rng: np.random.Generator) -> int | None:
+        """An existing object whose acting set has a dead member —
+        reading it forces shard reconstruction."""
+        live = self._live_indices()
+        if not live:
+            return None
+        osdmap = self.cluster.mon.osdmap
+        start = int(rng.integers(0, len(live)))
+        for off in range(len(live)):
+            idx = live[(start + off) % len(live)]
+            acting = osdmap.object_to_acting(
+                self.cluster.pool, self._oid(idx)
+            )
+            if any(o == SHARD_NONE for o in acting):
+                return idx
+        return None
+
+    # -- op implementations ---------------------------------------------
+    def _op_seq_write(self, rng) -> tuple[str, int]:
+        with self._obj_lock:
+            if self._seq_next < self.spec.max_objects:
+                idx = self._seq_next
+                self._seq_next += 1
+            else:
+                idx = None
+        if idx is None:  # working set full: wrap onto a rewrite
+            return self._op_rand_write(rng)
+        st = self._obj(idx)
+        with st.lock:
+            data = object_bytes(
+                self.spec.seed, idx, st.version, self.spec.object_size
+            )
+            try:
+                size = self.io.write_full(
+                    self._oid(idx), data
+                )
+            except Exception:
+                # outcome unknown (op may or may not have applied):
+                # quarantine — the model can no longer predict this
+                # object's bytes, so no later op may verify against it
+                st.exists = False
+                raise
+            ok = size == len(data)
+            st.exists = st.exists or ok
+        return ("seq_write" if ok else "error"), len(data)
+
+    def _op_rand_write(self, rng) -> tuple[str, int]:
+        live = self._live_indices()
+        if not live:
+            return self._op_seq_write(rng)
+        idx = live[self._pick.pick(rng, len(live)) % len(live)]
+        st = self._obj(idx)
+        with st.lock:
+            st.version += 1
+            st.n_patches = 0
+            data = object_bytes(
+                self.spec.seed, idx, st.version, self.spec.object_size
+            )
+            try:
+                size = self.io.write_full(
+                    self._oid(idx), data
+                )
+            except Exception:
+                st.exists = False  # unknown outcome: quarantine
+                raise
+            ok = size == len(data)
+        return ("rand_write" if ok else "error"), len(data)
+
+    def _op_read(self, rng, want_degraded: bool = False
+                 ) -> tuple[str, int]:
+        idx = None
+        cls = "read"
+        if want_degraded:
+            idx = self._degraded_target(rng)
+            if idx is not None:
+                cls = "reconstruct_read"
+            else:
+                self.reclassified += 1
+        if idx is None:
+            live = self._live_indices()
+            if not live:
+                return self._op_seq_write(rng)
+            idx = live[self._pick.pick(rng, len(live)) % len(live)]
+        st = self._obj(idx)
+        with st.lock:
+            got = self.io.read(self._oid(idx))
+            good = self._verify(idx, got, st.version, st.n_patches)
+        if not good:
+            self._pc_inc("verify_failed")
+            return "verify_failed:" + cls, len(got)
+        return cls, len(got)
+
+    def _op_rmw_overwrite(self, rng) -> tuple[str, int]:
+        live = self._live_indices()
+        if not live:
+            return self._op_seq_write(rng)
+        idx = live[self._pick.pick(rng, len(live)) % len(live)]
+        st = self._obj(idx)
+        with st.lock:
+            patch_no = st.n_patches + 1
+            off, payload = patch_bytes(
+                self.spec.seed, idx, st.version, patch_no,
+                self.spec.object_size, self.spec.rmw_max_len,
+            )
+            try:
+                self.io.write(
+                    self._oid(idx), payload, offset=off
+                )
+            except Exception:
+                st.exists = False  # unknown outcome: quarantine
+                raise
+            st.n_patches = patch_no
+        return "rmw_overwrite", len(payload)
+
+    def _pc_inc(self, key: str) -> None:
+        if self._pc is not None:
+            self._pc.inc(key)
+
+    # -- async pipelined submission (round-10) --------------------------
+    # The classic loop below burns one OS thread per queue-depth slot,
+    # each lock-stepping request/reply — at qd ≫ 12 the thread tier,
+    # not the wire, is what the depth measures. The pipelined mode
+    # keeps up to ``queue_depth`` ops IN FLIGHT through the objecter's
+    # async engine with a handful of issuer threads (window semaphore
+    # = depth), and a small reaper pool runs the completion half
+    # (verify/record/fault-schedule) off the messenger pump threads.
+    # Per-object exclusion is unchanged: the object lock is held from
+    # submit to reap, exactly the span the sync path holds it.
+
+    #: issuer threads for async mode (the window semaphore, not the
+    #: thread count, is the queue depth)
+    _N_ISSUERS = 4
+    _N_REAPERS = 2
+
+    _WRITE_CLASSES = frozenset(
+        {"seq_write", "rand_write", "rmw_overwrite"}
+    )
+
+    def _resolve_target(self, req: str, rng) -> tuple[str, int]:
+        """The sync impls' delegation rules (seq wraps onto rand once
+        the set is full; read/overwrite bootstrap a create while
+        nothing exists) flattened to one (class, object index)
+        decision, bounded against the all-quarantined corner."""
+        cls = req
+        for _ in range(6):
+            if cls == "seq_write":
+                with self._obj_lock:
+                    if self._seq_next < self.spec.max_objects:
+                        idx = self._seq_next
+                        self._seq_next += 1
+                        return "seq_write", idx
+                cls = "rand_write"
+                continue
+            if cls == "reconstruct_read":
+                idx = self._degraded_target(rng)
+                if idx is not None:
+                    return "reconstruct_read", idx
+                self.reclassified += 1
+                cls = "read"
+                continue
+            live = self._live_indices()
+            if not live:
+                cls = "seq_write"
+                continue
+            return cls, live[self._pick.pick(rng, len(live)) % len(live)]
+        # every object quarantined AND the namespace full: re-create
+        # object 0 (a version-bumped rewrite) so the run can make
+        # progress instead of spinning in the delegation loop
+        return "rand_write_force", 0
+
+    def _issue(self, req: str, rng) -> None:
+        """Submit-half of one op: target resolution, object-lock
+        acquire, payload derivation, async submission. The reap-half
+        (``_reap_one``) releases the lock and the window slot."""
+        cls, idx = self._resolve_target(req, rng)
+        force = cls == "rand_write_force"
+        if force:
+            cls = "rand_write"
+        st = self._obj(idx)
+        st.lock.acquire()
+        ctx: dict = {
+            "req": req, "cls": cls, "idx": idx, "st": st,
+            "t0": time.monotonic(),
+        }
+
+        def done(comp, _ctx=ctx) -> None:
+            _ctx["comp"] = comp
+            self._done_q.put(_ctx)
+
+        try:
+            oid = self._oid(idx)
+            if cls in ("seq_write", "rand_write"):
+                if cls == "rand_write" and (st.exists or force):
+                    st.version += 1
+                    st.n_patches = 0
+                data = object_bytes(
+                    self.spec.seed, idx, st.version,
+                    self.spec.object_size,
+                )
+                ctx["nbytes"] = len(data)
+                self.io.aio_write_full(
+                    oid, data, on_complete=done
+                )
+            elif cls == "rmw_overwrite":
+                patch_no = st.n_patches + 1
+                off, payload = patch_bytes(
+                    self.spec.seed, idx, st.version, patch_no,
+                    self.spec.object_size, self.spec.rmw_max_len,
+                )
+                ctx["patch_no"] = patch_no
+                ctx["nbytes"] = len(payload)
+                self.io.aio_write(
+                    oid, payload, offset=off, on_complete=done
+                )
+            else:  # read / reconstruct_read
+                ctx["version"] = st.version
+                ctx["n_patches"] = st.n_patches
+                self.io.aio_read(oid, on_complete=done)
+        except Exception as e:
+            # submission itself failed: finish the op inline (exactly
+            # one ledger slot either way)
+            st.lock.release()
+            self.recorder.record(
+                req, time.monotonic() - ctx["t0"], 0, ok=False
+            )
+            self._errors.append(f"{req}: {type(e).__name__}: {e}")
+            self._after_op()
+            self._window.release()
+
+    def _reap_one(self, ctx: dict) -> None:
+        st, comp = ctx["st"], ctx["comp"]
+        req, cls, idx = ctx["req"], ctx["cls"], ctx["idx"]
+        lat = time.monotonic() - ctx["t0"]
+        try:
+            if comp.error is not None:
+                if cls in self._WRITE_CLASSES:
+                    # outcome unknown (the op may or may not have
+                    # applied): quarantine — no later op may verify
+                    # against this object's bytes
+                    st.exists = False
+                self.recorder.record(req, lat, 0, ok=False)
+                self._errors.append(
+                    f"{req}: {type(comp.error).__name__}: {comp.error}"
+                )
+                return
+            if cls in ("seq_write", "rand_write"):
+                ok = comp.reply.size == ctx["nbytes"]
+                st.exists = st.exists or ok
+                if ok:
+                    self._record_ok(cls, lat, ctx["nbytes"])
+                else:
+                    self.recorder.record(
+                        req, lat, ctx["nbytes"], ok=False
+                    )
+            elif cls == "rmw_overwrite":
+                st.n_patches = ctx["patch_no"]
+                self._record_ok(cls, lat, ctx["nbytes"])
+            else:  # read / reconstruct_read
+                got = comp.reply.data
+                good = self._verify(
+                    idx, got, ctx["version"], ctx["n_patches"]
+                )
+                if good:
+                    self._record_ok(cls, lat, len(got))
+                else:
+                    self._pc_inc("verify_failed")
+                    self.recorder.record(
+                        cls, lat, len(got), ok=False,
+                        verify_failed=True,
+                    )
+        finally:
+            st.lock.release()
+            self._after_op()
+            self._window.release()
+
+    def _record_ok(self, cls: str, lat: float, nbytes: int) -> None:
+        self.recorder.record(cls, lat, nbytes)
+        self._class_pc.inc(f"ops_{cls}")
+        self._class_pc.hinc("op_latency", lat)
+
+    def _reaper(self) -> None:
+        while True:
+            ctx = self._done_q.get()
+            if ctx is None:
+                return
+            try:
+                self._reap_one(ctx)
+            except Exception as e:  # a reaper death would wedge run()
+                self._errors.append(
+                    f"reap: {type(e).__name__}: {e}"
+                )
+
+    def _issuer(self, wid: int) -> None:
+        rng = np.random.default_rng(
+            [self.spec.seed & 0x7FFFFFFF, 0x40B, wid]
+        )
+        while not self._stop.is_set():
+            self._window.acquire()
+            opno = self._next_op()
+            if opno is None:
+                self._window.release()
+                return
+            req = self._class_names[
+                int(rng.choice(len(self._class_names), p=self._weights))
+            ]
+            self._issue(req, rng)
+        # stopped early: the claimed window slot was never used
+        # (issue path releases its own slot on every outcome)
+
+    def _run_async(self) -> None:
+        depth = self.spec.queue_depth
+        self._window = threading.BoundedSemaphore(depth)
+        self._done_q: queue.Queue = queue.Queue()
+        reapers = [
+            threading.Thread(
+                target=self._reaper, daemon=True,
+                name=f"loadgen-reap{r}",
+            )
+            for r in range(self._N_REAPERS)
+        ]
+        issuers = [
+            threading.Thread(
+                target=self._issuer, args=(w,), daemon=True,
+                name=f"loadgen-issue{w}",
+            )
+            for w in range(min(depth, self._N_ISSUERS))
+        ]
+        self.recorder.t_start = time.monotonic()
+        for t in reapers + issuers:
+            t.start()
+        for t in issuers:
+            t.join()
+        # drain: every in-flight op resolves (the objecter bounds each
+        # with its timeout ladder), releasing its window slot
+        for _ in range(depth):
+            self._window.acquire()
+        for _ in reapers:
+            self._done_q.put(None)
+        for t in reapers:
+            t.join()
+
+    # -- the worker loop ------------------------------------------------
+    def _worker(self, wid: int) -> None:
+        rng = np.random.default_rng(
+            [self.spec.seed & 0x7FFFFFFF, 0x40B, wid]
+        )
+        impls = {
+            "seq_write": self._op_seq_write,
+            "rand_write": self._op_rand_write,
+            "read": lambda r: self._op_read(r, want_degraded=False),
+            "reconstruct_read": lambda r: self._op_read(
+                r, want_degraded=True
+            ),
+            "rmw_overwrite": self._op_rmw_overwrite,
+        }
+        while not self._stop.is_set():
+            opno = self._next_op()
+            if opno is None:
+                return
+            req = self._class_names[
+                int(rng.choice(len(self._class_names), p=self._weights))
+            ]
+            t0 = time.monotonic()
+            try:
+                cls, nbytes = impls[req](rng)
+            except Exception as e:
+                lat = time.monotonic() - t0
+                self.recorder.record(req, lat, 0, ok=False)
+                self._errors.append(f"{req}: {type(e).__name__}: {e}")
+                self._after_op()
+                continue
+            lat = time.monotonic() - t0
+            if cls.startswith("verify_failed:"):
+                self.recorder.record(
+                    cls.split(":", 1)[1], lat, nbytes,
+                    ok=False, verify_failed=True,
+                )
+            elif cls == "error":
+                self.recorder.record(req, lat, nbytes, ok=False)
+            else:
+                self.recorder.record(cls, lat, nbytes)
+                self._class_pc.inc(f"ops_{cls}")
+                self._class_pc.hinc("op_latency", lat)
+            self._after_op()
+
+    def _after_op(self) -> None:
+        with self._obj_lock:
+            self._ops_done += 1
+            done = self._ops_done
+        if self.faults is not None:
+            try:
+                self.faults.maybe_fire(done, self.cluster)
+            except Exception as e:  # a broken thrash must surface
+                self._errors.append(
+                    f"fault: {type(e).__name__}: {e}"
+                )
+                self._stop.set()
+
+    # -- entry point ----------------------------------------------------
+    def run(self) -> dict:
+        """Execute the spec; returns the full run report."""
+        if self.spec.device_clock:
+            codec = self.cluster.codec()
+            self.recorder.device_floor_s = DeviceClock.measure(
+                codec, codec.get_chunk_size(self.spec.object_size)
+            )
+        if self.spec.async_submit:
+            self._run_async()
+        else:
+            threads = [
+                threading.Thread(
+                    target=self._worker, args=(w,), daemon=True,
+                    name=f"loadgen-w{w}",
+                )
+                for w in range(self.spec.queue_depth)
+            ]
+            self.recorder.t_start = time.monotonic()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        self.recorder.finish()
+        if self.faults is not None:
+            self.faults.settle(self.cluster)
+        report = self.recorder.report()
+        report["ops_in"] = self._op_seq
+        report["reclassified_reads"] = self.reclassified
+        with self._obj_lock:
+            # objects whose write outcome is unknown (quarantined:
+            # excluded from verification-bearing ops)
+            report["quarantined_objects"] = sum(
+                1 for st in self._objects.values() if not st.exists
+            )
+        report["exactly_once"] = (
+            report["ops_in"] == report["ops_accounted"]
+        )
+        if self._errors:
+            report["error_samples"] = self._errors[:10]
+        if self.verify_detail:
+            report["verify_detail"] = [
+                list(t) for t in self.verify_detail[:10]
+            ]
+        if self.faults is not None:
+            report["fault"] = self.faults.metrics(self.recorder)
+            report["recovered"] = self.cluster.is_recovered()
+        # stats-plane snapshot: the final PG state histogram + the
+        # one-line `cli status` digest (soak laps log it; bench_cli
+        # prints it on non-green runs)
+        mon = getattr(self.cluster, "mon", None)
+        if mon is not None and getattr(mon, "pgmap", None) is not None:
+            try:
+                for d in self.cluster.daemons.values():
+                    if d.osd_id not in self.cluster.dead:
+                        d.report_pg_stats(force=True)
+                from ceph_tpu_torch.cluster.pgmap import (
+                    status_dict,
+                    status_digest,
+                )
+
+                st = status_dict(mon)
+                report["pg_states"] = st["pgs"]["histogram"]
+                report["degraded_objects"] = st["degraded_objects"]
+                report["status_digest"] = status_digest(st)
+            except Exception:
+                pass  # observability must not redden a green run
+        if self.spec.trace_capture:
+            # the N slowest assembled traces of the run (span trees +
+            # critical paths + Chrome trace JSON): the in-process
+            # cluster shares one tracer/tracker, so the process
+            # snapshot IS the all-daemons merge
+            from ceph_tpu_torch.utils.trace_assembly import capture_traces
+
+            report["traces"] = capture_traces(
+                limit=self.spec.trace_capture
+            )
+        return report
+
+
+def run_spec(
+    cluster, spec: WorkloadSpec,
+    fault_schedule: FaultSchedule | None = None,
+) -> dict:
+    """Convenience: drive ``spec`` on ``cluster`` and report. A spec
+    with ``tenants`` fans out to one closed loop per tenant."""
+    if spec.tenants:
+        return run_multi_tenant(cluster, spec, fault_schedule)
+    return LoadGenerator(cluster, spec, fault_schedule).run()
+
+
+def run_multi_tenant(
+    cluster, spec: WorkloadSpec,
+    fault_schedule: FaultSchedule | None = None,
+) -> dict:
+    """Multi-tenant run: one LoadGenerator per tenant, concurrently,
+    each through its OWN tenant-tagged IoCtx (the ops carry the tenant
+    onto the OSDs' per-tenant mClock classes), its own recorder and a
+    ``loadgen.pool.<tenant>`` perf set (the exporter's tenant label).
+    A tenant's ``qos`` override installs its QoSSpec on the pool via
+    the monitor BEFORE load starts, so the run exercises the pushed
+    spec. The fault schedule is driven by the first tenant's op stream
+    (exactly one thrash driver — double-firing kills would double the
+    chaos). Report: per-tenant sections under ``tenants`` plus
+    cluster-wide aggregates."""
+    from .spec import tenant_specs
+
+    per_tenant = tenant_specs(spec)
+    mon = getattr(cluster, "mon", None)
+    for tenant, (_tspec, qos) in per_tenant.items():
+        if qos and mon is not None:
+            mon.osd_pool_qos_set(cluster.pool, tenant=tenant, **qos)
+    first = min(per_tenant) if per_tenant else None
+    gens: dict[str, LoadGenerator] = {}
+    for tenant, (tspec, _qos) in per_tenant.items():
+        gens[tenant] = LoadGenerator(
+            cluster, tspec,
+            fault_schedule if tenant == first else None,
+            io=cluster.client.open_ioctx(cluster.pool, tenant=tenant),
+            perf_name=f"loadgen.pool.{tenant}",
+        )
+    reports: dict[str, dict] = {}
+    errs: list = []
+
+    def _one(tenant: str) -> None:
+        try:
+            reports[tenant] = gens[tenant].run()
+        except Exception as e:  # surfaced in the aggregate, not lost
+            errs.append(f"{tenant}: {type(e).__name__}: {e}")
+
+    threads = [
+        threading.Thread(
+            target=_one, args=(t,), daemon=True,
+            name=f"loadgen-tenant-{t}",
+        )
+        for t in sorted(gens)
+    ]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    out: dict = {
+        "tenants": {t: reports[t] for t in sorted(reports)},
+        "duration_s": max(
+            (r["duration_s"] for r in reports.values()), default=0.0
+        ),
+        "iops": round(
+            sum(r["iops"] for r in reports.values()), 1
+        ),
+        "ops": sum(r["ops"] for r in reports.values()),
+        "ops_in": sum(r["ops_in"] for r in reports.values()),
+        "ops_accounted": sum(
+            r["ops_accounted"] for r in reports.values()
+        ),
+        "bytes": sum(r["bytes"] for r in reports.values()),
+        "gbps": round(
+            sum(r["gbps"] for r in reports.values()), 6
+        ),
+        "verify_failures": sum(
+            r["verify_failures"] for r in reports.values()
+        ),
+        "errors": sum(r["errors"] for r in reports.values()),
+        "exactly_once": bool(reports) and all(
+            r["exactly_once"] for r in reports.values()
+        ),
+    }
+    if errs:
+        out["error_samples"] = errs[:10]
+        out["exactly_once"] = False
+    for r in reports.values():
+        for key in ("fault", "recovered", "pg_states",
+                    "status_digest", "degraded_objects"):
+            if key in r and key not in out:
+                out[key] = r[key]
+    return out

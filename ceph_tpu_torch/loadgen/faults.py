@@ -1,0 +1,310 @@
+"""Fault schedule — the thrasher hook (qa/tasks/ceph_manager.py
+kill/revive collapsed to deterministic op-offset triggers).
+
+A schedule is an ordered list of events pinned to completed-op
+offsets. The driver fires due events inline from whichever worker
+crosses the offset (single-fire under a lock), so a run with the same
+spec + schedule replays the same interleaving class-for-class. The
+schedule also keeps the timestamps the degraded-window metrics are
+cut from: kill time, revive time, and time-to-recovered (revive ->
+cluster reports every PG peered, no member missing, no catch-up or
+backfill in flight)."""
+
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass, field
+from ceph_tpu_torch.utils.lockdep import DebugLock
+
+
+#: named victim pickers a kill event may carry instead of an osd id;
+#: resolved against the live cluster AT FIRE TIME (a pre-run pick
+#: would miss primaries reshuffled by earlier events)
+VICTIM_PICKERS = ("least_primary", "most_primary")
+
+
+#: fault actions that drive the network-fault plane rather than
+#: process lifecycle; ``profile`` carries their parameters
+NET_ACTIONS = ("net_flaky", "net_partition", "net_clear")
+
+
+@dataclass
+class FaultEvent:
+    #: fire once the run's completed-op counter reaches this
+    at_op: int
+    #: "kill" | "revive" | "dcn_kill" (hard-kill a DCN host process
+    #: mid-run — the multi-chip msgr fault; ``osd`` carries the host
+    #: rank, default 1) | "net_flaky" (arm the seeded link-fault
+    #: profile in ``profile``) | "net_partition" (partition the
+    #: victim's links; ``osd``/picker chooses the victim) |
+    #: "net_clear" (clear the plane and heal partitions)
+    action: str
+    #: target: an osd id, a named victim picker ("least_primary" |
+    #: "most_primary"; kill and net_partition, resolved at fire
+    #: time), or None = pick (kill: first live victim in id order for
+    #: determinism; revive: oldest corpse)
+    osd: int | str | None = None
+    #: net_flaky: {seed, drop, dup, delay_ms, delay_jitter_ms,
+    #: reorder, scope}; net_partition: {asymmetric}
+    profile: dict = field(default_factory=dict)
+
+    def __post_init__(self) -> None:
+        if self.action not in (
+            "kill", "revive", "dcn_kill", *NET_ACTIONS
+        ):
+            raise ValueError(f"unknown fault action {self.action!r}")
+        if isinstance(self.osd, str):
+            if self.action not in ("kill", "net_partition"):
+                raise ValueError(
+                    f"named victim {self.osd!r} only targets kills "
+                    "and partitions"
+                )
+            if self.osd not in VICTIM_PICKERS:
+                raise ValueError(
+                    f"unknown victim picker {self.osd!r} "
+                    f"(know {VICTIM_PICKERS})"
+                )
+
+
+@dataclass
+class FaultSchedule:
+    events: list[FaultEvent] = field(default_factory=list)
+    #: bound on the post-revive recovery wait (seconds)
+    recovery_timeout: float = 60.0
+
+    def __post_init__(self) -> None:
+        self.events = sorted(self.events, key=lambda e: e.at_op)
+        self._lock = DebugLock("loadgen.faults")
+        self._next = 0
+        self.kill_at: float | None = None      # monotonic stamps
+        self.revive_at: float | None = None
+        #: stats-plane convergence stamp (degraded-object count back
+        #: to zero in the PGMap fold) — the PRIMARY time_to_recovered
+        #: derivation since round 15
+        self.recovered_at: float | None = None
+        #: the bespoke direct-state poll's stamp, kept beside the
+        #: stats one so the two derivations stay cross-checkable
+        self.recovered_legacy_at: float | None = None
+        self.dcn_killed_at: float | None = None
+        self.killed: list[int] = []
+        self._net_armed = False
+
+    def maybe_fire(self, ops_done: int, cluster) -> None:
+        """Fire every event whose offset has been reached. Called on
+        the op path — must be cheap when nothing is due."""
+        if self._next >= len(self.events):
+            return
+        with self._lock:
+            while (
+                self._next < len(self.events)
+                and self.events[self._next].at_op <= ops_done
+            ):
+                ev = self.events[self._next]
+                self._next += 1
+                self._apply(ev, cluster)
+
+    def _apply(self, ev: FaultEvent, cluster) -> None:
+        if ev.action == "dcn_kill":
+            cluster.kill_dcn_host(1 if ev.osd is None else ev.osd)
+            self.dcn_killed_at = time.monotonic()
+            return
+        if ev.action == "net_flaky":
+            cluster.net_flaky(**ev.profile)
+            self._net_armed = True
+            if self.kill_at is None:
+                # the degraded window opens at the first link fault
+                # (the degraded-link row is cut from it, like a kill's)
+                self.kill_at = time.monotonic()
+            return
+        if ev.action == "net_partition":
+            osd = ev.osd
+            if isinstance(osd, str):
+                osd = getattr(cluster, osd + "_osd")()
+            if osd is None:
+                live = sorted(cluster.live_osds())
+                if not live:
+                    return
+                osd = live[0]
+            cluster.net_partition(osd, **ev.profile)
+            self._net_armed = True
+            if self.kill_at is None:
+                self.kill_at = time.monotonic()
+            return
+        if ev.action == "net_clear":
+            cluster.net_heal()
+            self._net_armed = False
+            if self.revive_at is None:
+                self.revive_at = time.monotonic()
+            return
+        if ev.action == "kill":
+            osd = ev.osd
+            if isinstance(osd, str):  # named picker, fire-time state
+                osd = getattr(cluster, osd + "_osd")()
+            if osd is None:
+                live = sorted(cluster.live_osds())
+                if not live:
+                    return
+                osd = live[0]
+            cluster.kill(osd)
+            self.killed.append(osd)
+            if self.kill_at is None:
+                self.kill_at = time.monotonic()
+        else:
+            osd = ev.osd
+            if osd is None:
+                if not self.killed:
+                    return
+                osd = self.killed[0]
+            cluster.revive(osd)
+            if osd in self.killed:
+                self.killed.remove(osd)
+            self.revive_at = time.monotonic()
+
+    def settle(self, cluster) -> None:
+        """Post-run: heal any armed link faults/partitions, revive
+        anything still dead, then wait for convergence TWICE — the
+        legacy direct-state poll (``recovered_legacy_at``), then the
+        stats plane (``recovered_at``: every PG's report clean with
+        zero degraded object copies at a post-revive epoch). The
+        stats stamp is the one ``time_to_recovered_s`` is cut from;
+        the two must agree within about one report interval (pinned
+        by the tier-1 stats-plane smoke)."""
+        if self._net_armed:
+            cluster.net_heal()
+            self._net_armed = False
+            if self.revive_at is None:
+                self.revive_at = time.monotonic()
+        for osd in list(self.killed):
+            cluster.revive(osd)
+            self.killed.remove(osd)
+            self.revive_at = time.monotonic()
+        # post-revive epoch floor: stale clean reports from before the
+        # fault carry older epochs and cannot fake convergence
+        min_epoch = cluster.mon.osdmap.epoch
+        deadline = time.monotonic() + self.recovery_timeout
+        if cluster.wait_recovered(self.recovery_timeout):
+            self.recovered_legacy_at = time.monotonic()
+        wait_stats = getattr(cluster, "wait_recovered_stats", None)
+        if wait_stats is not None:
+            if wait_stats(
+                max(deadline - time.monotonic(), 1.0),
+                min_epoch=min_epoch,
+            ):
+                self.recovered_at = time.monotonic()
+        else:  # stats-blind harness: the legacy stamp stands alone
+            self.recovered_at = self.recovered_legacy_at
+
+    @classmethod
+    def primary_kill(
+        cls, total_ops: int, recovery_timeout: float = 60.0
+    ) -> "FaultSchedule":
+        """The default soak schedule: kill the MOST-primary OSD a
+        third of the way in (maximum simultaneous takeovers — the
+        racy path the peering FSM exists for), revive it at two
+        thirds, and demand full recovery at settle. Soaks target the
+        takeover composition by default instead of dodging it."""
+        return cls(
+            [
+                FaultEvent(
+                    max(total_ops // 3, 1), "kill",
+                    osd="most_primary",
+                ),
+                FaultEvent(max((2 * total_ops) // 3, 2), "revive"),
+            ],
+            recovery_timeout=recovery_timeout,
+        )
+
+    @classmethod
+    def net_flaky(
+        cls,
+        total_ops: int,
+        seed: int = 0xEC,
+        drop: float = 0.02,
+        dup: float = 0.02,
+        delay_ms: float = 5.0,
+        delay_jitter_ms: float = 47.0,
+        reorder: float = 0.01,
+        scope: str = "osd",
+        fire_frac: float = 0.25,
+        settle_frac: float = 0.75,
+        recovery_timeout: float = 60.0,
+    ) -> "FaultSchedule":
+        """The lossy-link soak schedule: arm a seeded flaky profile on
+        every link in ``scope`` ("osd" = inter-OSD only, "all" = the
+        client legs too) a quarter of the way in, clear it at three
+        quarters (the fire/settle offsets), and demand recovery at
+        settle. Defaults are the acceptance profile: >= 2% drop +
+        duplication + ~50 ms p95 delay, deterministic from ``seed``."""
+        return cls(
+            [
+                FaultEvent(
+                    max(int(total_ops * fire_frac), 1), "net_flaky",
+                    profile=dict(
+                        seed=seed, drop=drop, dup=dup,
+                        delay_ms=delay_ms,
+                        delay_jitter_ms=delay_jitter_ms,
+                        reorder=reorder, scope=scope,
+                    ),
+                ),
+                FaultEvent(
+                    max(int(total_ops * settle_frac), 2), "net_clear"
+                ),
+            ],
+            recovery_timeout=recovery_timeout,
+        )
+
+    @classmethod
+    def net_partition(
+        cls,
+        total_ops: int,
+        victim: "int | str" = "most_primary",
+        asymmetric: bool = True,
+        seed: int = 0xEC,
+        fire_frac: float = 0.33,
+        settle_frac: float = 0.66,
+        recovery_timeout: float = 60.0,
+    ) -> "FaultSchedule":
+        """Partition the (default most-primary) victim's links a third
+        of the way in — asymmetric by default, the half-dead case that
+        forces re-election while the victim keeps talking into the
+        void — and merge at two thirds; settle demands the healed
+        cluster reports recovered (scrub-clean is the caller's gate)."""
+        return cls(
+            [
+                FaultEvent(
+                    max(int(total_ops * fire_frac), 1),
+                    "net_partition", osd=victim,
+                    profile=dict(asymmetric=asymmetric, seed=seed),
+                ),
+                FaultEvent(
+                    max(int(total_ops * settle_frac), 2), "net_clear"
+                ),
+            ],
+            recovery_timeout=recovery_timeout,
+        )
+
+    def metrics(self, recorder) -> dict:
+        """Degraded-window throughput + time-to-recovered rows.
+        ``time_to_recovered_s`` derives from the STATS PLANE
+        (degraded-object count back to zero in the PGMap);
+        ``time_to_recovered_legacy_s`` keeps the direct-state poll
+        beside it for cross-checking."""
+        out: dict = {}
+        if self.kill_at is None:
+            return out
+        t_end = self.revive_at or time.monotonic()
+        out["degraded_gbps"] = round(
+            recorder.window_gbps(self.kill_at, t_end), 6
+        )
+        out["degraded_window_s"] = round(t_end - self.kill_at, 3)
+        if self.revive_at is not None:
+            if self.recovered_at is not None:
+                out["time_to_recovered_s"] = round(
+                    self.recovered_at - self.revive_at, 3
+                )
+            if self.recovered_legacy_at is not None:
+                out["time_to_recovered_legacy_s"] = round(
+                    self.recovered_legacy_at - self.revive_at, 3
+                )
+        return out

@@ -1,0 +1,241 @@
+"""Latency/throughput recorder for live-cluster runs.
+
+Per op class: a log2 latency histogram (p50/p95/p99/max), bytes
+moved, op/error/verify-failure counts — with warmup exclusion
+(excluded ops still count toward the exactly-once ledger) and a
+completion timeline so a fault window's throughput can be cut out
+after the fact.
+
+Device-clock mode: every op's host-measured latency carries a
+constant floor (socket hops, Python dispatch, the kernel's launch),
+so p99 of the host clock mixes the path's queueing with that floor.
+``DeviceClock`` measures the op's device work once on the card's own
+clock (CUDA events around serially dependent encodes, min of reps) and
+the recorder then reports device-clock percentiles as
+
+    p_dev(x) = host_p(x) - host_min + dev_per_op
+
+i.e. the host distribution with its constant floor (captured by the
+fastest op) replaced by the measured device time of one op. Queueing
+spread is preserved.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+
+from .histogram import Log2Histogram
+from ceph_tpu_torch.utils.lockdep import DebugLock
+
+
+class ClassStats:
+    """One op class's ledger."""
+
+    def __init__(self) -> None:
+        self.hist = Log2Histogram()
+        self.ops = 0            # measured (post-warmup) completions
+        self.warmup_ops = 0     # excluded from hist/throughput
+        self.bytes = 0          # measured bytes moved
+        self.errors = 0
+        self.verify_failures = 0
+
+    @property
+    def accounted(self) -> int:
+        return self.ops + self.warmup_ops + self.errors
+
+
+class RunRecorder:
+    """Thread-safe run ledger; every issued op lands in EXACTLY one
+    of {measured, warmup, error} per class — ``ops_accounted`` must
+    equal ops issued at the end (the exactly-once check)."""
+
+    def __init__(self, warmup_ops: int = 0) -> None:
+        self._lock = DebugLock("loadgen.recorder")
+        self._classes: dict[str, ClassStats] = {}
+        self._warmup_ops = warmup_ops
+        self._done = 0
+        #: (t_complete_monotonic, nbytes) for measured ops — the
+        #: timeline the fault window is cut from
+        self._timeline: list[tuple[float, int]] = []
+        self.t_start = time.monotonic()
+        self.t_measure_start: float | None = None
+        self.t_end: float | None = None
+        self.device_floor_s: float | None = None
+
+    def _cls(self, name: str) -> ClassStats:
+        st = self._classes.get(name)
+        if st is None:
+            st = self._classes[name] = ClassStats()
+        return st
+
+    def record(
+        self, op_class: str, latency_s: float, nbytes: int,
+        ok: bool = True, verify_failed: bool = False,
+    ) -> None:
+        now = time.monotonic()
+        with self._lock:
+            st = self._cls(op_class)
+            self._done += 1
+            if verify_failed:
+                st.verify_failures += 1
+            if not ok:
+                st.errors += 1
+                return
+            if self._done <= self._warmup_ops:
+                st.warmup_ops += 1
+                return
+            if self.t_measure_start is None:
+                self.t_measure_start = now - latency_s
+            st.ops += 1
+            st.bytes += nbytes
+            st.hist.record(latency_s)
+            self._timeline.append((now, nbytes))
+
+    def finish(self) -> None:
+        self.t_end = time.monotonic()
+
+    # -- report ---------------------------------------------------------
+    @property
+    def ops_accounted(self) -> int:
+        with self._lock:
+            return sum(
+                st.accounted for st in self._classes.values()
+            )
+
+    def window_gbps(self, t0: float, t1: float) -> float:
+        """Measured-op throughput over a monotonic-clock window (the
+        degraded-window cut)."""
+        if t1 <= t0:
+            return 0.0
+        with self._lock:
+            nbytes = sum(
+                b for t, b in self._timeline if t0 <= t <= t1
+            )
+        return nbytes / (t1 - t0) / 1e9
+
+    def _device_adjusted_ms(self, hist: Log2Histogram,
+                            p: float) -> float:
+        """Host percentile with the constant host floor replaced by
+        the device-clock per-op time (see module docstring)."""
+        host_p = hist.percentile(p)
+        return max(
+            host_p - hist.min + (self.device_floor_s or 0.0), 0.0
+        ) * 1e3
+
+    def report(self) -> dict:
+        """Full JSON-able run report."""
+        end = self.t_end if self.t_end is not None else time.monotonic()
+        start = (
+            self.t_measure_start
+            if self.t_measure_start is not None else self.t_start
+        )
+        dur = max(end - start, 1e-9)
+        classes: dict[str, dict] = {}
+        total_bytes = 0
+        total_ops = 0
+        agg = Log2Histogram()
+        with self._lock:
+            items = list(self._classes.items())
+        for name, st in items:
+            total_bytes += st.bytes
+            total_ops += st.ops
+            agg.merge(st.hist)
+            entry = {
+                "ops": st.ops,
+                "warmup_ops": st.warmup_ops,
+                "errors": st.errors,
+                "verify_failures": st.verify_failures,
+                "bytes": st.bytes,
+                # 6 decimals: a CI-box socket tier can legitimately
+                # run sub-MB/s and must not round to a zero row
+                "gbps": round(st.bytes / dur / 1e9, 6),
+                "iops": round(st.ops / dur, 1),
+                **st.hist.snapshot(),
+            }
+            if self.device_floor_s is not None and st.hist.n:
+                entry["p99_ms_device"] = round(
+                    self._device_adjusted_ms(st.hist, 99), 3
+                )
+            classes[name] = entry
+        out = {
+            "duration_s": round(dur, 3),
+            "ops": total_ops,
+            "ops_accounted": self.ops_accounted,
+            "bytes": total_bytes,
+            "gbps": round(total_bytes / dur / 1e9, 6),
+            "iops": round(total_ops / dur, 1),
+            "verify_failures": sum(
+                st.verify_failures for _n, st in items
+            ),
+            "errors": sum(st.errors for _n, st in items),
+            "classes": classes,
+        }
+        if agg.n:
+            out.update(
+                {f"lat_{k}": v for k, v in agg.snapshot().items()
+                 if k != "n"}
+            )
+            if self.device_floor_s is not None:
+                out["lat_p99_ms_device"] = round(
+                    self._device_adjusted_ms(agg, 99), 3
+                )
+                out["device_floor_ms"] = round(
+                    self.device_floor_s * 1e3, 4
+                )
+        return out
+
+
+class DeviceClock:
+    """Per-op device time of the pool codec's encode — the latency
+    floor of a write, measured on the card's own clock.
+
+    ``iters`` single-stripe encodes run back to back, serially
+    dependent (a byte span of each parity is fed back into the next
+    input, so none can overlap or be skipped), between two CUDA events
+    after one warm-up encode; the best of ``reps`` such runs, divided by
+    ``iters``, is the time of one encode. On a card attached to its host
+    no round trip has to be cancelled, so one trip count suffices.
+    """
+
+    @staticmethod
+    def measure(codec, chunk: int, iters: int = 24,
+                reps: int = 3) -> float | None:
+        """Seconds per single-stripe encode of ``chunk``-byte shards on
+        the codec's device; None when the codec runs on the CPU (there
+        is no device clock to read). On the card a failure raises."""
+        import numpy as np
+        import torch
+
+        dev = codec.device
+        if dev.type != "cuda":
+            return None
+        k = codec.get_data_chunk_count()
+        rng = np.random.default_rng(0xDC)
+        shards = [
+            torch.from_numpy(rng.integers(0, 256, chunk, np.uint8)).to(dev)
+            for _ in range(k)
+        ]
+        span = min(32, chunk)
+
+        def encode(i: int) -> None:
+            parity = codec.encode_chunks(
+                {j: shards[j] for j in range(k)}
+            )
+            fold = parity[min(parity)][:span]
+            shards[0][:span] = fold ^ ((i + 1) & 0xFF)
+
+        encode(0)  # warm: plans, tables, first launch
+        torch.cuda.synchronize(dev)
+        best = None
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for i in range(iters):
+                encode(i)
+            end.record()
+            end.synchronize()
+            per = start.elapsed_time(end) / 1e3 / iters
+            best = per if best is None else min(best, per)
+        return best

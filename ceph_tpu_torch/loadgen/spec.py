@@ -1,0 +1,261 @@
+"""Declarative workload specs — the radosbench/ceph_test_rados
+workload surface (qa/suites/rados/thrash-erasure-code/workloads/
+ec-radosbench.yaml collapsed to a dataclass).
+
+A spec names an op mix (seq/rand full-object writes, reads,
+reconstruct-reads, sub-stripe RMW overwrites), sizing (object size,
+object count, queue depth = closed-loop worker count), an object
+popularity law (uniform or zipfian), and the run length in ops.
+Everything is deterministic from ``seed``: object contents, patch
+bytes, popularity draws, and the op sequence are all derived from it,
+so a failed run replays bit-identically.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+
+#: op classes a mix may weight (driver.py implements each)
+OP_CLASSES = (
+    "seq_write", "rand_write", "read", "reconstruct_read",
+    "rmw_overwrite",
+)
+
+
+def parse_mix(text: str) -> dict[str, float]:
+    """``"seq_write=2,read=5,rmw_overwrite=1"`` -> weight dict.
+    Unknown classes are an error (a typo'd class silently dropping a
+    workload leg would fake coverage)."""
+    mix: dict[str, float] = {}
+    for part in text.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        name, _, w = part.partition("=")
+        name = name.strip()
+        if name not in OP_CLASSES:
+            raise ValueError(
+                f"unknown op class {name!r} (know {OP_CLASSES})"
+            )
+        mix[name] = float(w) if w else 1.0
+    if not mix or sum(mix.values()) <= 0:
+        raise ValueError(f"empty op mix {text!r}")
+    return mix
+
+
+@dataclass
+class WorkloadSpec:
+    """One load-generation run, fully determined by its fields."""
+
+    #: op class -> weight (normalized at run time)
+    mix: dict[str, float] = field(
+        default_factory=lambda: {"seq_write": 1.0, "read": 1.0}
+    )
+    object_size: int = 64 * 1024
+    #: working-set cap: seq_write beyond this wraps onto rand_write
+    #: targets so the set stays bounded (radosbench --no-cleanup cap)
+    max_objects: int = 256
+    #: closed-loop workers == queue depth (each worker has exactly
+    #: one op in flight, the radosbench -t contract)
+    queue_depth: int = 8
+    total_ops: int = 200
+    #: ops excluded from histograms/throughput at the front (JIT
+    #: compile + connection warmup; still accounted for exactly-once)
+    warmup_ops: int = 0
+    #: "uniform" | "zipfian" object pick for read/overwrite classes
+    popularity: str = "uniform"
+    zipf_theta: float = 0.9
+    #: sub-stripe RMW patch length cap (bytes)
+    rmw_max_len: int = 2048
+    seed: int = 0xEC
+    #: measure small-op latency on the device clock (percentiles with
+    #: the host floor replaced — see recorder.DeviceClock)
+    device_clock: bool = False
+    #: pipelined submission (round-10): a few issuer threads keep up
+    #: to ``queue_depth`` ASYNC ops on the wire through the objecter's
+    #: completion engine, instead of one blocking thread per depth
+    #: slot — queue depth actually reaches the wire at qd ≫ 12.
+    #: False restores the classic one-thread-per-slot closed loop.
+    async_submit: bool = True
+    #: capture the N slowest assembled traces at end of run into the
+    #: report (``report["traces"]``: span trees + critical paths +
+    #: Chrome trace JSON — utils/trace_assembly.py); 0 = off
+    trace_capture: int = 0
+    #: multi-tenant mode: tenant name -> override dict. Each tenant
+    #: runs its OWN closed loop (own IoCtx tagged with the tenant, own
+    #: recorder/histograms, own oid namespace via a derived seed) with
+    #: any of this spec's fields overridden per tenant — ``mix`` (dict
+    #: or parse_mix string), ``object_size``, ``queue_depth``,
+    #: ``total_ops``, ... — plus an optional ``qos`` key: a QoSSpec
+    #: field dict installed on the pool for that tenant before the run
+    #: (reservation/weight/limit in ops/s and bytes/s). Empty dict =
+    #: classic single-tenant run.
+    tenants: dict = field(default_factory=dict)
+
+    def __post_init__(self) -> None:
+        for name in self.mix:
+            if name not in OP_CLASSES:
+                raise ValueError(f"unknown op class {name!r}")
+        if sum(self.mix.values()) <= 0:
+            raise ValueError("op mix weights must sum > 0")
+        if self.queue_depth < 1 or self.total_ops < 1:
+            raise ValueError("queue_depth and total_ops must be >= 1")
+        if self.object_size < 1 or self.max_objects < 1:
+            raise ValueError(
+                "object_size and max_objects must be >= 1"
+            )
+        if self.warmup_ops >= self.total_ops:
+            raise ValueError("warmup_ops must be < total_ops")
+        if self.popularity not in ("uniform", "zipfian"):
+            raise ValueError(
+                f"popularity must be uniform|zipfian, "
+                f"got {self.popularity!r}"
+            )
+
+
+def tenant_specs(
+    spec: WorkloadSpec,
+) -> "dict[str, tuple[WorkloadSpec, dict | None]]":
+    """Explode a multi-tenant spec into per-tenant sub-specs:
+    ``tenant -> (spec, qos)`` where ``qos`` is the tenant's QoSSpec
+    field dict (or None). Each sub-spec inherits every base field,
+    applies the tenant's overrides, and derives a per-tenant seed so
+    oid namespaces (``lg-<seed>-<idx>``), contents and op sequences
+    never collide across tenants."""
+    import zlib
+    from dataclasses import fields as _fields
+
+    base = {
+        f.name: getattr(spec, f.name)
+        for f in _fields(spec) if f.name != "tenants"
+    }
+    out: dict[str, tuple[WorkloadSpec, dict | None]] = {}
+    for tenant in sorted(spec.tenants):
+        ov = dict(spec.tenants[tenant] or {})
+        qos = ov.pop("qos", None)
+        if isinstance(ov.get("mix"), str):
+            ov["mix"] = parse_mix(ov["mix"])
+        kw = dict(base)
+        kw["seed"] = (
+            spec.seed ^ (zlib.crc32(tenant.encode()) & 0x7FFFFF)
+        )
+        kw.update(ov)
+        out[tenant] = (WorkloadSpec(**kw), qos)
+    return out
+
+
+def default_tenants(n: int) -> dict:
+    """``--tenants N``: N identically-shaped tenants t0..t{N-1}
+    (per-tenant knobs come from explicit ``tenants=`` specs)."""
+    if n < 1:
+        raise ValueError("tenants must be >= 1")
+    return {f"t{i}": {} for i in range(n)}
+
+
+class Popularity:
+    """Object-index sampler: uniform, or zipfian by popularity rank
+    (rank r drawn with mass 1/r^theta — the YCSB hot-set law; object
+    identity is a stable shuffle of ranks so heat is spread across
+    the namespace, not clustered at low indices)."""
+
+    def __init__(self, spec: WorkloadSpec) -> None:
+        self._spec = spec
+        self._cdf: np.ndarray | None = None
+        self._perm: np.ndarray | None = None
+        self._cdf_n = 0
+
+    def pick(self, rng: np.random.Generator, n: int) -> int:
+        """An index in [0, n) under the spec's law."""
+        if n <= 1:
+            return 0
+        if self._spec.popularity == "uniform":
+            return int(rng.integers(0, n))
+        if self._cdf is None or self._cdf_n != n:
+            w = 1.0 / np.power(
+                np.arange(1, n + 1), self._spec.zipf_theta
+            )
+            self._cdf = np.cumsum(w) / w.sum()
+            self._perm = np.random.default_rng(
+                self._spec.seed ^ 0x21F
+            ).permutation(n)
+            self._cdf_n = n
+        rank = int(np.searchsorted(self._cdf, rng.random()))
+        return int(self._perm[min(rank, n - 1)])
+
+
+def object_bytes(seed: int, obj_idx: int, version: int,
+                 size: int) -> bytes:
+    """Deterministic full-object content for (spec seed, object,
+    version) — verification regenerates instead of remembering."""
+    return np.random.default_rng(
+        [seed & 0x7FFFFFFF, obj_idx, version]
+    ).integers(0, 256, size, dtype=np.uint8).tobytes()
+
+
+def patch_bytes(
+    seed: int, obj_idx: int, version: int, patch_no: int,
+    size: int, max_len: int,
+) -> tuple[int, bytes]:
+    """Deterministic RMW patch #patch_no on top of (version): returns
+    (offset, payload). Readers replay base + patches 1..n to rebuild
+    the expected image with zero per-object memory."""
+    rng = np.random.default_rng(
+        [seed & 0x7FFFFFFF, obj_idx, version, patch_no]
+    )
+    ln = int(rng.integers(1, min(max_len, size) + 1))
+    off = int(rng.integers(0, max(size - ln, 0) + 1))
+    return off, rng.integers(0, 256, ln, dtype=np.uint8).tobytes()
+
+
+def expected_image(
+    seed: int, obj_idx: int, version: int, n_patches: int,
+    size: int, max_len: int,
+) -> bytes:
+    """The object's exact expected bytes after ``n_patches`` RMW
+    overwrites on ``version`` — pure function of the spec."""
+    img = bytearray(object_bytes(seed, obj_idx, version, size))
+    for p in range(1, n_patches + 1):
+        off, payload = patch_bytes(
+            seed, obj_idx, version, p, size, max_len
+        )
+        img[off:off + len(payload)] = payload
+    return bytes(img)
+
+
+#: canned specs (bench/CLI `--preset`); smoke is the CI surface
+PRESETS: dict[str, dict] = {
+    "smoke": dict(
+        mix={"seq_write": 3, "rand_write": 1, "read": 3,
+             "reconstruct_read": 1, "rmw_overwrite": 1},
+        object_size=8192, max_objects=16, queue_depth=4,
+        total_ops=80, warmup_ops=8, popularity="zipfian",
+    ),
+    "mixed": dict(
+        mix={"seq_write": 2, "rand_write": 1, "read": 4,
+             "reconstruct_read": 1, "rmw_overwrite": 1},
+        object_size=256 * 1024, max_objects=128, queue_depth=16,
+        total_ops=600, warmup_ops=32, popularity="zipfian",
+    ),
+    "write-heavy": dict(
+        mix={"seq_write": 4, "rand_write": 2, "rmw_overwrite": 1},
+        object_size=1 << 20, max_objects=64, queue_depth=16,
+        total_ops=400, warmup_ops=16,
+    ),
+    "read-heavy": dict(
+        mix={"seq_write": 1, "read": 8},
+        object_size=1 << 20, max_objects=64, queue_depth=16,
+        total_ops=400, warmup_ops=16, popularity="zipfian",
+    ),
+}
+
+
+def preset(name: str, **overrides) -> WorkloadSpec:
+    if name not in PRESETS:
+        raise ValueError(
+            f"unknown preset {name!r} (know {sorted(PRESETS)})"
+        )
+    kw = dict(PRESETS[name])
+    kw.update(overrides)
+    return WorkloadSpec(**kw)

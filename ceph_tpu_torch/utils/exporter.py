@@ -1,0 +1,173 @@
+"""Prometheus-style metrics exporter — the src/exporter/ +
+pybind/mgr/prometheus analog.
+
+The reference exposes every daemon's PerfCounters in the Prometheus
+text exposition format, either from the mgr prometheus module or the
+standalone ceph-exporter scraping admin sockets. Here one HTTP
+endpoint renders the process-global ``perf_collection`` (every
+pipeline/daemon counter set registers there) the same way:
+
+- U64 counters      -> ``counter``
+- gauges            -> ``gauge``
+- time accumulators -> ``counter`` (seconds, ``_seconds`` suffix)
+- averages          -> ``_sum`` + ``_count`` (an untyped summary)
+- histograms        -> ``_bucket{le=...}`` cumulative + ``_count``
+                       + ``_sum``
+
+Metric name = ``ceph_tpu_<key>``; the owning counter-set's name rides
+in a ``set`` label (the reference labels by daemon the same way, e.g.
+``ceph_osd_op_w{ceph_daemon="osd.0"}``). Set names containing a
+``.pool.<name>`` segment split into a ``set`` + ``pool`` label pair
+(``objecter.pool.mypool`` -> ``set="objecter",pool="mypool"``), so
+per-pool accounting — the objecter's per-pool op/byte sets, the
+PGMap's per-pool gauges — lands as a proper Prometheus dimension. The server is a stdlib
+ThreadingHTTPServer on a background thread serving ``/metrics``.
+The ``ceph_tpu_`` prefix is the scrape contract this package shares
+with the JAX package: the same counters render the same text.
+"""
+
+from __future__ import annotations
+
+import http.server
+import threading
+
+from .perf_counters import CounterType, PerfCountersCollection
+from .perf_counters import perf_collection as _global_collection
+
+_PREFIX = "ceph_tpu"
+
+
+def _sanitize(name: str) -> str:
+    out = []
+    for ch in name:
+        out.append(ch if ch.isalnum() or ch == "_" else "_")
+    s = "".join(out)
+    return s if not s[:1].isdigit() else "_" + s
+
+
+def _escape_label(value: str) -> str:
+    return value.replace("\\", "\\\\").replace('"', '\\"').replace(
+        "\n", "\\n"
+    )
+
+
+def render_exposition(
+    collection: PerfCountersCollection | None = None,
+) -> str:
+    """Render every registered counter set in text exposition format
+    (one scrape = one consistent dump per set)."""
+    coll = collection if collection is not None else _global_collection
+    # metric -> (type string, [(labels, value), ...])
+    metrics: dict[str, tuple[str, list[tuple[str, object]]]] = {}
+
+    def emit(metric: str, typ: str, labels: str, value) -> None:
+        entry = metrics.setdefault(metric, (typ, []))
+        entry[1].append((labels, value))
+
+    for set_name, (schema, dump) in coll.snapshot().items():
+        # a trailing ".pool.<name>" segment becomes a pool label —
+        # only when <name> is the final dot-free component, so the
+        # per-PG pipeline sets ("osd.0.<pool>.<pg>.rmw", where a pool
+        # may legitimately be NAMED "pool") keep their plain label
+        base, sep, pool = set_name.rpartition(".pool.")
+        if sep and pool and "." not in pool:
+            label = (
+                f'pool="{_escape_label(pool)}",'
+                f'set="{_escape_label(base)}"'
+            )
+        else:
+            label = f'set="{_escape_label(set_name)}"'
+        for key, spec in schema.items():
+            metric = f"{_PREFIX}_{_sanitize(key)}"
+            v = dump[key]
+            t = spec["type"]
+            if t is CounterType.U64:
+                emit(metric, "counter", label, v)
+            elif t is CounterType.GAUGE:
+                emit(metric, "gauge", label, v)
+            elif t is CounterType.TIME:
+                emit(f"{metric}_seconds", "counter", label, v)
+            elif t is CounterType.AVG:
+                emit(f"{metric}_sum", "untyped", label, v["sum"])
+                emit(f"{metric}_count", "untyped", label, v["avgcount"])
+            elif t is CounterType.HISTOGRAM:
+                cum = 0
+                for bound, count in zip(
+                    v["buckets"], v["counts"][:-1]
+                ):
+                    cum += count
+                    emit(
+                        f"{metric}_bucket", "untyped",
+                        f'{label},le="{bound}"', cum,
+                    )
+                cum += v["counts"][-1]
+                emit(
+                    f"{metric}_bucket", "untyped",
+                    f'{label},le="+Inf"', cum,
+                )
+                emit(f"{metric}_count", "untyped", label, cum)
+                # value total (rate(sum)/rate(count) = live mean);
+                # older dumps without it render count-only
+                if "sum" in v:
+                    emit(
+                        f"{metric}_sum", "untyped", label, v["sum"]
+                    )
+    lines: list[str] = []
+    for metric in sorted(metrics):
+        typ, samples = metrics[metric]
+        if typ != "untyped":
+            lines.append(f"# TYPE {metric} {typ}")
+        for labels, value in samples:
+            lines.append(f"{metric}{{{labels}}} {value}")
+    return "\n".join(lines) + "\n"
+
+
+class _Handler(http.server.BaseHTTPRequestHandler):
+    def do_GET(self) -> None:  # noqa: N802 (stdlib contract)
+        if self.path.split("?")[0] not in ("/metrics", "/"):
+            self.send_error(404)
+            return
+        body = render_exposition(self.server.collection).encode()
+        self.send_response(200)
+        self.send_header(
+            "Content-Type", "text/plain; version=0.0.4; charset=utf-8"
+        )
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def log_message(self, *args) -> None:
+        pass  # scrapes must not spam the daemon's stderr
+
+
+class Exporter:
+    """HTTP /metrics endpoint on a background thread."""
+
+    def __init__(
+        self, collection: PerfCountersCollection | None = None
+    ) -> None:
+        self._collection = (
+            collection if collection is not None else _global_collection
+        )
+        self._server: http.server.ThreadingHTTPServer | None = None
+        self._thread: threading.Thread | None = None
+        self.addr: tuple[str, int] | None = None
+
+    def start(
+        self, host: str = "127.0.0.1", port: int = 0
+    ) -> tuple[str, int]:
+        srv = http.server.ThreadingHTTPServer((host, port), _Handler)
+        srv.collection = self._collection
+        self._server = srv
+        self.addr = srv.server_address
+        self._thread = threading.Thread(
+            target=srv.serve_forever, daemon=True
+        )
+        self._thread.start()
+        return self.addr
+
+    def stop(self) -> None:
+        if self._server is not None:
+            self._server.shutdown()
+            self._server.server_close()
+            self._server = None

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``ceph_tpu_torch``) on one card.
 
-Drives six paths through the package's public entry points, at
+Drives nine paths through the package's public entry points, at
 BlueStore's 4 KiB csum block, each counted on its own:
 
 1. set-up: the card's name and power limit; build the native host tier
@@ -110,7 +110,35 @@ BlueStore's 4 KiB csum block, each counted on its own:
    scrub of its PG reports it, ``scrub_all(repair=True)`` repairs it,
    and a further scrub is clean. Every read is held against a numpy
    model, every phase's routes, the ring's counters and the daemons'
-   ``osd.N.coalesce`` counters against ``predict_cluster``.
+   ``osd.N.coalesce`` counters against ``predict_cluster``;
+9. the bench CLI path, ``ceph_tpu_torch.bench_cli.run`` in-process, the
+   ``ceph_erasure_code_benchmark`` workloads at their default sizes:
+   ISA EC(8,4) encode of 80 MiB a call (Kernel A), decode of every
+   2-erasure pattern (66, then 100 timed; A or D by the pattern's
+   matrix, every decoded chunk byte-checked by the CLI), CLAY(8,4,d=11)
+   repair of 10 MiB chunks (Kernels E, A and F) and crc32c over 64 MiB
+   in 4 KiB blocks (Kernel C); each workload's two columns and GB/s
+   printed, its routes held to ``predict_bench``;
+10. the loadgen path, ``bench_cli loadgen --preset mixed`` in-process:
+   the repo's ``mixed`` preset (600 ops of 256 KiB objects over 128
+   objects, queue depth 16, zipfian) on 12 OSD daemons on the card,
+   jerasure ``reed_sol_van`` EC(8,4) (``LoadCluster``'s plugin) at a 4
+   KiB stripe unit, 32 PGs, the most-primary OSD
+   killed at op 200 and revived at op 400, the device clock and 8
+   captured traces, with the host/device crossovers at 64 KiB (codec)
+   and 32 KiB (checksum) so whole-object decodes and shard hashes reach
+   the card; the run must be green and its cluster scrub-clean, every
+   write's fused encode (alone or in a ring batch), RMW delta, decode
+   and hash is held to the driver's op counts and its recorded
+   decodes, and one ``Exporter`` scrape to the per-class op counts;
+   prints p99 (host and device clock), GB/s and the device idle share;
+11. the quorum path: a 3-rank ``MonQuorumService`` behind 12
+   ``OSDDaemon``s on the card (ISA EC(8,4), 4 KiB stripe unit, 32 PGs)
+   and 16 client threads: 64 objects of 4 MiB written (one Kernel B
+   launch each), the leader killed after the first 32, every surviving
+   rank holding every committed epoch, every object read back and then
+   read degraded with one OSD down (A or D per object, as the map's
+   holes and their matrices ask).
 
 Kernel launch counts and the ``ec_dispatch`` / ``checksum.backends``
 counters are zeroed just before each path and read just after it: every
@@ -1678,30 +1706,16 @@ def predict_pipeline(
             return {"backend.plain": n}
         return {"backend.kernel": n, "launch.crc32c_blocks": n}
 
-    def fused(n):
-        route = "kernel" if on_card else "plain"
-        out = {f"{route}_encode": n, "fused_encode": n}
-        if on_card:
-            out["launch.gf_apply_csum"] = n
-        return out
-
-    def merge(*parts):
-        out: dict[str, int] = {}
-        for part in parts:
-            for key, val in part.items():
-                out[key] = out.get(key, 0) + val
-        return out
-
     clean = PIPE_OBJECTS - PIPE_OVERWRITTEN  # objects whose HashInfo holds
     return {
         # two appends per object, csum blocks fused into the encode
-        "write": fused(2 * PIPE_OBJECTS),
+        "write": fused_writes(on_card, 2 * PIPE_OBJECTS),
         # a whole-stripe overwrite reads nothing and re-encodes, fused
-        "overwrite_full": fused(PIPE_OVERWRITTEN),
+        "overwrite_full": fused_writes(on_card, PIPE_OVERWRITTEN),
         # one chunk's delta applied to the four parity chunks
         "overwrite_small": apply("delta", PIPE_SMALL_OPS, PIPE_SMALL),
         # the same with no host route: each data shard's parity column
-        "overwrite_small_device": merge(*(
+        "overwrite_small_device": merge_routes(*(
             apply("delta", small_shards.count(s), PIPE_SMALL,
                   mat=coding[:, s:s + 1], limit=0)
             for s in sorted(set(small_shards)))),
@@ -1717,14 +1731,14 @@ def predict_pipeline(
             "decode", PIPE_OVERWRITTEN, k * PIPE_BIG // k),
         # parity shard 9 re-encoded from the k data shards, then the
         # objects with a HashInfo verified
-        "rebuild": merge(apply("decode", PIPE_OBJECTS, k * shard),
-                         crc(clean, shard)),
+        "rebuild": merge_routes(apply("decode", PIPE_OBJECTS, k * shard),
+                                crc(clean, shard)),
         # every shard of the clean objects; the overwritten ones have a
         # cleared HashInfo and read nothing
         "deep_scrub": crc(clean * (k + int(PIPE_PROFILE["m"])), shard),
         # one corrupt shard: scrub, rebuild from the other data shards
         # and the all-ones parity (an XOR), verify, scrub again
-        "scrub_repair": merge(
+        "scrub_repair": merge_routes(
             crc(2 * (k + int(PIPE_PROFILE["m"])) + 1, shard),
             apply("decode", 1, k * shard, mat=np.ones((1, k), np.uint8))),
         "model_check": {},
@@ -2127,12 +2141,6 @@ def predict_store(
     route = "kernel" if on_card else "plain"
     flip = 12345 // CSUM_BLOCK  # the flipped byte's csum block
 
-    def fused(count):
-        out = {f"{route}_encode": count, "fused_encode": count}
-        if on_card:
-            out["launch.gf_apply_csum"] = count
-        return out
-
     codec = registry.factory("isa", PIPE_PROFILE, device="cpu")
 
     def decode(count, lost):
@@ -2152,48 +2160,36 @@ def predict_store(
     def host_crc(count):
         return {"backend.host": count, "calls.crc32c": count}
 
-    def kernel_crc(count):
-        if not on_card:
-            return {"backend.plain": count}
-        return {"backend.kernel": count, "launch.crc32c_blocks": count}
-
-    def merge(*parts):
-        out: dict[str, int] = {}
-        for part in parts:
-            for key, val in part.items():
-                out[key] = out.get(key, 0) + val
-        return out
-
     return {
-        "coalesced_write": merge(fused(batches), {
+        "coalesced_write": merge_routes(fused_writes(on_card, batches), {
             "stream.ops": ops, "stream.batches": batches,
             "stream.batched_ops": batched_ops}),
-        "per_op_write": fused(ops),
+        "per_op_write": fused_writes(on_card, ops),
         # the k data shards of every object
         "read_back": host_crc(STORE_OBJECTS * k * blocks),
         # k survivors of every object, shard 0 decoded on the card (shard
         # 9 is a parity: only 0 is rebuilt); the ranges decode each
         # stripe's k survivor blocks on the host
-        "degraded_read": merge(
+        "degraded_read": merge_routes(
             decode(STORE_OBJECTS, {0}),
             host_crc(STORE_OBJECTS * k * blocks + k * range_stripes),
             {"host_decode": STORE_RANGES,
              "calls.gf_matrix_encode": range_stripes}),
         # k survivors read, shard 9 decoded, verified against HashInfo,
         # then written and hashed once
-        "rebuild": merge(decode(STORE_OBJECTS, {STORE_LOST}),
-                         kernel_crc(STORE_OBJECTS),
-                         host_crc(STORE_OBJECTS * (k + 1) * blocks)),
+        "rebuild": merge_routes(decode(STORE_OBJECTS, {STORE_LOST}),
+                                hashes(on_card, STORE_OBJECTS),
+                                host_crc(STORE_OBJECTS * (k + 1) * blocks)),
         "reopen_read_back": host_crc(STORE_OBJECTS * k * blocks),
-        "deep_scrub": merge(kernel_crc(STORE_OBJECTS * n),
-                            host_crc(STORE_OBJECTS * n * blocks)),
+        "deep_scrub": merge_routes(hashes(on_card, STORE_OBJECTS * n),
+                                   host_crc(STORE_OBJECTS * n * blocks)),
         # the read stops at the bad block; the scrub at it, after the
         # shards before it; the degraded read; the rebuild (as above);
         # the read-back; the clean scrub
-        "flipped_byte": merge(
+        "flipped_byte": merge_routes(
             host_crc(2 * (flip + 1) + STORE_FLIP_SHARD * blocks
                      + 3 * k * blocks + blocks + n * blocks),
-            kernel_crc(STORE_FLIP_SHARD + 1 + n),
+            hashes(on_card, STORE_FLIP_SHARD + 1 + n),
             decode(2, {STORE_FLIP_SHARD})),
     }
 
@@ -2528,7 +2524,11 @@ class ClusterRoutes(Routes):
         super().__init__()
         self.daemons = daemons  # every daemon started, stopped ones too
         self.decodes: list[tuple] = []
+        #: the codec that took each decode of ``decodes`` (its matrix
+        #: routes the call)
+        self.codecs: list = []
         self.phase_decodes: dict[str, list[tuple]] = {}
+        self.phase_codecs: dict[str, list] = {}
 
     def _now(self) -> dict[str, int]:
         from ceph_tpu_torch.pipeline.dispatcher import _stream_counters
@@ -2548,6 +2548,7 @@ class ClusterRoutes(Routes):
         with Routes.__call__(self, name):
             yield
         self.phase_decodes[name] = self.decodes[start:]
+        self.phase_codecs[name] = self.codecs[start:]
 
     @contextlib.contextmanager
     def recording(self):
@@ -2571,6 +2572,7 @@ class ClusterRoutes(Routes):
                         not any(isinstance(b, torch.Tensor) for b in bufs))
                 with lock:
                     self.decodes.append(call)
+                    self.codecs.append(codec)
             return orig(codec, want_to_read, chunks)
 
         MatrixErasureCodec.decode_chunks = decode_chunks
@@ -2578,6 +2580,32 @@ class ClusterRoutes(Routes):
             yield self
         finally:
             MatrixErasureCodec.decode_chunks = orig
+
+
+def wait_settled(mon, live, what: str, deadline_s: float = 300.0) -> None:
+    """Wait until a cluster is quiet: no pg_temp, every PG a live daemon
+    leads peered, no catch-up, backfill or peering pass in flight. Fails
+    loudly at the deadline."""
+    end = time.monotonic() + deadline_s
+    while True:
+        busy = [("pg_temp", key) for key in mon.osdmap.pg_temp]
+        for d in live:
+            with d._pg_lock:
+                pgs = list(d._pgs.items())
+            for (pl, pgid), pg in pgs:
+                if pg._catchup_inflight or pg.fsm._draining:
+                    busy.append((d.osd_id, pgid, "recovering"))
+                elif (mon.osdmap.pg_primary(pl, pgid) == d.osd_id
+                      and not pg.peered.is_set()):
+                    busy.append((d.osd_id, pgid, "peering"))
+            busy += [(d.osd_id, key, "backfill")
+                     for key, th in list(d._backfills.items())
+                     if th.is_alive()]
+        if not busy:
+            return
+        check(time.monotonic() < end, f"the cluster did not settle "
+              f"{what} within {deadline_s} s: {busy[:8]}")
+        time.sleep(0.05)
 
 
 def cluster_reads(osdmap, pool: str, oids, k: int, n: int) -> list[tuple]:
@@ -2622,61 +2650,36 @@ def predict_cluster(
     from ceph_tpu_torch.codecs import registry
     from ceph_tpu_torch.utils import config
 
-    route = "kernel" if on_card else "plain"
     limit = int(config.get("ec_host_dispatch_bytes"))
     codec = registry.factory("isa", PIPE_PROFILE, device="cpu")
 
-    def merge(*parts):
-        out: dict[str, int] = {}
-        for part in parts:
-            for key, val in part.items():
-                out[key] = out.get(key, 0) + val
-        return out
-
-    def fused(count):
-        out = {f"{route}_encode": count, "fused_encode": count}
-        if on_card and count:
-            out["launch.gf_apply_csum"] = count
-        return out if count else {}
-
-    def decode(present, want, nbytes, host):
-        if 0 < limit and host and nbytes <= limit:
-            return {"host_decode": 1}
-        mat = codec._build_decode_bytes(list(present), list(want))
-        if xor_route(on_card, mat):
-            return {"sched_decode": 1, "launch.xor_schedule": 1}
-        out = {f"{route}_decode": 1}
-        if on_card:
-            out["launch.gf_apply"] = 1
-        return out
-
     def decoded(phase):
-        return merge(*(decode(*call) for call in decodes.get(phase, [])))
-
-    def crc(count):
-        if not count:
-            return {}
-        if not on_card:
-            return {"backend.plain": count}
-        return {"backend.kernel": count, "launch.crc32c_blocks": count}
+        return merge_routes(*(decode_route(on_card, codec, call, limit)
+                              for call in decodes.get(phase, [])))
 
     return {
-        "write": fused(CLUSTER_OBJECTS),
-        "write_streaming": fused(CLUSTER_OBJECTS),
-        "write_ring": merge(fused(ring["batches"]), {
-            "stream.ops": CLUSTER_OBJECTS, "stream.batches": ring["batches"],
+        "write": fused_writes(on_card, CLUSTER_OBJECTS),
+        "write_streaming": fused_writes(on_card, CLUSTER_OBJECTS),
+        "write_ring": merge_routes(fused_writes(on_card, ring["batches"]), {
+            "stream.ops": CLUSTER_OBJECTS,
+            "stream.batches": ring["batches"],
             "stream.batched_ops": ring["batched_ops"]}),
         "read": {},
         "overwrite": {"host_delta": CLUSTER_OVERWRITES},
         "degraded_read": decoded("degraded_read"),
-        "degraded_write": fused(CLUSTER_DEGRADED_WRITES),
-        "catch_up": merge(decoded("catch_up"), crc(verifies["catch_up"])),
-        "backfill": merge(decoded("backfill"), crc(verifies["backfill"])),
+        "degraded_write": fused_writes(on_card, CLUSTER_DEGRADED_WRITES),
+        "catch_up": merge_routes(decoded("catch_up"),
+                                 hashes(on_card, verifies["catch_up"])),
+        "backfill": merge_routes(decoded("backfill"),
+                                 hashes(on_card, verifies["backfill"])),
         "read_recovered": decoded("read_recovered"),
-        "deep_scrub": crc(scrubbed["deep_scrub"]),
-        "flipped_byte_scrub": crc(scrubbed["flipped_byte_scrub"]),
-        "repair": merge(crc(scrubbed["repair"] + 1), decoded("repair")),
-        "scrub_after_repair": crc(scrubbed["scrub_after_repair"]),
+        "deep_scrub": hashes(on_card, scrubbed["deep_scrub"]),
+        "flipped_byte_scrub": hashes(on_card,
+                                     scrubbed["flipped_byte_scrub"]),
+        "repair": merge_routes(hashes(on_card, scrubbed["repair"] + 1),
+                               decoded("repair")),
+        "scrub_after_repair": hashes(on_card,
+                                     scrubbed["scrub_after_repair"]),
     }
 
 
@@ -2774,29 +2777,7 @@ def cluster_path(rng, dev) -> Counted:
             raise errors[0]
 
     def settle(live, what, deadline_s=300.0):
-        """Wait until the cluster is quiet: no pg_temp, every PG a live
-        daemon leads peered, no catch-up, backfill or peering pass in
-        flight. Fails loudly at the deadline."""
-        end = time.monotonic() + deadline_s
-        while True:
-            busy = [("pg_temp", key) for key in mon.osdmap.pg_temp]
-            for d in live:
-                with d._pg_lock:
-                    pgs = list(d._pgs.items())
-                for (pl, pgid), pg in pgs:
-                    if pg._catchup_inflight or pg.fsm._draining:
-                        busy.append((d.osd_id, pgid, "recovering"))
-                    elif (mon.osdmap.pg_primary(pl, pgid) == d.osd_id
-                          and not pg.peered.is_set()):
-                        busy.append((d.osd_id, pgid, "peering"))
-                busy += [(d.osd_id, key, "backfill")
-                         for key, th in list(d._backfills.items())
-                         if th.is_alive()]
-            if not busy:
-                return
-            check(time.monotonic() < end, f"the cluster did not settle "
-                  f"{what} within {deadline_s} s: {busy[:8]}")
-            time.sleep(0.05)
+        wait_settled(mon, live, what, deadline_s)
 
     def stores_of(daemons, objs):
         """{osd: {shard key: (bytes, HINFO attr)}} of ``objs``."""
@@ -3066,6 +3047,593 @@ def cluster_path(rng, dev) -> Counted:
     return counted
 
 
+# -- the bench CLI, loadgen and quorum paths -------------------------------
+
+#: the bench CLI path: ``ceph_erasure_code_benchmark``'s four codec
+#: workloads at their default sizes (80 MiB a call, 100 iterations; 64 MiB
+#: for the checksum)
+BENCH_WORKLOADS = (
+    ("encode", ["encode", "--plugin", "isa", "-P", "k=8", "-P", "m=4"]),
+    ("decode", ["decode", "--plugin", "isa", "-P", "k=8", "-P", "m=4",
+                "--erasures", "2", "--erasures-generation", "exhaustive"]),
+    ("repair", ["repair", "--plugin", "clay", "-P", "k=8", "-P", "m=4",
+                "-P", "d=11"]),
+    ("checksum", ["checksum", "--csum-alg", "crc32c", "--csum-block",
+                  str(CSUM_BLOCK), "--size", str(64 * MIB)]),
+)
+#: the loadgen path: the repo's ``mixed`` preset (600 ops of 256 KiB
+#: objects over 128 objects, queue depth 16, zipfian) on 12 OSDs, jerasure
+#: reed_sol_van EC(8,4) (LoadCluster's default plugin; its parity rows are
+#: not 0/1, so no decode is an XOR) at a 4 KiB stripe unit, 32 PGs, the
+#: most-primary OSD killed at op 200 and revived at op 400
+LOADGEN_ARGV = ["loadgen", "--preset", "mixed", "-P", "k=8", "-P", "m=4",
+                "--osds", "12", "--pg-num", "32", "--chunk-size", "4096",
+                "--fault-at", "200", "--revive-at", "400", "--device-clock",
+                "--trace-capture", "8"]
+#: the host/device crossovers of the loadgen run: the defaults (1 MiB for
+#: codec inputs, 256 KiB for checksum streams) keep every call of a 256 KiB
+#: object on the host; at these a whole-object decode (256 KiB of
+#: survivors) and a shard's hash (32 KiB) take the card, a 2 KiB RMW
+#: delta stays on the host tables
+LOADGEN_OVERRIDES = {"ec_host_dispatch_bytes": 64 * 1024,
+                     "csum_device_min_bytes": 32 * 1024,
+                     # the smoke scrubs once, itself, after the run: the
+                     # daemons' scheduler would scrub every PG whose stamp
+                     # (0 at boot) is an interval older than the host's
+                     # monotonic clock, in any phase, on some hosts only
+                     "osd_scrub_min_interval": 1e12,
+                     "osd_deep_scrub_interval": 1e12}
+LOADGEN_CLASSES = ("seq_write", "rand_write", "read", "reconstruct_read",
+                   "rmw_overwrite")
+#: DeviceClock.measure's encodes: one warm-up, then 3 runs of 24
+DEVICE_CLOCK_ENCODES = 1 + 3 * 24
+QUORUM_RANKS = 3
+QUORUM_OBJECTS = 64
+QUORUM_DOWN = 5  # stopped and marked down for the degraded read
+
+
+def merge_routes(*parts) -> dict[str, int]:
+    out: dict[str, int] = {}
+    for part in parts:
+        for key, val in part.items():
+            out[key] = out.get(key, 0) + val
+    return {key: val for key, val in out.items() if val}
+
+
+def decode_route(on_card: bool, codec, call: tuple, limit: int) -> dict:
+    """The route of one recorded decode (``ClusterRoutes``: present,
+    wanted, input bytes, host input) of ``codec``: host input at or below
+    ``limit`` (``ec_host_dispatch_bytes``) on the host GF tables, a
+    matrix of zeros and ones on Kernel D, any other on Kernel A; on the
+    CPU the plain forms."""
+    present, want, nbytes, host = call
+    if 0 < limit and host and nbytes <= limit:
+        return {"host_decode": 1}
+    mat = codec._build_decode_bytes(list(present), list(want))
+    if xor_route(on_card, mat):
+        return {"sched_decode": 1, "launch.xor_schedule": 1}
+    if not on_card:
+        return {"plain_decode": 1}
+    return {"kernel_decode": 1, "launch.gf_apply": 1}
+
+
+def recorded_routes(on_card: bool, routes, phase: str, limit: int) -> dict:
+    return merge_routes(*(
+        decode_route(on_card, codec, call, limit) for call, codec in zip(
+            routes.phase_decodes.get(phase, []),
+            routes.phase_codecs.get(phase, []))))
+
+
+def applies(on_card: bool, op: str, count: int) -> dict:
+    """``count`` GF(2^8) applies of CUDA tensors: Kernel A (plain on the
+    CPU)."""
+    if not on_card:
+        return {f"plain_{op}": count}
+    return {f"kernel_{op}": count, "launch.gf_apply": count}
+
+
+def hashes(on_card: bool, count: int) -> dict:
+    """``count`` checksum calls that take the device route: Kernel C."""
+    if not count:
+        return {}
+    if not on_card:
+        return {"backend.plain": count}
+    return {"backend.kernel": count, "launch.crc32c_blocks": count}
+
+
+def fused_writes(on_card: bool, count: int) -> dict:
+    """``count`` fused encode+csum calls: Kernel B."""
+    if not count:
+        return {}
+    out = {f"{'kernel' if on_card else 'plain'}_encode": count,
+           "fused_encode": count}
+    if on_card:
+        out["launch.gf_apply_csum"] = count
+    return out
+
+
+def predict_bench(on_card: bool, runs: dict, routes) -> dict:
+    """The routes of the bench CLI's workloads: each encode of CUDA
+    tensors one Kernel A launch (the warm-up call included); each decode
+    A or D by its matrix (``xor_route``); each CLAY repair one Kernel E,
+    one inner decode on Kernel A and one Kernel F, after one CLAY encode
+    (its inner decode of the parity row, routed by its matrix); each
+    checksum call one Kernel C launch. Inputs live on the card, so no
+    host route is taken."""
+    n_repair = runs["repair"].iterations + 12  # one warm-up per chunk
+    repair = merge_routes(applies(on_card, "decode", n_repair),
+                          recorded_routes(on_card, routes, "repair", 0))
+    if on_card:
+        repair.update({"launch.clay_uncoupled": n_repair,
+                       "launch.clay_couple_scatter": n_repair})
+    return {
+        "encode": applies(on_card, "encode", runs["encode"].iterations + 1),
+        "decode": merge_routes(applies(on_card, "encode", 1),
+                               recorded_routes(on_card, routes, "decode", 0)),
+        "repair": repair,
+        "checksum": hashes(on_card, runs["checksum"].iterations + 1),
+    }
+
+
+def bench_cli_path(dev) -> Counted:
+    """The bench CLI path: ``ceph_tpu_torch.bench_cli.run`` in-process
+    (so its launches count) for the encode, decode (every 2-erasure
+    pattern, each decoded chunk byte-checked by the CLI), CLAY repair and
+    checksum workloads, each workload's routes held to ``predict_bench``
+    and its decodes to the patterns the CLI generates."""
+    from itertools import combinations
+
+    from ceph_tpu_torch import bench_cli
+
+    routes = ClusterRoutes([])
+    runs = {}
+    with contextlib.ExitStack() as stack:
+        counted = stack.enter_context(Counted("bench_cli"))
+        stack.enter_context(routes.recording())
+        for name, argv in BENCH_WORKLOADS:
+            args = bench_cli.parse_args(argv + ["--device", dev.type])
+            with routes(name):
+                elapsed, kib = bench_cli.run(args)
+            runs[name] = args
+            print(f"bench_cli {name}: {elapsed:.6f}\t{int(kib)}  "
+                  f"({kib * 1024 / elapsed / 1e9:.3f} GB/s)")
+    on_card = dev.type == "cuda"
+    n = 12
+    patterns = list(combinations(range(n), 2))
+    want = [tuple(sorted(e)) for e in set(patterns)] + [
+        patterns[it % len(patterns)]
+        for it in range(runs["decode"].iterations)]
+    got = [call[1] for call in routes.phase_decodes["decode"]]
+    check(sorted(got) == sorted(want),
+          f"bench decode took {len(got)} decodes, the CLI's patterns ask "
+          f"for {len(want)}")
+    check(all(call[0] == tuple(i for i in range(n) if i not in call[1])
+              for call in routes.phase_decodes["decode"]),
+          "a bench decode was not given every surviving chunk")
+    predicted = predict_bench(on_card, runs, routes)
+    rows = {name: {key: val for key, val in row.items()
+                   if not key.startswith("coalesce.")}
+            for name, row in routes.rows.items()}
+    print("bench_cli route split: " + json.dumps(
+        {"predicted": predicted, "observed": rows}))
+    for phase, want_row in predicted.items():
+        check(rows.get(phase, {}) == want_row,
+              f"bench_cli {phase} routes {rows.get(phase)}, predicted "
+              f"{want_row}")
+    if on_card:
+        counted.check_routes(("gf_apply", "crc32c_blocks", "clay_uncoupled",
+                              "clay_couple_scatter"))
+    return counted
+
+
+def device_busy_us(prof) -> float:
+    """Device time summed over the kernels and copies a finished
+    torch.profiler run saw on the card (CUPTI's buffer requests
+    aside)."""
+    total = 0.0
+    for evt in prof.key_averages():
+        if not str(evt.device_type).endswith("CUDA"):
+            continue
+        if evt.key.startswith("Activity Buffer Request"):
+            continue
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0)
+        total += float(dev_us or 0)
+    return total
+
+
+def loadgen_path(dev) -> Counted:
+    """The loadgen path: ``bench_cli loadgen --preset mixed`` in-process
+    on 12 OSD daemons on the card, the most-primary OSD killed at op 200
+    and revived at op 400, with the device clock and 8 captured traces.
+    The run must be green (no verify failure, exactly once, recovered)
+    and its cluster scrub-clean (a scrub pass, without repair, before it
+    shuts down). Every write's fused encode is held to the driver's write
+    ops, every RMW delta to its overwrites (re-executions of ops resent
+    across the kill at most), every decode to its matrix, every hash to
+    Kernel C; an ``Exporter`` scrape matches the per-class op counts."""
+    import io
+    import urllib.request
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from ceph_tpu_torch import bench_cli, loadgen
+    from ceph_tpu_torch.loadgen.forensics import run_is_green
+    from ceph_tpu_torch.pipeline import recovery
+    from ceph_tpu_torch.pipeline.recovery import be_deep_scrub
+    from ceph_tpu_torch.utils import config
+    from ceph_tpu_torch.utils.exporter import Exporter
+    from ceph_tpu_torch.utils.perf_counters import perf_collection
+
+    on_card = dev.type == "cuda"
+    routes = ClusterRoutes([])
+    seen: dict = {}
+
+    def scrub_hashes(sinfo, backend, oid, hinfo=None, device="cuda"):
+        """``be_deep_scrub``, counting the hashes it will take: one a
+        stride of every live shard, when the HashInfo the scrub elected
+        from the shards' HINFO attrs holds hashes (an RMW overwrite
+        clears them)."""
+        if hinfo is not None and hinfo.get_total_chunk_size():
+            stride = max(int(config.get("osd_deep_scrub_stride")), 4096)
+            seen["hashed"] += len(backend.avail_shards()) * -(
+                -hinfo.get_total_chunk_size() // stride)
+        return be_deep_scrub(sinfo, backend, oid, hinfo=hinfo,
+                             device=device)
+
+    class SmokeCluster(loadgen.LoadCluster):
+        """The CLI's cluster: scrubbed once (no repair) before it shuts
+        down, the scrub counted as a phase of its own."""
+
+        def shutdown(self):
+            try:
+                # every PG instantiated on its primary (the scrub would
+                # instantiate the rest, and their peering may catch a
+                # stale shard up from the log mid-scrub), then the run's
+                # recovery left to finish
+                live = [self.daemons[i] for i in self.live_osds()]
+                osdmap = self.mon.osdmap
+                for pgid in range(osdmap.pools[self.pool].pg_num):
+                    self.daemons[osdmap.pg_primary(self.pool, pgid)]._get_pg(
+                        self.pool, pgid)
+                # quiet: settled, and no route moved over two ticks
+                end = time.monotonic() + 120.0
+                while True:
+                    wait_settled(self.mon, live, "after the loadgen run")
+                    before = routes._now()
+                    time.sleep(2 * self._tick_period)
+                    if routes._now() == before:
+                        break
+                    check(time.monotonic() < end, "the loadgen cluster "
+                          "did not go quiet after the run within 120 s")
+                seen["hashed"] = 0
+                recovery.be_deep_scrub = scrub_hashes
+                try:
+                    with routes("scrub"):
+                        seen["scrub_clean"] = self.scrub_clean(
+                            repair=False)
+                finally:
+                    recovery.be_deep_scrub = be_deep_scrub
+                seen["resends"] = perf_collection.dump()[
+                    "loadgen_client"]["op_resend"]
+            finally:
+                super().shutdown()
+
+    err = io.StringIO()
+    args = bench_cli.parse_args(LOADGEN_ARGV + ["--device", dev.type])
+    with contextlib.ExitStack() as stack:
+        counted = stack.enter_context(Counted("loadgen"))
+        stack.enter_context(routes.recording())
+        stack.enter_context(config.override(**LOADGEN_OVERRIDES))
+        real = loadgen.LoadCluster
+        loadgen.LoadCluster = SmokeCluster
+        stack.callback(setattr, loadgen, "LoadCluster", real)
+        prof = stack.enter_context(profile(
+            activities=[ProfilerActivity.CUDA])) if on_card else None
+        t0 = time.perf_counter()
+        with routes("run"), contextlib.redirect_stderr(err):
+            elapsed, kib = bench_cli.run(args)
+        wall_s = time.perf_counter() - t0
+    lines = err.getvalue().splitlines()
+    report = json.loads(next(ln for ln in reversed(lines)
+                             if ln.startswith("{")))
+    busy_s = device_busy_us(prof) / 1e6 if on_card else 0.0
+    green, why = run_is_green(report)
+    check(green, f"the loadgen run is not green: {why}")
+    check(report["verify_failures"] == 0 and report["exactly_once"]
+          and report.get("recovered") is True,
+          "the loadgen run failed a verify, lost an op or did not recover")
+    check(seen.get("scrub_clean") is True,
+          "the loadgen cluster is not scrub-clean after the run")
+    check(report["traces"]["captured"] == min(8, report["traces"][
+        "total_traces"]) > 0, "the loadgen run captured no traces")
+    check((report.get("lat_p99_ms_device") is not None) == on_card,
+          "the device clock did not report (or reported on the CPU)")
+    classes = report["classes"]
+    done = {c: classes[c]["ops"] + classes[c]["warmup_ops"]
+            for c in classes}
+    failed = {c: classes[c]["errors"] for c in classes}
+
+    # one Exporter scrape: the per-class counters equal the report's
+    exp = Exporter()
+    host, port = exp.start()
+    try:
+        with urllib.request.urlopen(f"http://{host}:{port}/metrics",
+                                    timeout=10) as resp:
+            text = resp.read().decode()
+    finally:
+        exp.stop()
+    scraped = dict.fromkeys(LOADGEN_CLASSES, 0)
+    for line in text.splitlines():
+        for cls in LOADGEN_CLASSES:
+            if line.startswith(f'ceph_tpu_ops_{cls}{{set="loadgen"}} '):
+                scraped[cls] = int(float(line.rpartition(" ")[2]))
+    check(scraped == {c: done.get(c, 0) for c in LOADGEN_CLASSES},
+          f"the exporter's per-class ops {scraped} differ from the "
+          f"report's {done}")
+
+    # -- routes: held to the driver's counts and the recorded decodes ---
+    rows = {name: {key: val for key, val in row.items()
+                   if not key.startswith("coalesce.")}
+            for name, row in routes.rows.items()}
+    run_row = rows["run"]
+    scrub_row = rows.get("scrub", {})
+    own = {key: run_row.get(key, 0) - scrub_row.get(key, 0)
+           for key in set(run_row) | set(scrub_row)}
+    writes = done.get("seq_write", 0) + done.get("rand_write", 0)
+    write_errs = failed.get("seq_write", 0) + failed.get("rand_write", 0)
+    patches = done.get("rmw_overwrite", 0)
+    reads = done.get("read", 0) + done.get("reconstruct_read", 0)
+    resends = seen["resends"]
+    # a write's encode runs alone (one fused launch) or, in a coalesced
+    # wave, staged in the ring (one fused launch a batch); an op resent
+    # across the kill may run twice
+    batches = own.get("stream.batches", 0)
+    ring_ops = own.get("stream.ops", 0)
+    alone = own.get("fused_encode", 0) - batches
+    deltas = own.get("host_delta", 0)
+    print("loadgen counts: " + json.dumps({
+        "done": done, "failed": failed, "resends": resends,
+        "writes_alone": alone, "writes_in_ring": ring_ops,
+        "ring_batches": batches, "host_deltas": deltas,
+        "decodes": len(routes.phase_decodes.get("run", [])),
+        "shards_scrubbed": seen["hashed"]}))
+    check(writes <= alone + ring_ops <= writes + write_errs + resends,
+          f"{alone} writes encoded alone and {ring_ops} in the ring for "
+          f"{writes} write ops ({write_errs} failed, {resends} resends)")
+    check(patches <= deltas <= patches + failed.get("rmw_overwrite", 0)
+          + resends, f"{deltas} host deltas for {patches} overwrites "
+          f"({resends} resends)")
+    check(batches <= ring_ops, f"{batches} ring batches for {ring_ops} ops")
+    verifies = sum(val for key, val in own.items()
+                   if key.startswith("backend.") and key != "backend.host")
+    limit = LOADGEN_OVERRIDES["ec_host_dispatch_bytes"]
+    clock = applies(on_card, "encode", DEVICE_CLOCK_ENCODES) if on_card \
+        else {}
+    ring = {f"stream.{key}": own.get(f"stream.{key}", 0)
+            for key in ("ops", "batches", "batched_ops")}
+    scrub = hashes(on_card, seen["hashed"])
+    predicted = {
+        # the run's own routes (the driver verifies each read with two
+        # host CRCs of 256 KiB; recovery verifies rebuilt shards on the
+        # card), then the scrub pass inside it
+        "run": merge_routes(
+            fused_writes(on_card, alone + batches), ring,
+            {"host_delta": deltas, "backend.host": 2 * reads}, clock,
+            recorded_routes(on_card, routes, "run", limit),
+            hashes(on_card, verifies), scrub),
+        "scrub": scrub,
+    }
+    observed = {"run": run_row, "scrub": scrub_row}
+    print("loadgen route split: " + json.dumps(
+        {"predicted": predicted, "observed": observed}))
+    for phase, want_row in predicted.items():
+        check(observed[phase] == want_row,
+              f"loadgen {phase} routes {observed[phase]}, predicted "
+              f"{want_row}")
+    check(all(len(call[1]) == 1 for call in routes.phase_decodes["run"]),
+          "a loadgen decode wanted more than the one killed OSD's shard")
+    if on_card:
+        for name in ("gf_apply_csum", "gf_apply", "crc32c_blocks"):
+            check(counted.launches[name] > 0,
+                  f"kernel {name} never launched on the loadgen path")
+    idle = 1.0 - busy_s / wall_s
+    print(f"loadgen: {elapsed:.6f}\t{int(kib)}  "
+          f"({report['gbps']:.6f} GB/s over the measured window; "
+          f"lat_p99_ms {report.get('lat_p99_ms')}, lat_p99_ms_device "
+          f"{report.get('lat_p99_ms_device')}, device idle share "
+          f"{idle:.4f} of {wall_s:.3f} s)")
+    print(json.dumps({"loadgen": {
+        "lat_p99_ms": report.get("lat_p99_ms"),
+        "lat_p99_ms_device": report.get("lat_p99_ms_device"),
+        "device_floor_ms": report.get("device_floor_ms"),
+        "gbps": report["gbps"], "iops": report["iops"],
+        "fault": report.get("fault"), "wall_s": wall_s,
+        "device_busy_s": busy_s, "device_idle_share": idle,
+        "ops": done, "errors": failed}}))
+    return counted
+
+
+def quorum_path(rng, dev) -> Counted:
+    """The quorum path: a 3-rank ``MonQuorumService`` behind 12
+    ``OSDDaemon``s on the card (ISA EC(8,4), 4 KiB stripe unit, 32 PGs)
+    and 16 client threads over TCP: 64 objects of 4 MiB written, the
+    leader killed after the first 32, the rest written; every surviving
+    rank holds every committed epoch; every object read back, then read
+    degraded with one OSD stopped and marked down through the new leader.
+    Routes: one Kernel B launch a write; each degraded object's decode
+    by its matrix, the decodes held to the map's holes."""
+    import threading
+
+    from ceph_tpu_torch.cluster import OSDDaemon, RadosClient
+    from ceph_tpu_torch.cluster.mon_quorum import (
+        MonQuorumService,
+        QuorumMonitor,
+    )
+    from ceph_tpu_torch.cluster.osdmap import Incremental, OSDMap
+    from ceph_tpu_torch.pipeline.dispatcher import shutdown_all
+    from ceph_tpu_torch.utils import config
+
+    k, m = int(PIPE_PROFILE["k"]), int(PIPE_PROFILE["m"])
+    n = k + m
+    size = OBJECT_BYTES
+    pool = "rbd"
+    oids = [f"rbd_data.q{i:015x}" for i in range(QUORUM_OBJECTS)]
+    model = {oid: rng.integers(0, 256, size, dtype=np.uint8) for oid in oids}
+    half = QUORUM_OBJECTS // 2
+    daemons: list = []
+    open_clients: list = []
+    ioctxs: list = []
+
+    def stop_all():
+        while open_clients:
+            open_clients.pop().shutdown()
+        for d in daemons:
+            if not d._stopped:
+                d.stop()
+        shutdown_all()
+
+    def clients(fn, items):
+        errors: list = []
+
+        def run(io, part):
+            try:
+                for item in part:
+                    fn(io, item)
+            except Exception as e:  # reported by the joining thread
+                errors.append(e)
+
+        threads = [threading.Thread(target=run,
+                                    args=(io, items[t::len(ioctxs)]),
+                                    name=f"quorum-client-{t}")
+                   for t, io in enumerate(ioctxs)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        check(not any(th.is_alive() for th in threads),
+              "a client thread of the quorum path hung")
+        if errors:
+            raise errors[0]
+
+    def write(io, oid):
+        io.write_full(oid, model[oid].tobytes())
+
+    def read(io, oid):
+        check(io.read(oid) == model[oid].tobytes(),
+              f"{oid} read back other bytes than were written")
+
+    def log_epochs(rank):
+        return [Incremental.from_bytes(b).epoch
+                for b in svc.paxos.nodes[rank].committed_values()]
+
+    routes = ClusterRoutes(daemons)
+    with contextlib.ExitStack() as stack:
+        stack.callback(stop_all)
+        stack.enter_context(config.override(csum_block_size=CSUM_BLOCK))
+        counted = stack.enter_context(Counted("quorum"))
+        stack.enter_context(routes.recording())
+        svc = MonQuorumService(QUORUM_RANKS, device=dev)
+        mon = QuorumMonitor(svc)
+        for i in range(CLUSTER_OSDS):
+            mon.osd_crush_add(i)
+        for i in range(CLUSTER_OSDS):
+            d = OSDDaemon(i, mon, chunk_size=PIPE_UNIT,
+                          tick_period=CLUSTER_TICK, device=dev)
+            now = time.monotonic()  # stamped as cluster_path's daemons
+            d._scrub_stamps.update(
+                {(pool, pg): [now, now] for pg in range(CLUSTER_PG_NUM)})
+            daemons.append(d)
+            d.start()
+        mon.osd_erasure_code_profile_set(
+            "isa84", {"plugin": "isa", **PIPE_PROFILE})
+        mon.osd_pool_create(pool, CLUSTER_PG_NUM, "isa84")
+        for _ in range(CLUSTER_CLIENTS):
+            client = RadosClient(mon, backoff=0.01)
+            open_clients.append(client)
+            ioctxs.append(client.open_ioctx(pool))
+        wait_settled(mon, daemons, "after boot")
+
+        with routes("write_before_kill"), Phase(
+                "quorum_write_before_kill", half * size):
+            clients(write, oids[:half])
+        leader0 = svc.leader_rank()
+        epoch_before = mon.osdmap.epoch
+        log_before = svc.paxos.nodes[leader0].committed_values()
+        svc.kill(leader0)
+        with routes("write_after_kill"), Phase(
+                "quorum_write_after_kill", (QUORUM_OBJECTS - half) * size):
+            clients(write, oids[half:])
+        with routes("read"), Phase("quorum_read", QUORUM_OBJECTS * size):
+            clients(read, oids)
+        daemons[QUORUM_DOWN].stop()
+        mon.osd_down(QUORUM_DOWN)  # committed through the new leader
+        leader1 = svc.leader_rank()
+        live = [d for d in daemons if d.osd_id != QUORUM_DOWN]
+        wait_settled(mon, live, f"after osd.{QUORUM_DOWN} went down")
+        want_reads = cluster_reads(mon.osdmap, pool, oids, k, n)
+        with routes("degraded_read"), Phase("quorum_degraded_read",
+                                            QUORUM_OBJECTS * size):
+            clients(read, oids)
+        svc.replicate()
+        final = mon.osdmap.epoch
+        survivors = [r for r in range(QUORUM_RANKS) if r != leader0]
+        logs = {r: log_epochs(r) for r in survivors}
+        maps = {r: svc.monitors[r].osdmap.to_bytes() for r in survivors}
+        rebuilt = {}
+        for r in survivors:
+            osdmap = OSDMap()
+            for blob in svc.paxos.nodes[r].committed_values():
+                osdmap = osdmap.apply(Incremental.from_bytes(blob))
+            rebuilt[r] = osdmap.to_bytes()
+        prefix = {r: svc.paxos.nodes[r].committed_values()[:len(log_before)]
+                  for r in survivors}
+
+    check(leader1 != leader0, f"mon.{leader0} was killed and still leads")
+    check(final > epoch_before, "no epoch was committed after the kill")
+    for r in survivors:
+        check(logs[r] == list(range(1, final + 1)),
+              f"mon.{r} holds epochs {logs[r][:3]}..{logs[r][-3:]}, want "
+              f"1..{final}")
+        check(prefix[r] == log_before,
+              f"mon.{r} lost or changed an epoch committed before the kill")
+        check(maps[r] == rebuilt[r] == mon.osdmap.to_bytes(),
+              f"mon.{r}'s map differs from its log or the leader's")
+    on_card = dev.type == "cuda"
+    got = sorted(call[:2] for call in routes.phase_decodes["degraded_read"])
+    check(got == sorted(want_reads), f"quorum degraded read decoded {got}, "
+          f"the map asks for {sorted(want_reads)}")
+    limit = int(config.get("ec_host_dispatch_bytes"))
+    predicted = {
+        "write_before_kill": fused_writes(on_card, half),
+        "write_after_kill": fused_writes(on_card, QUORUM_OBJECTS - half),
+        "read": {},
+        "degraded_read": recorded_routes(on_card, routes, "degraded_read",
+                                         limit),
+    }
+    rows = {name: {key: val for key, val in row.items()
+                   if not key.startswith("coalesce.")}
+            for name, row in routes.rows.items()}
+    print("quorum route split: " + json.dumps(
+        {"predicted": predicted, "observed": rows}))
+    for phase, want_row in predicted.items():
+        check(rows.get(phase, {}) == want_row,
+              f"quorum {phase} routes {rows.get(phase)}, predicted "
+              f"{want_row}")
+    if on_card:
+        check(counted.launches["gf_apply_csum"] > 0 and (
+            counted.launches["gf_apply"] + counted.launches["xor_schedule"]
+            > 0), "the quorum path launched no write or no decode kernel")
+    print(f"quorum outputs: {QUORUM_OBJECTS} objects of {size} B written "
+          f"by {CLUSTER_CLIENTS} clients, mon.{leader0} (leader) killed "
+          f"after {half}; mon.{leader1} leads; ranks {survivors} hold "
+          f"epochs 1..{final} ({epoch_before} before the kill); every "
+          f"object read back, and read degraded with osd.{QUORUM_DOWN} "
+          f"down ({len(want_reads)} decodes)")
+    return counted
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3124,6 +3692,12 @@ def main(argv=None) -> int:
     paths.append(store_path(rng, dev))
     torch.cuda.empty_cache()
     paths.append(cluster_path(rng, dev))
+    torch.cuda.empty_cache()
+    paths.append(bench_cli_path(dev))
+    torch.cuda.empty_cache()
+    paths.append(loadgen_path(dev))
+    torch.cuda.empty_cache()
+    paths.append(quorum_path(rng, dev))
 
     print(json.dumps({"phases": Phase.results}))
     kern_rows = []

@@ -23,7 +23,10 @@ threads through the streaming dispatcher's ring against the same
 appends per op on one thread (``store_phases``); and the cluster path
 (``cluster_phases``: 12 OSD daemons on the card, 16 clients over TCP,
 16 objects of 4 MiB): write, read-back, degraded read with two OSDs
-down (on a second cluster), deep scrub. Prints per phase:
+down (on a second cluster), deep scrub; and the loadgen path
+(``loadgen_phases``: ``bench_cli loadgen --preset mixed`` as the smoke
+runs it, one phase of its own cluster's boot, 600 ops with a kill and
+revive, recovery, and shutdown). Prints per phase:
 
 - host-clock time, and device busy time summed over kernels and copies
   (from the profiler's device events), hence the device idle share, and
@@ -31,14 +34,16 @@ down (on a second cluster), deep scrub. Prints per phase:
 - the launches of each of the port's kernels in the host-clock run
   (their ``launches`` counts, zeroed just before the phase);
 - the top device operations by total device time;
-- the top host functions by cumulative time (cProfile: it slows every
-  Python call, so its shares lean toward call-heavy code).
+- the top host functions by cumulative time and by self time
+  (cProfile: it slows every Python call, so its shares lean toward
+  call-heavy code; on Python 3.12 it sees every thread, so cumulative
+  times sum the threads' blocking waits).
 
 Writes the full report to ``chiprun_out/torch_slice_breakdown.json``.
 Not part of the package; imports nothing of JAX or ceph_tpu.
 
 Usage: python3 experiments/torch_slice_breakdown.py [--seed N]
-       [--only isa|schedule|clay|pipeline|store|cluster ...]
+       [--only isa|schedule|clay|pipeline|store|cluster|loadgen ...]
 """
 
 from __future__ import annotations
@@ -524,6 +529,38 @@ def cluster_phases(rng, dev_name="cuda"):
             "cluster_deep_scrub": deep_scrub}, (clients_made, daemons_made)
 
 
+def loadgen_phases(dev_name="cuda"):
+    """The loadgen path of ``chip_smoke.py``: ``bench_cli loadgen
+    --preset mixed`` in-process (600 ops of 256 KiB objects, queue depth
+    16, zipfian, on 12 OSD daemons on the card, jerasure reed_sol_van
+    EC(8,4) at a 4 KiB stripe unit, 32 PGs, the most-primary OSD killed
+    at op 200 and revived at op 400, the device clock and 8 captured
+    traces), under the
+    smoke's config (host/device crossovers of 64 KiB for codec inputs and
+    32 KiB for checksum streams, no scheduled scrubs). Each run boots its
+    own cluster; the JSON report of the last run is kept."""
+    import contextlib
+    import io
+
+    from chip_smoke import LOADGEN_ARGV, LOADGEN_OVERRIDES
+    from ceph_tpu_torch import bench_cli
+    from ceph_tpu_torch.utils import config
+
+    last: dict = {}
+
+    def run():
+        err = io.StringIO()
+        with config.override(**LOADGEN_OVERRIDES), \
+                contextlib.redirect_stderr(err):
+            bench_cli.run(bench_cli.parse_args(
+                LOADGEN_ARGV + ["--device", dev_name]))
+        lines = err.getvalue().splitlines()
+        last["report"] = json.loads(next(
+            ln for ln in reversed(lines) if ln.startswith("{")))
+
+    return {"loadgen": run}, last
+
+
 def device_time_us(prof, spans=()) -> tuple[float, list, int]:
     """Sum of device time over the kernels and copies the card ran, and
     the top ones, from a finished torch.profiler run. Only events that
@@ -554,9 +591,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", nargs="+",
                     choices=("isa", "schedule", "clay", "pipeline", "store",
-                             "cluster"),
+                             "cluster", "loadgen"),
                     default=("isa", "schedule", "clay", "pipeline",
-                             "store", "cluster"))
+                             "store", "cluster", "loadgen"))
     args = ap.parse_args(argv)
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -582,6 +619,10 @@ def main(argv=None) -> int:
         cluster_steps, cluster_parts = cluster_phases(
             np.random.default_rng(args.seed + 5))
         steps.update(cluster_steps)
+    loadgen_last: dict = {}
+    if "loadgen" in args.only:
+        loadgen_steps, loadgen_last = loadgen_phases()
+        steps.update(loadgen_steps)
     for fn in steps.values():  # warm-up: build, caches, tables
         fn()
     torch.cuda.synchronize()
@@ -622,11 +663,16 @@ def main(argv=None) -> int:
         cp.disable()
         buf = io.StringIO()
         pstats.Stats(cp, stream=buf).sort_stats("cumulative").print_stats(14)
+        # self time: where the host itself computes (cumulative time
+        # sums every thread's blocking waits as well)
+        own = io.StringIO()
+        pstats.Stats(cp, stream=own).sort_stats("tottime").print_stats(12)
         report["phases"][name] = {
             "wall_us": wall_us, "device_busy_us": busy_us,
             "device_idle_share": 1.0 - busy_us / wall_us,
             "device_ops": ops, "kernel_launches": launches,
             "top_device_ops": top_dev, "cprofile_top": buf.getvalue(),
+            "cprofile_self": own.getvalue(),
         }
         print(f"== {name}: {wall_us:.0f} us host clock, {busy_us:.0f} us "
               f"device busy, idle share {1 - busy_us / wall_us:.3f}, "
@@ -635,11 +681,25 @@ def main(argv=None) -> int:
             print(f"   device {row['device_us']:9.1f} us x{row['count']:<4} "
                   f"{row['name'][:70]}")
         print("\n".join(buf.getvalue().splitlines()[:40]))
+        print("\n".join(own.getvalue().splitlines()[:30]))
     for client in cluster_parts[0]:
         client.shutdown()
     for d in cluster_parts[1]:
         if not d._stopped:
             d.stop()
+    if loadgen_last:
+        rep = loadgen_last["report"]
+        report["loadgen_report"] = {
+            key: rep.get(key) for key in (
+                "duration_s", "gbps", "iops", "lat_p50_ms", "lat_p99_ms",
+                "lat_p99_ms_device", "device_floor_ms", "fault",
+                "verify_failures", "errors", "exactly_once", "recovered",
+                "op_coalesced", "subwrite_batches")}
+        report["loadgen_report"]["classes"] = {
+            cls: {k: e.get(k) for k in ("ops", "p50_ms", "p99_ms", "gbps")}
+            for cls, e in rep.get("classes", {}).items()}
+        print("loadgen report (last run): "
+              + json.dumps(report["loadgen_report"]))
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "torch_slice_breakdown.json").write_text(

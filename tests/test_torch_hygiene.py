@@ -119,7 +119,15 @@ def test_fresh_interpreter_loads_no_jax_or_reference():
         "ceph_tpu_torch.cluster.peering", "ceph_tpu_torch.cluster.qos",
         "ceph_tpu_torch.cluster.osd_daemon",
         "ceph_tpu_torch.cluster.objecter", "ceph_tpu_torch.cluster.mgr",
-        "ceph_tpu_torch.cluster.striper",
+        "ceph_tpu_torch.cluster.striper", "ceph_tpu_torch.cluster.paxos",
+        "ceph_tpu_torch.cluster.mon_quorum",
+        "ceph_tpu_torch.cluster.mon_store", "ceph_tpu_torch.utils.exporter",
+        "ceph_tpu_torch.utils.trace_assembly", "ceph_tpu_torch.bench_cli",
+        "ceph_tpu_torch.loadgen", "ceph_tpu_torch.loadgen.bench_phase",
+        "ceph_tpu_torch.loadgen.cluster", "ceph_tpu_torch.loadgen.driver",
+        "ceph_tpu_torch.loadgen.faults", "ceph_tpu_torch.loadgen.forensics",
+        "ceph_tpu_torch.loadgen.histogram", "ceph_tpu_torch.loadgen.recorder",
+        "ceph_tpu_torch.loadgen.spec",
     ):
         assert name in loaded
     assert [m for m in loaded if _forbidden(m)] == []
@@ -211,6 +219,44 @@ def test_default_device_entry_points_raise_without_a_card(no_card):
     # asking for the CPU is the way onto the plain path
     codec = registry.factory("isa", {"k": "4", "m": "2"}, device="cpu")
     assert codec.device == torch.device("cpu")
+    # the replicated monitor, the load generator's cluster and the bench
+    # CLI (whose --device defaults to cuda)
+    from ceph_tpu_torch import bench_cli
+    from ceph_tpu_torch.cluster.mon_quorum import MonQuorumService
+    from ceph_tpu_torch.loadgen import LoadCluster
+    from ceph_tpu_torch.loadgen.bench_phase import hol_probe_ms
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MonQuorumService(3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LoadCluster(n_osds=3, k=2, m=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hol_probe_ms(1)
+    for argv in (["encode", "--size", "4096"], ["repair", "--size", "4096"],
+                 ["checksum", "--size", "4096"],
+                 ["loadgen", "--smoke"]):
+        args = bench_cli.parse_args(argv)
+        assert args.device == "cuda"
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            bench_cli.run(args)
+
+
+@pytest.mark.parametrize("kw", [
+    {"use_mesh": True}, {"use_mesh": True, "mesh_devices": 1},
+    {"dcn_hosts": 2}, {"dcn_hosts": 1, "dcn_devices_per_host": 4},
+], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
+def test_multi_device_options_raise_instead_of_running_on_one(kw):
+    """The dispatch mesh and the DCN cluster belong to the multi-device
+    tier, which is not ported: LoadCluster refuses them before it boots
+    anything, on either device, rather than serve on one device."""
+    from ceph_tpu_torch.loadgen import LoadCluster
+
+    for device in ("cpu", "cuda"):
+        with pytest.raises(NotImplementedError, match="multi-device"):
+            LoadCluster(n_osds=3, k=2, m=1, device=device, **kw)
+    cluster = LoadCluster.__new__(LoadCluster)
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        cluster.kill_dcn_host(1)
 
 
 def test_codec_without_device_refuses_host_input():

@@ -698,3 +698,95 @@ def test_cluster_write_reaches_the_fused_kernel(cuda):
             client.shutdown()
         for d in daemons:
             d.stop()
+
+
+def _bench(argv, device, monkeypatch):
+    """``bench_cli.run`` on ``device``; every outermost codec output and
+    every checksum array it produced, as host bytes, and the launches."""
+    from ceph_tpu_torch import bench_cli
+    from ceph_tpu_torch.checksum import Checksummer
+    from ceph_tpu_torch.codecs import registry
+
+    log = []
+    orig, calc = registry.factory, Checksummer.calculate
+
+    def factory(*args, **kw):
+        codec = orig(*args, **kw)
+        for name in ("encode_chunks", "decode_chunks"):
+            fn = getattr(codec, name)
+
+            def wrapped(*a, _fn=fn, _name=name, **k):
+                out = _fn(*a, **k)
+                log.append((_name, {i: c.cpu().numpy().tobytes()
+                                    for i, c in sorted(out.items())}))
+                return out
+
+            setattr(codec, name, wrapped)
+        return codec
+
+    def calculate(self, *a, **k):
+        out = calc(self, *a, **k)
+        log.append(("calculate", np.asarray(out).tobytes()))
+        return out
+
+    with monkeypatch.context() as mp:
+        mp.setattr(registry, "factory", factory)
+        mp.setattr(Checksummer, "calculate", calculate)
+        before = _launches()
+        elapsed, kib = bench_cli.run(bench_cli.parse_args(
+            argv + ["--device", device]))
+        torch.cuda.synchronize()
+        grew = _grew(before, _launches())
+    return elapsed, kib, log, grew
+
+
+@pytest.mark.parametrize("argv,main,optional", [
+    (["encode", "-P", "k=8", "-P", "m=4", "--size", str(8 << 20),
+      "--iterations", "3"], "gf_apply", set()),
+    (["decode", "-P", "k=8", "-P", "m=4", "--size", str(4 << 20),
+      "--iterations", "12", "--erasures", "2",
+      "--erasures-generation", "exhaustive"], "gf_apply", {"xor_schedule"}),
+    (["checksum", "--csum-alg", "crc32c", "--csum-block", "4096",
+      "--size", str(8 << 20), "--iterations", "3"], "crc32c_blocks", set()),
+], ids=["encode", "decode", "checksum"])
+def test_bench_cli_on_the_card_matches_the_cpu(cuda, monkeypatch, argv,
+                                               main, optional):
+    """The bench CLI's encode, decode and checksum workloads on the card:
+    the KiB column and every output byte equal to ``--device cpu``, and
+    every launch on the card's kernels (none on the CPU run). A decode
+    whose matrix is an XOR may take Kernel D (``optional``)."""
+    t_gpu, kib_gpu, log_gpu, grew_gpu = _bench(argv, "cuda", monkeypatch)
+    t_cpu, kib_cpu, log_cpu, grew_cpu = _bench(argv, "cpu", monkeypatch)
+    assert t_gpu > 0 and kib_gpu == kib_cpu > 0
+    assert log_gpu and log_gpu == log_cpu
+    assert main in grew_gpu and set(grew_gpu) <= {main} | optional
+    assert all(v > 0 for v in grew_gpu.values())
+    assert grew_cpu == {}
+
+
+def test_device_clock_measures_on_the_card(cuda):
+    """DeviceClock.measure: a positive time per encode on the card, one
+    Kernel A launch per encode (warm-up included); None on the CPU."""
+    from ceph_tpu_torch.codecs import registry
+    from ceph_tpu_torch.loadgen import DeviceClock
+
+    codec = registry.factory("isa", {"k": "8", "m": "4"}, device=cuda)
+    before = _launches()
+    per = DeviceClock.measure(codec, 32768, iters=8, reps=2)
+    assert per is not None and 0 < per < 1.0
+    assert _grew(before, _launches()) == {"gf_apply": 1 + 8 * 2}
+    cpu = registry.factory("isa", {"k": "8", "m": "4"}, device="cpu")
+    assert DeviceClock.measure(cpu, 32768) is None
+
+
+def test_device_clock_of_a_cpu_cluster_is_none():
+    from ceph_tpu_torch.loadgen import DeviceClock, LoadCluster
+
+    cluster = LoadCluster(n_osds=4, k=2, m=1, pg_num=4, chunk_size=1024,
+                          device="cpu")
+    try:
+        codec = cluster.codec()
+        assert codec.device.type == "cpu"
+        assert DeviceClock.measure(codec, 4096) is None
+    finally:
+        cluster.shutdown()
