@@ -12,8 +12,16 @@ Hopper card:
   kernel, ``csrc/crc32c.cu``) and xxhash32/64 (``checksum``);
 - the OSD EC backend on the per-op path: stripe geometry, shard extent
   maps, HashInfo, the RMW write, the read pipeline, recovery and deep
-  scrub (``pipeline``) over MemStore shards (``store``), with the
-  runtime pieces they use (``utils``).
+  scrub (``pipeline``) over the object stores (``store``), with the
+  runtime pieces they use (``utils``);
+- the cluster tier (``cluster``, ``msg``, ``placement``), the load
+  generator and the bench CLI (``loadgen``, ``bench_cli``);
+- the tools: the dev-cluster CLI (``cli``), the golden corpus
+  (``corpus``), the offline store tool (``objectstore_tool``), the k/m
+  sweep (``bench_sweep``) and the compressors (``compressor``);
+- the multi-device tier (``parallel``): a (dp, sp) mesh of devices,
+  ring parity, the sequence-parallel CRC32C, the codecs' mesh route and
+  multi-process DCN hosts.
 
 Entry points run on the card unless the caller passes
 ``device="cpu"``; without a card they raise instead of running on the

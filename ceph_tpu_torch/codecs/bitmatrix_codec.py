@@ -30,8 +30,10 @@ Routing of one packet-matrix apply:
 A matrix over the schedule gate still runs on the XOR-schedule kernel,
 in selection form, counted in ``sched_rejected_density``, and
 ``ec_use_sched`` does not apply here: the GF(2^8) apply kernel takes at
-most 32 columns and a packet matrix has k*w of them. ``ceph_tpu``'s
-mesh and DCN routes are not ported (ROADMAP item 16).
+most 32 columns and a packet matrix has k*w of them. An installed DCN
+cluster or dispatch mesh outranks all of these (``dcn_*``, ``mesh_*``;
+``matrix_codec``'s routing): there each cell's block of the 0/1 matrix
+runs on Kernel A, split into launches of at most 32 rows and columns.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ from .matrix_codec import (
     BitplaneDispatchMixin,
     DecodeTableCache,
     _all_host,
+    _xor_into,
     dispatch_counters,
 )
 
@@ -227,13 +230,6 @@ def gf2w_power_bitmatrix(k: int, w: int = 8) -> bytes:
     return coding.tobytes()
 
 
-def _xor_into(parity: Buffer, contrib: Buffer) -> Buffer:
-    """parity XOR contrib, on the host when both are host arrays."""
-    if _all_host((parity, contrib)):
-        return np.bitwise_xor(parity, contrib)
-    return torch.bitwise_xor(to_tensor(parity, contrib.device), contrib)
-
-
 class BitMatrixCodec(BitplaneDispatchMixin, ErasureCodeBase):
     """Erasure codec driven by a [m*w, k*w] GF(2) coding matrix.
 
@@ -284,7 +280,18 @@ class BitMatrixCodec(BitplaneDispatchMixin, ErasureCodeBase):
     def _apply_packet_matrix(self, mat01: np.ndarray, stacked, op: str):
         """Apply a packet-level 0/1 matrix to [..., S, N] chunks:
         packetize (a view), route, de-packetize (a view). The plain
-        route runs the schedule the kernel would."""
+        route runs the schedule the kernel would. An installed DCN
+        cluster or mesh that takes the packet shape outranks the rest:
+        it applies the 0/1 matrix as a GF(2^8) byte matrix (each 1 the
+        identity) with Kernel A in each cell, every host's or cell's
+        chunk block keeping its own w packets."""
+        if self._multi_installed():
+            out = self._multi_dispatch(
+                np.kron(mat01, np.eye(8, dtype=np.uint8)),
+                self._to_packets(stacked), op,
+            )
+            if out is not None:
+                return self._to_chunks(out)
         if self._host_sized(stacked):
             from ceph_tpu_torch.gf import gf_apply_bytes_host
 

@@ -280,7 +280,7 @@ class LrcCodec(BitplaneDispatchMixin, ErasureCodeBase):
     def _encode_composite(self, data: dict[int, Buffer]) -> dict[int, Buffer]:
         """All layers as one matrix apply (see init)."""
         shards = self._shard_list(data)
-        if self._host_sized(*shards):
+        if self._shards_host_route(shards):
             from ceph_tpu_torch.gf import gf_apply_bytes_host
 
             dispatch_counters().inc("host_encode")

@@ -4,9 +4,18 @@ The shared engine under the matrix-style families (ISA-L RS/Cauchy) —
 the role ``ec_encode_data`` plays in the reference — where one launch
 encodes an arbitrary stripe batch.
 
-Routing of one matrix application (``ceph_tpu``'s, minus its mesh and
-DCN routes, which are not ported yet):
+Routing of one matrix application (``ceph_tpu``'s):
 
+- a DCN cluster installed (``parallel.dispatch.set_dcn``) and host
+  numpy input whose shard axis splits across its hosts: fanned across
+  the hosts' worker processes (``dcn_*``); if a host fails mid-op the
+  cluster is uninstalled, ``dcn_fallback`` counts it, the error is
+  logged, and the op goes on below;
+- a dispatch mesh installed (``parallel.dispatch.set_mesh``) with
+  ``ec_use_mesh`` on, and a shape the mesh takes: each (dp, sp) cell's
+  partial on Kernel A, ring-XOR combined (``mesh_*``); a shape it
+  cannot take counts ``mesh_fallback`` and goes on below. Both routes
+  outrank the host shortcut and the schedule kernel;
 - host numpy input at or below ``ec_host_dispatch_bytes``: the host GF
   tables, numpy out (``host_*`` counters);
 - a matrix whose entries are all 0 or 1 (the xor plugin, LRC xor-local
@@ -55,6 +64,8 @@ def dispatch_counters():
 
     b = PerfCountersBuilder(perf_collection, "ec_dispatch")
     for op in ("encode", "decode", "delta"):
+        b.add_u64_counter(f"dcn_{op}", f"{op}s fanned across DCN hosts")
+        b.add_u64_counter(f"mesh_{op}", f"{op}s sharded over the mesh")
         b.add_u64_counter(
             f"kernel_{op}", f"{op}s served by the GF(2^8) apply kernel"
         )
@@ -91,6 +102,18 @@ def dispatch_counters():
         "(ceph_tpu's tiling gates; the CUDA kernel takes every shape, so "
         "this stays 0 — kept for perf dump parity)",
     )
+    b.add_u64_counter(
+        "mesh_fallback",
+        "dispatches where a mesh was installed but neither the stripe "
+        "batch nor the lane axis divided dp (the shard axis always "
+        "zero-pads to sp) and a single-device route served the op",
+    )
+    b.add_u64_counter(
+        "dcn_fallback",
+        "dispatches where the DCN cluster failed mid-op (host death / "
+        "timeout): the cluster is uninstalled, a single-host route "
+        "serves the op, and the operator re-installs after repair",
+    )
     return b.create_perf_counters()
 
 
@@ -125,6 +148,16 @@ def _all_host(arrays) -> bool:
     return all(isinstance(a, np.ndarray) for a in arrays)
 
 
+def _xor_into(parity: Buffer, contrib: Buffer) -> Buffer:
+    """parity XOR contrib: on the host when both are host arrays, else
+    on the tensor's device (the DCN route answers host arrays, the
+    others tensors)."""
+    if _all_host((parity, contrib)):
+        return np.bitwise_xor(parity, contrib)
+    dev = (contrib if isinstance(contrib, torch.Tensor) else parity).device
+    return torch.bitwise_xor(to_tensor(parity, dev), to_tensor(contrib, dev))
+
+
 class BitplaneDispatchMixin:
     """Route one bitmatrix application to the host GF tables, the CUDA
     kernels or the plain PyTorch version, every route visible in the
@@ -143,6 +176,113 @@ class BitplaneDispatchMixin:
             and _all_host(arrays)
             and sum(a.nbytes for a in arrays) <= limit
         )
+
+    @staticmethod
+    def _active_mesh():
+        """The installed dispatch mesh, or None. Mesh routing wins over
+        every single-device path (the host small-op shortcut included):
+        when the operator installs a mesh, shard fan-out is the
+        system's dispatch, the way the reference's sub-op fan-out is its
+        distributed backend."""
+        from ceph_tpu_torch.utils import config
+
+        if not config.get("ec_use_mesh"):
+            return None
+        from ceph_tpu_torch.parallel import dispatch as mesh_dispatch
+
+        return mesh_dispatch.get_mesh()
+
+    @staticmethod
+    def _flat_shape(shape) -> tuple:
+        """[..., C, N] -> (B, C, N)."""
+        return (
+            int(np.prod(shape[:-2], initial=1)), shape[-2], shape[-1]
+        )
+
+    def _mesh_routable_shape(self, shape) -> bool:
+        """True when a mesh is active AND this stacked [..., C, N] shape
+        will ride it — shapes that would only hit ``mesh_fallback``
+        keep the host small-op shortcut."""
+        mesh = self._active_mesh()
+        if mesh is None:
+            return False
+        from ceph_tpu_torch.parallel import dispatch as mesh_dispatch
+
+        flat = self._flat_shape(shape)
+        return mesh_dispatch.mesh_supported(mesh, (0, flat[1] * 8), flat)
+
+    def _dcn_routable_shape(self, shape, host_staged: bool) -> bool:
+        """True when a DCN cluster is installed AND this host-staged
+        shape will ride it; like the mesh it outranks the host
+        shortcut, or small dispatches would never leave the host."""
+        from ceph_tpu_torch.parallel import dispatch as mesh_dispatch
+
+        dcn = mesh_dispatch.get_dcn()
+        if dcn is None or not host_staged:
+            return False
+        flat = self._flat_shape(shape)
+        return dcn.supported((0, flat[1] * 8), flat)
+
+    def _multi_routable(self, shards: list, w: int = 1) -> bool:
+        """Whether the mesh or DCN route takes these shards, probed with
+        the would-be stacked shape (w packets a shard)."""
+        shape = tuple(shards[0].shape)
+        probe = shape[:-1] + (len(shards) * w, shape[-1] // w)
+        return self._mesh_routable_shape(probe) or self._dcn_routable_shape(
+            probe, _all_host(shards)
+        )
+
+    def _multi_installed(self) -> bool:
+        from ceph_tpu_torch.parallel import dispatch as mesh_dispatch
+
+        return (self._active_mesh() is not None
+                or mesh_dispatch.get_dcn() is not None)
+
+    def _shards_host_route(self, shards: list) -> bool:
+        """One gate for every per-shard dispatch site: small host-staged
+        inputs take the host GF tables UNLESS a mesh or DCN cluster
+        wants the shape."""
+        return self._host_sized(*shards) and not self._multi_routable(shards)
+
+    def _multi_dispatch(self, bmat_np: np.ndarray, stacked, op: str):
+        """The DCN, then the mesh route for one [..., C, N] apply
+        (``ceph_tpu``'s order): the output [..., R, N], or None when
+        neither serves it. DCN takes host arrays only (device-resident
+        inputs stay on this device)."""
+        from ceph_tpu_torch.parallel import dispatch as mesh_dispatch
+
+        lead = tuple(stacked.shape[:-2])
+        dcn = mesh_dispatch.get_dcn()
+        if dcn is not None and isinstance(stacked, np.ndarray):
+            flat = stacked.reshape((-1,) + stacked.shape[-2:])
+            if dcn.supported(bmat_np.shape, flat.shape):
+                try:
+                    out = dcn.apply_bitmatrix(bmat_np, flat)
+                    dispatch_counters().inc(f"dcn_{op}")
+                    return out.reshape(lead + out.shape[-2:])
+                except Exception as e:
+                    # a dead or hung host must not wedge the data path:
+                    # uninstall the cluster (every later op would pay the
+                    # timeout again) and serve this op on a single-host
+                    # route, on this process's device
+                    dispatch_counters().inc("dcn_fallback")
+                    mesh_dispatch.set_dcn(None)
+                    from ceph_tpu_torch.utils.log import get_logger
+
+                    get_logger("ec-dcn").error(
+                        "DCN dispatch failed; cluster uninstalled:",
+                        type(e).__name__, str(e)[:200],
+                    )
+        mesh = self._active_mesh()
+        if mesh is None:
+            return None
+        flat = stacked.reshape((-1,) + tuple(stacked.shape[-2:]))
+        if not mesh_dispatch.mesh_supported(mesh, bmat_np.shape, flat.shape):
+            dispatch_counters().inc("mesh_fallback")
+            return None
+        dispatch_counters().inc(f"mesh_{op}")
+        out = mesh_dispatch.mesh_apply_bitmatrix(mesh, bmat_np, flat)
+        return out.reshape(lead + tuple(out.shape[-2:]))
 
     @staticmethod
     def _use_kernel(t: torch.Tensor) -> bool:
@@ -190,6 +330,9 @@ class BitplaneDispatchMixin:
         shape = tuple(shards[0].shape)
         if any(tuple(s.shape) != shape for s in shards[1:]):
             return None
+        # the mesh and DCN routes outrank the schedule kernel
+        if self._multi_routable(shards, w):
+            return None
         dev = next(
             (s.device for s in shards if isinstance(s, torch.Tensor)),
             None,
@@ -228,7 +371,14 @@ class BitplaneDispatchMixin:
         """Apply ``bmat_np`` [8R, 8C] to C shard buffers; returns R
         tensors. Host arrays go to the device stacked (one copy, the K1
         form); shards already on the card take the per-shard kernel
-        form (K2), which never stacks them."""
+        form (K2), which never stacks them. An installed DCN cluster or
+        mesh that takes the shape serves it first."""
+        if self._multi_installed():
+            stacked = (np.stack(shards, axis=-2) if _all_host(shards)
+                       else torch.stack(self._as_tensors(shards), dim=-2))
+            out = self._multi_dispatch(bmat_np, stacked, op)
+            if out is not None:
+                return [out[..., j, :] for j in range(out.shape[-2])]
         if _all_host(shards):
             stacked = to_tensor(
                 np.stack(shards, axis=-2), self._target_device()
@@ -298,6 +448,8 @@ class MatrixErasureCodec(BitplaneDispatchMixin, ErasureCodeBase):
         if not config.get("ec_fused_csum"):
             return None, None
         shards = self._shard_list(data)
+        if self._multi_routable(shards):
+            return None, None  # the multi-device routes own those shapes
         n = int(shards[0].shape[-1])
         if not cuda_encode.csum_supported(n, csum_block):
             dispatch_counters().inc("fused_fallback")
@@ -334,7 +486,7 @@ class MatrixErasureCodec(BitplaneDispatchMixin, ErasureCodeBase):
         )
 
     def _encode_shards(self, shards: list) -> list:
-        if self._host_sized(*shards):
+        if self._shards_host_route(shards):
             from ceph_tpu_torch.gf import gf_apply_bytes_host
 
             dispatch_counters().inc("host_encode")
@@ -366,7 +518,7 @@ class MatrixErasureCodec(BitplaneDispatchMixin, ErasureCodeBase):
             return {w: chunks[w] for w in want_to_read}
         key = (tuple(present), tuple(want))
         shards = [chunks[i] for i in present]
-        if self._host_sized(*shards):
+        if self._shards_host_route(shards):
             from ceph_tpu_torch.gf import gf_apply_bytes_host
 
             dispatch_counters().inc("host_decode")
@@ -441,7 +593,7 @@ class MatrixErasureCodec(BitplaneDispatchMixin, ErasureCodeBase):
         one small apply over just the changed columns."""
         cols = sorted(delta)
         shards = [delta[c] for c in cols]
-        if self._host_sized(*shards):
+        if self._shards_host_route(shards):
             from ceph_tpu_torch.gf import gf_apply_bytes_host
 
             dispatch_counters().inc("host_delta")
@@ -469,8 +621,6 @@ class MatrixErasureCodec(BitplaneDispatchMixin, ErasureCodeBase):
                 bmat_np, shards, "delta"
             )
         return {
-            pid: torch.bitwise_xor(
-                to_tensor(p, contribs[0].device), contribs[pid - self.k]
-            )
+            pid: _xor_into(p, contribs[pid - self.k])
             for pid, p in parity.items()
         }

@@ -26,9 +26,12 @@ Round 10 adds the serving-tier observables:
 - a scaling row: ``cluster_scale_osd<N>_gbps`` / ``_iops`` legs over
   OSD counts, and ``cluster_scale_chips<C>_gbps`` / ``_iops`` legs
   with the dispatch mesh installed over C devices (the chip axis) —
-  GB/s and IOPS vs OSD count / chip count in one run. The mesh is not
-  ported yet: only the one-chip leg runs, and a leg above one chip
-  raises ``NotImplementedError`` from ``LoadCluster``.
+  GB/s and IOPS vs OSD count / chip count in one run. The chip legs
+  count the box's physical devices of the cluster's device type (one
+  for the CPU) and ask the mesh for that many physical devices: a
+  scaling number is never measured over logical devices, so on one
+  card only the one-chip leg runs (a leg above it would raise the
+  mesh's ``ValueError``).
 
 Round 14 adds the observability-plane A/B: the same workload with
 the live-op tracker + tracer OFF (``cluster_gbps_tracked`` /
@@ -265,9 +268,9 @@ def measure_cluster(
         )
         result[f"cluster_scale_osd{n_osds}_gbps"] = rep["gbps"]
         result[f"cluster_scale_osd{n_osds}_iops"] = rep["iops"]
-    # the chip axis counts the cluster's device type (one for the
-    # CPU); a leg above one chip needs the dispatch mesh, which
-    # LoadCluster refuses until the multi-device tier is ported
+    # the chip axis counts the physical devices of the cluster's
+    # device type (one for the CPU); a leg above one chip installs the
+    # dispatch mesh over that many physical devices, never logical ones
     import torch
 
     n_dev = (

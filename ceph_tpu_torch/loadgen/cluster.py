@@ -9,9 +9,14 @@ MemStore by default: loadgen measures the service path, not the
 backing-store medium, unless a store factory says otherwise.
 
 The monitor and every daemon run on ``device`` (``"cuda"`` unless the
-caller asks for the CPU). The multi-device options (``use_mesh``,
-``dcn_hosts``) raise ``NotImplementedError``: the tier they install
-is not ported yet."""
+caller asks for the CPU). ``use_mesh`` installs the dispatch mesh and
+``dcn_hosts`` the DCN cluster (``parallel/``) before the daemons boot,
+so every encode, decode and delta they run rides the multi-device
+route. The mesh takes ``mesh_devices`` physical devices of ``device``'s
+type (asking for more than the box has raises ``ValueError``), or the
+devices named in ``mesh_device_list`` (logical devices, one card named
+several times). The DCN hosts join over gloo; a caller that needs NCCL
+builds a ``DcnCluster`` itself and installs it with ``set_dcn``."""
 
 from __future__ import annotations
 
@@ -46,6 +51,7 @@ class LoadCluster:
         dcn_devices_per_host: int = 1,
         dcn_data_timeout: float = 60.0,
         device="cuda",
+        mesh_device_list: list | None = None,
     ) -> None:
         if n_osds < k + m:
             raise ValueError(f"need >= k+m={k + m} OSDs, got {n_osds}")
@@ -54,15 +60,48 @@ class LoadCluster:
         self.k, self.m = k, m
         self.chunk_size = chunk_size
         self._tick_period = tick_period
+        # -- the multi-device tier wired into the live path: the
+        # daemons run in-process, so the process-wide dispatch mesh /
+        # DCN cluster (parallel/dispatch.py) is the live data path.
+        # Installed before the daemons boot so even the first op routes
+        # over it; shutdown() restores what was there.
+        self.mesh = None
+        self.dcn = None
+        self._prev_mesh = self._prev_dcn = None
         if use_mesh or dcn_hosts:
-            # the dispatch mesh and the DCN cluster live in the
-            # multi-device tier (``parallel/``), which this package does
-            # not have yet: refuse rather than run on one device
-            raise NotImplementedError(
-                "use_mesh / dcn_hosts need the multi-device tier "
-                "(parallel/), which is not ported yet (ROADMAP.md "
-                "Queue 1, the multi-device item)"
-            )
+            from ceph_tpu_torch.parallel import dispatch as mesh_dispatch
+
+            if use_mesh:
+                from ceph_tpu_torch.parallel import make_ec_mesh
+
+                # built first: a mesh the box cannot hold raises before
+                # anything boots
+                mesh = make_ec_mesh(
+                    mesh_devices, k=k, devices=mesh_device_list,
+                    device=device,
+                )
+            self._prev_mesh = mesh_dispatch.get_mesh()
+            self._prev_dcn = mesh_dispatch.get_dcn()
+            if dcn_hosts:
+                from ceph_tpu_torch.parallel.dcn import DcnCluster
+
+                self.dcn = DcnCluster(
+                    n_hosts=dcn_hosts,
+                    devices_per_host=dcn_devices_per_host,
+                    device=device, backend="gloo",
+                ).start()
+                # the data path must fail fast into the single-host
+                # fallback when a host dies mid-op (the client's retry
+                # ladder is seconds, not the raw op timeout)
+                self.dcn.apply_bitmatrix = (
+                    lambda bm, data, timeout=dcn_data_timeout,
+                    _orig=self.dcn.apply_bitmatrix:
+                    _orig(bm, data, timeout=timeout)
+                )
+                mesh_dispatch.set_dcn(self.dcn)
+            if use_mesh:
+                self.mesh = mesh
+                mesh_dispatch.set_mesh(self.mesh)
         from ceph_tpu_torch.utils.device import resolve_device
 
         #: where every daemon runs its codecs, HashInfo and scrub
@@ -343,13 +382,23 @@ class LoadCluster:
         profile = dict(self.mon.osdmap.profiles[spec.profile_name])
         return registry.factory(spec.plugin, profile, self.device)
 
+    # -- multi-device controls ------------------------------------------
     def kill_dcn_host(self, rank: int = 1) -> None:
-        """The ``dcn_kill`` fault: there is no DCN cluster in this
-        package (``dcn_hosts`` raises), so the event cannot fire."""
-        raise NotImplementedError(
-            "dcn_kill needs the multi-device tier (parallel/), which is "
-            "not ported yet (ROADMAP.md Queue 1, the multi-device item)"
-        )
+        """Hard-kill one DCN host process mid-run: the next op's
+        cross-host hop faults, the codec dispatcher uninstalls the
+        cluster and serves the op on a single-host route (counted in
+        ``dcn_fallback``), and the client's retry ladder carries any op
+        parked behind the fault to completion."""
+        if self.dcn is None:
+            raise RuntimeError("no DCN cluster installed")
+        self.dcn.procs[rank].kill()
+
+    def dcn_live(self) -> bool:
+        """True while the DCN cluster is still the installed dispatch
+        route (a mid-run host fault uninstalls it)."""
+        from ceph_tpu_torch.parallel import dispatch as mesh_dispatch
+
+        return mesh_dispatch.get_dcn() is self.dcn and self.dcn is not None
 
     def shutdown(self) -> None:
         from ceph_tpu_torch.msg.messenger import net_faults
@@ -360,3 +409,10 @@ class LoadCluster:
         self.client.shutdown()
         for d in self.daemons.values():
             d.stop()
+        if self.mesh is not None or self.dcn is not None:
+            from ceph_tpu_torch.parallel import dispatch as mesh_dispatch
+
+            mesh_dispatch.set_mesh(self._prev_mesh)
+            mesh_dispatch.set_dcn(self._prev_dcn)
+            if self.dcn is not None:
+                self.dcn.stop()

@@ -35,3 +35,20 @@ __all__ = [
     "Transaction",
 ]
 
+
+def open_store(data_path: str):
+    """Open an existing OSD store dir with the backend it was created
+    with: the ``backend`` marker the CLI writes, else device-file
+    detection. Shared by the dev-cluster CLI and the offline
+    objectstore tool so backend detection cannot diverge."""
+    import os
+
+    marker = os.path.join(data_path, "backend")
+    if os.path.exists(marker):
+        kind = open(marker).read().strip()
+    else:
+        kind = (
+            "block" if os.path.exists(os.path.join(data_path, "block"))
+            else "file"
+        )
+    return BlockStore(data_path) if kind == "block" else FileStore(data_path)

@@ -82,6 +82,15 @@ OPTIONS: tuple[Option, ...] = (
              "A/B arm, never a silent fallback",
     ),
     Option(
+        "ec_use_mesh", bool, True,
+        desc="when a dispatch mesh is installed "
+             "(parallel.dispatch.set_mesh), shard codec encode/decode/"
+             "delta over it (stripes on dp, shards on sp with zero-pad, "
+             "Kernel A in every cell, ring-XOR combine); falls back per "
+             "dispatch when neither the stripe batch nor the lane axis "
+             "divides dp",
+    ),
+    Option(
         "ec_fused_csum", bool, True,
         desc="let encode_chunks_with_csums fuse per-csum-block CRC32C "
              "into the encode launch (parity AND the k+m shards' block "

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``ceph_tpu_torch``) on one card.
 
-Drives nine paths through the package's public entry points, at
+Drives thirteen paths through the package's public entry points, at
 BlueStore's 4 KiB csum block, each counted on its own:
 
 1. set-up: the card's name and power limit; build the native host tier
@@ -138,7 +138,36 @@ BlueStore's 4 KiB csum block, each counted on its own:
    launch each), the leader killed after the first 32, every surviving
    rank holding every committed epoch, every object read back and then
    read degraded with one OSD down (A or D per object, as the map's
-   holes and their matrices ask).
+   holes and their matrices ask);
+12. the tools path: the compressor registry's ``tpu_zeroelim`` and
+   ``tpu_zlib`` over a 4 MiB buffer half of zero pages (the zero-block
+   mask a torch reduction on the card, counted; blobs equal to the CPU
+   form's, exact round trips); ``corpus.run_check`` of every shipped
+   entry (v0, v1, v2) on the card with the host crossovers at 0 (byte
+   and packet matrix entries held to a prediction from their matrices;
+   the LRC, SHEC and CLAY entries' A/D/E/F counts reported); the
+   dev-cluster CLI (``ceph_tpu_torch.cli.main``) over a state directory:
+   ``vstart`` of 12 BlockStore OSDs (EC(8,4) maps one shard to an OSD),
+   ``profile-set`` ISA k=8 m=4, ``pool-create``, ``put`` and ``get`` of a
+   4 MiB object, ``osd-down`` of a data shard's OSD, a degraded ``get``,
+   ``osd-up``, ``scrub`` and ``bench`` of 16 objects of 4 MiB, then a
+   3-mon quorum directory with one ``put`` and ``get``;
+   ``objectstore_tool`` list, info, export, import into a fresh
+   BlockStore and fsck of the stopped OSD's store (read back equal); and
+   ``bench_sweep --baseline`` (five configs, no error row);
+13. the multi-device path, over logical devices on one card (its times
+   are not scaling numbers): a (dp 2 x sp 4) mesh of 8 logical devices
+   runs ``sharded_encode`` and ``sharded_decode`` of EC(8,4) over 8
+   stripes x 8 x 1 MiB, ``ring_parity`` (against the all-reduce) and
+   ``sharded_crc32c`` of a 256 MiB + 4097 B object, each byte-equal to
+   single-device Kernel A or C; an RMW write and a reconstruct read
+   through ``use_mesh``; ``LoadCluster(use_mesh=True, mesh_devices=8)``
+   over 6 OSDs; and a DCN pair (2 hosts x 2 logical devices, gloo,
+   printed) that encodes and decodes on its hosts' mesh route, takes an
+   RMW write and a reconstruct read on ``dcn_*``, then loses a host and
+   serves the next op on ``dcn_fallback``. Every mesh cell launches Kernel A once a dispatch
+   (dp x sp launches), every CRC device Kernel C once, every DCN host
+   Kernel A once a local device an op.
 
 Kernel launch counts and the ``ec_dispatch`` / ``checksum.backends``
 counters are zeroed just before each path and read just after it: every
@@ -3634,6 +3663,756 @@ def quorum_path(rng, dev) -> Counted:
     return counted
 
 
+#: path 12 (tools): the compressor's buffer (half zero pages), the CLI
+#: cluster (EC(8,4) needs one OSD a shard: 12), its objects, the data
+#: position whose OSD goes down for the degraded get
+TOOLS_COMPRESS_BYTES = 4 * MIB
+TOOLS_CLI_OSDS = 12
+TOOLS_BENCH_COUNT = 16
+TOOLS_DOWN_POS = 1
+#: the CLI's daemons scrub only when the smoke asks: every boot starts
+#: fresh scrub clocks, which the scheduler would take as overdue
+CLI_OVERRIDES = {"osd_scrub_min_interval": 1e12,
+                 "osd_deep_scrub_interval": 1e12}
+#: the corpus entries are 31 KiB + 17 B: at the defaults every op of
+#: theirs stays on the host; at 0 the card serves them
+CORPUS_OVERRIDES = {"ec_host_dispatch_bytes": 0, "csum_device_min_bytes": 0}
+PACKET_TECHNIQUES = ("liberation", "blaum_roth", "liber8tion")
+#: path 13 (multi-device): the logical mesh (dp 2 x sp 4 at k = 8, the
+#: reference's 8-device dry run), the flagship dispatch of 8 stripes x 8
+#: x 1 MiB, the decode's lost shards, the sequence-parallel CRC's
+#: object (256 MiB, ragged), the DCN geometry and its stripes
+MESH_DEVICES = 8
+MESH_LOST = (0, 3)
+SEQ_CRC_BYTES = 256 * MIB + 4097
+DCN_HOSTS, DCN_DEVICES, DCN_STRIPES = 2, 2, 4
+DCN_BACKEND = "gloo"  # the hosts share one card: NCCL refuses that
+
+
+def stream_hashes(on_card: bool, count: int, nbytes: int) -> dict:
+    """``count`` host-array checksum streams of ``nbytes`` each: Kernel C
+    from ``csum_device_min_bytes`` up, the host scalar path below."""
+    from ceph_tpu_torch.utils import config
+
+    if nbytes < int(config.get("csum_device_min_bytes")):
+        return {"backend.host": count} if count else {}
+    return hashes(on_card, count)
+
+
+def corpus_groups() -> dict[str, list]:
+    """The shipped corpus entries (v0, v1, v2) by route family: byte
+    matrix codecs, packet (bit-matrix) codecs, and the layered ones."""
+    from ceph_tpu_torch import corpus
+
+    groups: dict[str, list] = {"matrix": [], "packet": [], "layered": []}
+    for version in ("v0", "v1", "v2"):
+        for entry in corpus.iter_entries(str(ROOT / "tests/corpus" / version)):
+            meta = json.loads((Path(entry) / "profile.json").read_text())
+            plugin, profile = meta["plugin"], meta["profile"]
+            if plugin in ("lrc", "shec", "clay"):
+                groups["layered"].append(entry)
+            elif profile.get("technique") in PACKET_TECHNIQUES:
+                groups["packet"].append(entry)
+            else:
+                groups["matrix"].append(entry)
+    return groups
+
+
+def predict_corpus(on_card: bool, entries, group: str) -> dict:
+    """The routes of ``corpus.run_check`` over ``entries`` with the host
+    crossovers at 0, from the codecs' matrices: one encode a entry and
+    one decode for every 1- and 2-erasure pattern, each of CUDA tensors.
+    A byte-matrix op whose rows are all 0/1 takes Kernel D, any other
+    Kernel A; a packet code's op takes Kernel D (the schedule kernel
+    runs a rejected matrix in selection form and counts it)."""
+    from itertools import combinations
+
+    from ceph_tpu_torch.codecs import registry
+    from ceph_tpu_torch.ops import xor_schedule
+    from ceph_tpu_torch.utils import config
+
+    out: list = []
+    for entry in entries:
+        meta = json.loads((Path(entry) / "profile.json").read_text())
+        codec = registry.factory(meta["plugin"], meta["profile"], "cpu")
+        n, m = codec.get_chunk_count(), codec.get_coding_chunk_count()
+        combos = [c for r in range(1, min(2, m) + 1)
+                  for c in combinations(range(n), r)]
+        if group == "packet":
+            mats = [codec.coding_bitmatrix] + [
+                codec._build_decode_bitmatrix(
+                    [i for i in range(n) if i not in c], list(c))
+                for c in combos]
+            for op, mat in zip(["encode"] + ["decode"] * len(combos), mats):
+                row = {f"{'sched' if on_card else 'plain'}_{op}": 1}
+                if on_card:
+                    row["launch.xor_schedule"] = 1
+                if on_card and xor_schedule.routable_schedule(
+                        mat, config.get("ec_sched_opt")) is None:
+                    row["sched_rejected_density"] = 1
+                out.append(row)
+            continue
+        parity = codec.generator[codec.k:]
+        if xor_route(on_card, parity):
+            out.append({"sched_encode": 1, "launch.xor_schedule": 1})
+        else:
+            out.append(applies(on_card, "encode", 1))
+        for c in combos:
+            present = tuple(i for i in range(n) if i not in c)
+            out.append(decode_route(on_card, codec, (present, c, 0, False), 0))
+    return merge_routes(*out)
+
+
+def predict_sweep(on_card: bool, routes) -> dict:
+    """The routes of ``bench_sweep --baseline``, from its configs: each
+    encode and checksum call one Kernel A or C launch (with the warm-up
+    call), each CLAY repair one Kernel E, inner decode (A) and F (with a
+    warm-up a chunk), after one CLAY encode whose inner decode is routed
+    by its matrix."""
+    from ceph_tpu_torch import bench_cli, bench_sweep
+
+    parts = [recorded_routes(on_card, routes, "bench_sweep", 0)]
+    for _name, argv in bench_sweep.BASELINE_CONFIGS:
+        args = bench_cli.parse_args(argv)
+        if args.workload == "encode":
+            parts.append(applies(on_card, "encode", args.iterations + 1))
+        elif args.workload == "checksum":
+            parts.append(hashes(on_card, args.iterations + 1))
+        else:  # CLAY (8,4,d=11) repair: one warm-up per chunk
+            n_repair = args.iterations + 12
+            parts.append(applies(on_card, "decode", n_repair))
+            if on_card:
+                parts.append({"launch.clay_uncoupled": n_repair,
+                              "launch.clay_couple_scatter": n_repair})
+    return merge_routes(*parts)
+
+
+@contextlib.contextmanager
+def stamped_daemons(*modules):
+    """While entered, every ``OSDDaemon`` that ``modules`` construct
+    stamps a PG's scrub clocks the first time it looks at it, as the
+    cluster path's daemons are stamped at boot. A daemon's scheduler
+    deep-scrubs a PG it has no stamp for one tick after boot (at any
+    interval), so the CLI's daemons, booted fresh for every command, and
+    a ``LoadCluster``'s would hash every shard in whatever phase follows;
+    stamped, only a phase that asks for a scrub scrubs."""
+    from ceph_tpu_torch.cluster import OSDDaemon
+
+    class Stamped(OSDDaemon):
+        def _scrub_due(self, key, now):
+            self._scrub_stamps.setdefault(key, [now, now])
+            return super()._scrub_due(key, now)
+
+    for mod in modules:
+        mod.OSDDaemon = Stamped
+    try:
+        yield
+    finally:
+        for mod in modules:
+            mod.OSDDaemon = OSDDaemon
+
+
+def wait_linked(mon, live, what: str, deadline_s: float = 120.0) -> None:
+    """Wait until every live daemon reaches every other up OSD over its
+    messenger and no PG holds a position back for catch-up, then until
+    the cluster is quiet (``wait_settled``). A daemon that boots before
+    a peer it shares a PG with holds that position out of reads until a
+    tick's catch-up re-admits it; a read in that window decodes around a
+    live shard."""
+    end = time.monotonic() + deadline_s
+    while True:
+        up = mon.osdmap.up_osds()
+        busy = []
+        for d in live:
+            unlinked = (up - {d.osd_id}) - d.peers.avail_shards()
+            if unlinked:
+                busy.append((d.osd_id, "unlinked", sorted(unlinked)))
+            with d._pg_lock:
+                pgs = list(d._pgs.items())
+            busy += [(d.osd_id, pgid, "held", sorted(pg.backend.recovering))
+                     for (_pl, pgid), pg in pgs if pg.backend.recovering]
+        if not busy:
+            break
+        check(time.monotonic() < end, f"the daemons did not link {what} "
+              f"within {deadline_s} s: {busy[:8]}")
+        time.sleep(0.05)
+    wait_settled(mon, live, what, max(end - time.monotonic(), 1.0))
+
+
+@contextlib.contextmanager
+def settled_cli():
+    """While entered, every CLI command boots stamped daemons
+    (``stamped_daemons``) and runs once its cluster is linked and quiet
+    (``wait_linked``): the CLI boots its daemons one after another, so a
+    command that reads right after boot could otherwise decode around a
+    shard whose daemon booted after the primary."""
+    from ceph_tpu_torch import cli
+
+    boot = cli.Cluster
+
+    class Settled(boot):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            wait_linked(self.mon, list(self.daemons.values()),
+                        f"after the CLI booted {self.root}")
+
+    cli.Cluster = Settled
+    try:
+        with stamped_daemons(cli):
+            yield
+    finally:
+        cli.Cluster = boot
+
+
+def tools_path(rng, dev) -> Counted:
+    """The tools path: the compressor's device scan (``tpu_zeroelim``,
+    ``tpu_zlib``) of a 4 MiB buffer that is half zero pages; ``corpus
+    check`` of every shipped entry (v0-v2) on the card; the dev-cluster
+    CLI over a state directory (12 BlockStore OSDs, an ISA EC(8,4) pool:
+    put and get of a 4 MiB object, a degraded get with one OSD down, the
+    OSD back, a scrub, ``bench`` of 16 objects of 4 MiB; then a 3-mon
+    quorum directory with one put and get); ``objectstore_tool`` list,
+    info, export, import into a fresh BlockStore and fsck of one stopped
+    OSD's store, read back equal; and ``bench_sweep --baseline``. Every
+    phase's routes are held to a prediction from its op sizes and
+    matrices; outputs to the CPU forms and the models."""
+    import collections
+    import io
+    import os
+    import tempfile
+
+    from ceph_tpu_torch import bench_sweep, cli, corpus, objectstore_tool
+    from ceph_tpu_torch.cluster.mon_store import MonStore
+    from ceph_tpu_torch.codecs import registry
+    from ceph_tpu_torch.compressor import registry as comp_registry
+    from ceph_tpu_torch.compressor import tpu_offload
+    from ceph_tpu_torch.store import BlockStore, open_store
+    from ceph_tpu_torch.utils import config
+
+    on_card = dev.type == "cuda"
+    k, m = int(PIPE_PROFILE["k"]), int(PIPE_PROFILE["m"])
+    n = k + m
+    routes = ClusterRoutes([])
+    predicted: dict[str, dict] = {}
+
+    def quiet(fn, *argv) -> tuple[int, str]:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = fn(list(argv))
+        return rc, out.getvalue()
+
+    def cli_run(state, *argv) -> str:
+        rc, out = quiet(cli.main, "-d", state, "--device", dev.type, *argv)
+        check(rc == 0, f"cli {argv} exited {rc}: {out[-400:]}")
+        return out
+
+    with contextlib.ExitStack() as stack:
+        tmp = stack.enter_context(tempfile.TemporaryDirectory(
+            prefix="smoke-tools-"))
+        counted = stack.enter_context(Counted("tools"))
+        stack.enter_context(routes.recording())
+
+        # -- compressor ---------------------------------------------------
+        pages = rng.integers(0, 256, (TOOLS_COMPRESS_BYTES // 4096, 4096),
+                             dtype=np.uint8)
+        pages[::2] = 0
+        buf = pages.tobytes()
+        names = ("tpu_zeroelim", "tpu_zlib")
+        masks0 = tpu_offload.device_masks()
+        with routes("compress"), Phase("tools_compress", 2 * len(buf)):
+            blobs = {nm: comp_registry.create(nm, device=dev).compress(buf)
+                     for nm in names}
+        masks = tpu_offload.device_masks() - masks0
+        for nm in names:
+            cpu_blob = comp_registry.create(nm, device="cpu").compress(buf)
+            check(blobs[nm] == cpu_blob,
+                  f"{nm}'s blob differs from its CPU form's")
+            check(comp_registry.create(nm, device=dev).decompress(
+                *blobs[nm]) == buf, f"{nm} did not round-trip")
+        check(masks == len(names), f"{masks} device masks, want one a "
+              f"compressor over {len(buf)} B (>= DEVICE_THRESHOLD)")
+        predicted["compress"] = {}
+        print(f"tools compressor: {len(buf)} B half zero pages -> "
+              + ", ".join(f"{nm} {len(blobs[nm][0])} B" for nm in names)
+              + f"; {masks} masks on {dev}")
+
+        # -- corpus check on the card --------------------------------------
+        groups = corpus_groups()
+        with config.override(**CORPUS_OVERRIDES):
+            for group, entries in groups.items():
+                nbytes = sum(json.loads((Path(e) / "profile.json")
+                                        .read_text())["size"]
+                             for e in entries)
+                with routes(f"corpus_{group}"), Phase(
+                        f"tools_corpus_{group}", nbytes):
+                    for entry in entries:
+                        errors = corpus.run_check(entry, device=dev)
+                        check(not errors, f"corpus {entry}: {errors}")
+                if group != "layered":
+                    predicted[f"corpus_{group}"] = predict_corpus(
+                        on_card, entries, group)
+        layered = routes.rows["corpus_layered"]
+        check(not any(key.startswith(("plain_", "host_"))
+                      for key in layered) or not on_card,
+              f"the layered corpus entries took {layered}")
+        print(f"tools corpus: {sum(map(len, groups.values()))} entries "
+              "checked on the card; A/D/E/F launches "
+              + json.dumps({g: {kk: v for kk, v in routes.rows[
+                  f"corpus_{g}"].items() if kk.startswith("launch.")}
+                  for g in groups}))
+
+        # -- the dev-cluster CLI -------------------------------------------
+        state = os.path.join(tmp, "cluster")
+        obj_in = os.path.join(tmp, "in.bin")
+        obj_out = os.path.join(tmp, "out.bin")
+        blob = rng.integers(0, 256, OBJECT_BYTES, dtype=np.uint8).tobytes()
+        with open(obj_in, "wb") as f:
+            f.write(blob)
+        stack.enter_context(config.override(**CLI_OVERRIDES))
+        stack.enter_context(settled_cli())
+        limit = int(config.get("ec_host_dispatch_bytes"))
+        with routes("cli_vstart"), Phase("tools_cli_vstart", 0):
+            cli_run(state, "vstart", "--osds", str(TOOLS_CLI_OSDS),
+                    "--store", "block")
+            cli_run(state, "profile-set", "isa84", "plugin=isa",
+                    *(f"{key}={val}" for key, val in PIPE_PROFILE.items()))
+            cli_run(state, "pool-create", "p", "8", "isa84")
+        with routes("cli_put"), Phase("tools_cli_put", len(blob)):
+            cli_run(state, "put", "p", "big", obj_in)
+        with routes("cli_get"), Phase("tools_cli_get", len(blob)):
+            cli_run(state, "get", "p", "big", obj_out)
+        check(Path(obj_out).read_bytes() == blob, "cli get returned other "
+              "bytes than were put")
+        osdmap, _ = MonStore(os.path.join(state, "mon", "store.log")).replay()
+        victim = osdmap.object_to_acting("p", "big")[TOOLS_DOWN_POS]
+        cli_run(state, "osd-down", str(victim))
+        osdmap, _ = MonStore(os.path.join(state, "mon", "store.log")).replay()
+        want_reads = cluster_reads(osdmap, "p", ["big"], k, n)
+        with routes("cli_degraded_get"), Phase("tools_cli_degraded_get",
+                                               len(blob)):
+            cli_run(state, "get", "p", "big", obj_out)
+        check(Path(obj_out).read_bytes() == blob, "the degraded cli get "
+              "returned other bytes than were put")
+        # the map's hole and nothing else is decoded: a position the
+        # daemons held back as well is listed with its count
+        got = sorted(call[:2] for call in
+                     routes.phase_decodes["cli_degraded_get"])
+        holes = {pos for _, want in want_reads for pos in want}
+        extra = collections.Counter(pos for _, want in got for pos in want
+                                    if pos not in holes)
+        check(got == sorted(want_reads), f"the degraded get decoded {got}, "
+              f"the map asks for {sorted(want_reads)}; positions past the "
+              f"map's hole: {dict(extra)}")
+        with routes("cli_osd_up"), Phase("tools_cli_osd_up", 0):
+            cli_run(state, "osd-up", str(victim))
+        with routes("cli_scrub"), Phase("tools_cli_scrub", len(blob) // k * n):
+            out = cli_run(state, "scrub")
+        check("scrubbed 1 objects: 0 inconsistent" in out, out)
+        bench_bytes = TOOLS_BENCH_COUNT * OBJECT_BYTES
+        with routes("cli_bench"), Phase("tools_cli_bench", 2 * bench_bytes):
+            out = cli_run(state, "bench", "p", "--size", str(OBJECT_BYTES),
+                          "--count", str(TOOLS_BENCH_COUNT))
+        bench = json.loads(out.strip().splitlines()[-1])
+        print(f"tools cli bench: {json.dumps(bench)}; the degraded get "
+              f"decoded {got} (positions past the map's hole: "
+              f"{dict(extra)})")
+        quorum = os.path.join(tmp, "quorum")
+        cli_run(quorum, "vstart", "--osds", str(TOOLS_CLI_OSDS), "--mons", "3")
+        cli_run(quorum, "profile-set", "isa84", "plugin=isa",
+                *(f"{key}={val}" for key, val in PIPE_PROFILE.items()))
+        cli_run(quorum, "pool-create", "p", "8", "isa84")
+        with routes("cli_quorum_put"), Phase("tools_cli_quorum_put",
+                                             len(blob)):
+            out = cli_run(quorum, "put", "p", "q", obj_in)
+        with routes("cli_quorum_get"), Phase("tools_cli_quorum_get",
+                                             len(blob)):
+            cli_run(quorum, "get", "p", "q", obj_out)
+        check(Path(obj_out).read_bytes() == blob, "the quorum cluster's get "
+              "returned other bytes than were put")
+        check("3 mons" in cli_run(quorum, "vstart", "--osds", "0"),
+              "the second directory did not boot a 3-mon quorum")
+        for phase in ("cli_get", "cli_quorum_get"):
+            calls = routes.phase_decodes[phase]
+            check(not calls, f"{phase} decoded {calls} with every OSD up")
+        codec = registry.factory("isa", PIPE_PROFILE, device="cpu")
+        predicted.update({
+            "cli_vstart": {},
+            "cli_put": fused_writes(on_card, 1),
+            # with every OSD up a get reads the data shards; with one
+            # down, one decode of the map's hole (the reads arrive as host
+            # bytes, the whole object's k shards)
+            "cli_get": {},
+            "cli_degraded_get": merge_routes(*(
+                decode_route(on_card, codec, (present, want, len(blob),
+                                              True), limit)
+                for present, want in want_reads)),
+            "cli_osd_up": {},
+            "cli_scrub": stream_hashes(on_card, n, len(blob) // k),
+            "cli_bench": fused_writes(on_card, TOOLS_BENCH_COUNT),
+            "cli_quorum_put": fused_writes(on_card, 1),
+            "cli_quorum_get": {},
+        })
+
+        # -- the offline store tool on a stopped OSD -------------------------
+        osd_dir = os.path.join(state, f"osd.{victim}")
+        fresh = os.path.join(tmp, "fresh")
+        archive = os.path.join(tmp, "export.bin")
+        BlockStore(fresh).close()
+        with open(os.path.join(fresh, "backend"), "w") as f:
+            f.write("block")
+        tool = ["--device", dev.type]
+        with routes("objectstore_tool"), Phase("tools_objectstore_tool",
+                                               len(blob) // k):
+            rc, out = quiet(objectstore_tool.main, "--data-path", osd_dir,
+                            "--op", "list", *tool)
+            rows = [json.loads(line) for line in out.splitlines()]
+            keys = [r["oid"] for r in rows if "big" in r["oid"]]
+            check(rc == 0 and len(keys) == 1, f"list: {rc} {out[-300:]}")
+            key = keys[0]  # the object's shard; the rest are PG metadata
+            rc, out = quiet(objectstore_tool.main, "--data-path", osd_dir,
+                            "--op", "info", key, *tool)
+            info = json.loads(out)
+            check(rc == 0 and info["hinfo"]["total_chunk_size"]
+                  == len(blob) // k, f"info: {out[-300:]}")
+            for argv in ((osd_dir, "export", "--file", archive),
+                         (fresh, "import", "--file", archive),
+                         (osd_dir, "fsck"), (fresh, "fsck")):
+                rc, out = quiet(objectstore_tool.main, "--data-path",
+                                argv[0], "--op", *argv[1:], *tool)
+                check(rc == 0, f"objectstore_tool {argv[1:]}: {out[-300:]}")
+        src, dst = open_store(osd_dir), open_store(fresh)
+        try:
+            names = src.list_objects()
+            check(dst.list_objects() == names and len(names) == len(rows),
+                  "the import holds other objects than the export")
+            for name in names:
+                check(src.read(name) == dst.read(name)
+                      and src.getattrs(name) == dst.getattrs(name),
+                      f"imported {name!r} reads back other bytes or attrs")
+        finally:
+            src.close()
+            dst.close()
+        predicted["objectstore_tool"] = {}
+
+        # -- bench_sweep --baseline ------------------------------------------
+        with routes("bench_sweep"), Phase("tools_bench_sweep", 0):
+            rc, out = quiet(bench_sweep.main, "--baseline", "--device",
+                            dev.type)
+        sweep_rows = [json.loads(line) for line in out.splitlines()
+                      if line.startswith("{")]
+        check(rc == 0 and len(sweep_rows) == len(
+            bench_sweep.BASELINE_CONFIGS) and not any(
+                "error" in row for row in sweep_rows),
+              f"bench_sweep --baseline: {rc} {sweep_rows}")
+        for row in sweep_rows:
+            print(f"tools bench_sweep: {json.dumps(row)}")
+        predicted["bench_sweep"] = predict_sweep(on_card, routes)
+
+    # BlockStore hashes its own 4 KiB blob csums on the host (store
+    # metadata, not a route of the card): the CLI and store-tool phases
+    # are compared without them
+    def card_routes(name, row):
+        drop = ("coalesce.", "stream.") + (
+            ("backend.host",) if name.startswith(("cli_", "objectstore"))
+            else ())
+        return {key: val for key, val in row.items()
+                if not key.startswith(drop)}
+
+    rows = {name: card_routes(name, row) for name, row in routes.rows.items()}
+    predicted = {name: card_routes(name, row)
+                 for name, row in predicted.items()}
+    print("tools route split: " + json.dumps(
+        {"predicted": predicted, "observed": rows}))
+    for phase, want_row in predicted.items():
+        check(rows.get(phase, {}) == want_row,
+              f"tools {phase} routes {rows.get(phase)}, predicted {want_row}")
+    if on_card:
+        for name in ("gf_apply", "gf_apply_csum", "crc32c_blocks",
+                     "xor_schedule", "clay_uncoupled", "clay_couple_scatter"):
+            check(counted.launches[name] > 0,
+                  f"kernel {name} never launched on the tools path")
+    return counted
+
+
+def mesh_reference(data, bm, dec_bm, present, crc_obj) -> dict:
+    """The single-device results the mesh's are held to: Kernel A over
+    the whole dispatch, the survivors ``present`` of data and parity,
+    Kernel A's decode of them, and Kernel C over the whole object."""
+    import torch
+
+    from ceph_tpu_torch.checksum.cuda_crc import crc32c_blocks
+    from ceph_tpu_torch.ops import cuda_encode
+
+    parity = cuda_encode.gf_apply(bm, data)
+    survivors = torch.cat([data, parity], dim=1)[:, list(present)]
+    survivors = survivors.contiguous()
+    return {
+        "parity": parity, "survivors": survivors,
+        "decoded": cuda_encode.gf_apply(dec_bm, survivors),
+        "crc": crc32c_blocks(crc_obj, 0xFFFFFFFF),
+    }
+
+
+def multi_device_path(rng, dev) -> Counted:
+    """The multi-device path, over logical devices on one card (not a
+    scaling number): a (dp 2 x sp 4) mesh of 8 logical devices —
+    ``sharded_encode`` and ``sharded_decode`` of ISA EC(8,4) over 8
+    stripes x 8 x 1 MiB, ``ring_parity`` against the all-reduce schedule,
+    ``sharded_crc32c`` of a ragged 256 MiB object — each byte-equal to
+    single-device Kernel A or C; the codec route through ``use_mesh`` (a
+    4 MiB RMW write and a reconstruct read over 12 MemStores); a live
+    ``LoadCluster(use_mesh=True, mesh_devices=8)`` over 6 OSDs; and a
+    DCN pair of 2 hosts x 2 logical devices over gloo (encode and
+    decode on the hosts, an RMW write and a reconstruct read on
+    ``dcn_*``, then one host killed and the next op served on
+    ``dcn_fallback``). Each cell of a mesh launches
+    Kernel A once a dispatch: dp x sp launches; each device of the CRC
+    one Kernel C; each DCN host one Kernel A a local device."""
+    import torch
+
+    from ceph_tpu_torch.codecs import registry
+    from ceph_tpu_torch.gf import decode_matrix, gf_matrix_to_bitmatrix
+    from ceph_tpu_torch.loadgen import LoadCluster
+    from ceph_tpu_torch.loadgen import cluster as loadgen_cluster
+    from ceph_tpu_torch.ops import cuda_encode
+    from ceph_tpu_torch.parallel import (
+        make_ec_mesh,
+        ring_parity,
+        sharded_crc32c,
+        sharded_decode,
+        sharded_encode,
+        use_dcn,
+        use_mesh,
+    )
+    from ceph_tpu_torch.parallel.dcn import DcnCluster
+    from ceph_tpu_torch.pipeline import ShardExtentMap, StripeInfo
+    from ceph_tpu_torch.pipeline.rmw import RMWPipeline, ShardBackend
+    from ceph_tpu_torch.store import MemStore
+    from ceph_tpu_torch.utils import config
+
+    on_card = dev.type == "cuda"
+    k, m = int(PIPE_PROFILE["k"]), int(PIPE_PROFILE["m"])
+    n = k + m
+    codec = registry.factory("isa", PIPE_PROFILE, device=dev)
+    bm = codec._encode_bmat_np
+    present = [i for i in range(n) if i not in MESH_LOST][:k]
+    dec_bm = gf_matrix_to_bitmatrix(
+        decode_matrix(codec.generator, k, present)[list(MESH_LOST)])
+    data = rand_on(rng, dev, (STRIPES, k, CHUNK))
+    crc_obj = rand_on(rng, dev, (1, SEQ_CRC_BYTES))
+    ref = mesh_reference(data, bm, dec_bm, present, crc_obj)
+    survivors = ref["survivors"]
+    mesh = make_ec_mesh(MESH_DEVICES, k=k, devices=[dev] * MESH_DEVICES)
+    cells = mesh.size
+    routes = Routes()
+    predicted: dict[str, dict] = {}
+
+    def launches(kernel: str, count: int) -> dict:
+        return {f"launch.{kernel}": count} if on_card else {}
+
+    with contextlib.ExitStack() as stack:
+        counted = stack.enter_context(Counted("multi_device"))
+        nbytes = STRIPES * k * CHUNK
+        print(f"mesh: {mesh} (logical devices on one card)")
+        # one untimed round first: the allocator's and the per-shape
+        # caches' first touch is not the ops' time
+        sharded_encode(mesh, bm, data)
+        ring_parity(mesh, bm, data)
+        sharded_crc32c(mesh, crc_obj)
+        with routes("mesh_encode"), Phase("logical_mesh_encode", nbytes):
+            parity = sharded_encode(mesh, bm, data)
+        with routes("mesh_decode"), Phase("logical_mesh_decode", nbytes):
+            decoded = sharded_decode(mesh, dec_bm, survivors)
+        with routes("mesh_ring_parity"), Phase("logical_mesh_ring_parity", nbytes):
+            ring = ring_parity(mesh, bm, data)
+        with routes("mesh_crc"), Phase("logical_mesh_sequence_parallel_crc32c",
+                                       SEQ_CRC_BYTES):
+            crc = sharded_crc32c(mesh, crc_obj)
+        check(torch.equal(parity, ref["parity"]),
+              "sharded_encode differs from single-device Kernel A")
+        check(torch.equal(ring, parity), "ring_parity differs from the "
+              "all-reduce schedule")
+        check(torch.equal(decoded, ref["decoded"]),
+              "sharded_decode differs from single-device Kernel A")
+        check(torch.equal(crc.to(ref["crc"].device), ref["crc"]),
+              "sharded_crc32c differs from Kernel C over the whole object")
+        predicted.update({
+            "mesh_encode": launches("gf_apply", cells),
+            "mesh_decode": launches("gf_apply", cells),
+            "mesh_ring_parity": launches("gf_apply", cells),
+            "mesh_crc": launches("crc32c_blocks", cells),
+        })
+
+        # -- the codec route: an RMW write and a reconstruct read ----------
+        sinfo = StripeInfo(k, m, k * PIPE_UNIT)
+        backend = ShardBackend({s: MemStore(f"osd.{s}") for s in range(n)})
+        pipe = RMWPipeline(sinfo, codec, backend)
+        payload = rng.integers(0, 256, OBJECT_BYTES, dtype=np.uint8)
+        with use_mesh(mesh):
+            with routes("mesh_rmw_write"), Phase("logical_mesh_rmw_write",
+                                                 OBJECT_BYTES):
+                pipe.submit("obj", 0, payload.tobytes())
+            lost = {sinfo.get_shard(i) for i in MESH_LOST}
+            smap = ShardExtentMap(sinfo)
+            for shard, store in backend.stores.items():
+                if shard not in lost:
+                    smap.insert(shard, 0, np.frombuffer(store.read("obj"),
+                                                        np.uint8))
+            with routes("mesh_reconstruct"), Phase("logical_mesh_reconstruct",
+                                                   OBJECT_BYTES):
+                smap.decode(codec, lost, OBJECT_BYTES)
+        for shard in lost:
+            want = backend.stores[shard].read("obj")
+            got = smap.get(shard, 0, len(want))
+            check(np.array_equal(np.asarray(got), np.frombuffer(
+                want, np.uint8)), f"the mesh reconstruct of shard {shard} "
+                "differs from the written shard")
+        # the multi-device routes own the encode, so HashInfo hashes each
+        # shard's stream itself (no fused csums)
+        predicted["mesh_rmw_write"] = merge_routes(
+            {"mesh_encode": 1}, launches("gf_apply", cells),
+            stream_hashes(on_card, n, OBJECT_BYTES // k))
+        predicted["mesh_reconstruct"] = merge_routes(
+            {"mesh_decode": 1}, launches("gf_apply", cells))
+
+        # -- a live cluster on the mesh --------------------------------------
+        live_objects, live_bytes, live_k, live_m = 6, 16384, 4, 2
+        with routes("mesh_live_cluster"), Phase(
+                "logical_mesh_live_cluster", 2 * live_objects * live_bytes
+        ), stamped_daemons(loadgen_cluster):
+            cluster = LoadCluster(
+                n_osds=6, k=live_k, m=live_m, pg_num=2, chunk_size=2048,
+                pool="meshpool", use_mesh=True, mesh_devices=MESH_DEVICES,
+                mesh_device_list=[dev] * MESH_DEVICES, device=dev)
+            try:
+                wait_linked(cluster.mon, list(cluster.daemons.values()),
+                            "after the mesh cluster booted")
+                blobs = [rng.integers(0, 256, live_bytes, dtype=np.uint8)
+                         .tobytes() for _ in range(live_objects)]
+                comps = [cluster.io.aio_write_full(f"m{i}", b)
+                         for i, b in enumerate(blobs)]
+                for c in comps:
+                    c.wait_for_complete(60)
+                    check(c.is_complete(), "a mesh cluster write hung")
+                for i, b in enumerate(blobs):
+                    check(cluster.io.read(f"m{i}") == b,
+                          f"mesh cluster object m{i} read back wrong")
+                live_cells = cluster.mesh.size
+            finally:
+                cluster.shutdown()
+        # each write is one encode on the mesh (the daemons coalesce
+        # concurrent writes' bookkeeping, not their encodes: the
+        # streaming ring is off), one Kernel A launch a cell, and a host
+        # csum of each of its k + m shards (4 KiB, under
+        # csum_device_min_bytes) for the HashInfo; the reads take the
+        # data shards and decode nothing
+        predicted["mesh_live_cluster"] = merge_routes(
+            {"mesh_encode": live_objects},
+            launches("gf_apply", live_objects * live_cells),
+            {"backend.host": (live_k + live_m) * live_objects})
+
+        # -- DCN: 2 hosts x 2 logical devices over gloo ------------------
+        host = data[:DCN_STRIPES].cpu().numpy()
+        dcn = DcnCluster(DCN_HOSTS, DCN_DEVICES, device=dev,
+                         backend=DCN_BACKEND)
+        with Phase("logical_dcn_start", 0):
+            dcn.start()
+        stack.callback(dcn.stop)
+        print(f"dcn: {DCN_HOSTS} hosts x {DCN_DEVICES} logical devices on "
+              f"{dev}, backend {dcn.backend}")
+        per_op = DCN_HOSTS * DCN_DEVICES
+        dcn_bytes = DCN_STRIPES * k * CHUNK
+        with Phase("logical_dcn_encode", dcn_bytes):
+            dparity, counters = dcn.encode("isa", PIPE_PROFILE, host)
+        check(np.array_equal(dparity, ref["parity"][:DCN_STRIPES]
+                             .cpu().numpy()),
+              "the DCN encode differs from single-device Kernel A")
+        check(all(c.get("mesh_encode") == 1 for c in counters.values()),
+              f"DCN hosts' counters {counters}")
+        with Phase("logical_dcn_decode", dcn_bytes):
+            ddec, counters = dcn.decode(
+                "isa", PIPE_PROFILE, present, list(MESH_LOST),
+                survivors[:DCN_STRIPES].cpu().numpy())
+        check(np.array_equal(ddec, ref["decoded"][:DCN_STRIPES]
+                             .cpu().numpy()),
+              "the DCN decode differs from single-device Kernel A")
+        host_codec = registry.factory("isa", PIPE_PROFILE, device=dev)
+        dbackend = ShardBackend({s: MemStore(f"osd.{s}") for s in range(n)})
+        dpipe = RMWPipeline(sinfo, host_codec, dbackend)
+        # a half chunk into data chunks 0 and 1: a parity delta of two
+        # columns (read 2 + 4 ties the re-encode's 6; a tie takes the
+        # delta), which splits over the two hosts
+        patch = rng.integers(0, 256, PIPE_UNIT, dtype=np.uint8)
+        off = PIPE_UNIT // 2
+        with use_dcn(dcn), routes("dcn_rmw"), Phase(
+                "logical_dcn_rmw_write", OBJECT_BYTES + len(patch)):
+            dpipe.submit("obj", 0, payload.tobytes())
+            dpipe.submit("obj", off, patch.tobytes())
+        model = payload.copy()
+        model[off:off + len(patch)] = patch
+        stripes = model.reshape(-1, k, PIPE_UNIT)
+        want_parity = cuda_encode.gf_apply(bm, torch.from_numpy(stripes)
+                                           .to(dev)).cpu().numpy()
+        for j in range(m):
+            got = np.frombuffer(dbackend.stores[sinfo.get_shard(k + j)]
+                                .read("obj"), np.uint8)
+            check(np.array_equal(got.reshape(-1, PIPE_UNIT),
+                                 want_parity[:, j]),
+                  f"DCN RMW parity shard {k + j} differs from Kernel A's")
+        drow = routes.rows["dcn_rmw"]
+        predicted["dcn_rmw"] = merge_routes(
+            {"dcn_encode": 1, "dcn_delta": 1},
+            stream_hashes(on_card, n, OBJECT_BYTES // k))
+        # the reconstruct read of two lost shards from the host-staged
+        # survivors rides the hosts too
+        lost = {sinfo.get_shard(i) for i in MESH_LOST}
+        dsmap = ShardExtentMap(sinfo)
+        for shard, store in dbackend.stores.items():
+            if shard not in lost:
+                dsmap.insert(shard, 0, np.frombuffer(store.read("obj"),
+                                                     np.uint8))
+        with use_dcn(dcn), routes("dcn_reconstruct"), Phase(
+                "logical_dcn_reconstruct", OBJECT_BYTES):
+            dsmap.decode(host_codec, lost, OBJECT_BYTES)
+        for shard in lost:
+            want = dbackend.stores[shard].read("obj")
+            check(np.array_equal(np.asarray(dsmap.get(shard, 0, len(want))),
+                                 np.frombuffer(want, np.uint8)),
+                  f"the DCN reconstruct of shard {shard} differs from the "
+                  "written shard")
+        predicted["dcn_reconstruct"] = {"dcn_decode": 1}
+        worker_launches = dcn.kernel_launches
+        ops = 3 + drow.get("dcn_encode", 0) + drow.get("dcn_delta", 0)
+        check(not on_card or worker_launches == ops * per_op,
+              f"DCN hosts launched Kernel A {worker_launches} times for "
+              f"{ops} ops, want {per_op} an op")
+        # one host dies without goodbye: the next op fails over
+        dcn.procs[1].kill()
+        dcn.procs[1].wait(timeout=60)
+        one = {i: host[0, i] for i in range(k)}
+        with use_dcn(dcn), routes("dcn_fallback"), Phase(
+                "logical_dcn_dead_host_encode", k * CHUNK):
+            dcn.apply_bitmatrix = lambda bmx, d: DcnCluster.apply_bitmatrix(
+                dcn, bmx, d, timeout=10.0)
+            fell = host_codec.encode_chunks(one)
+        for j in range(m):
+            check(np.array_equal(np.asarray(fell[k + j].cpu()),
+                                 ref["parity"][0, j].cpu().numpy()),
+                  f"the op after the host kill gave wrong parity {k + j}")
+        predicted["dcn_fallback"] = merge_routes(
+            {"dcn_fallback": 1}, applies(on_card, "encode", 1))
+
+    rows = dict(routes.rows)
+    print("multi_device route split: " + json.dumps(
+        {"predicted": predicted, "observed": rows}))
+    print(f"dcn hosts' Kernel A launches: {worker_launches} over {ops} ops")
+    for phase, want_row in predicted.items():
+        check(rows.get(phase, {}) == want_row,
+              f"multi_device {phase} routes {rows.get(phase)}, predicted "
+              f"{want_row}")
+    return counted
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3698,6 +4477,10 @@ def main(argv=None) -> int:
     paths.append(loadgen_path(dev))
     torch.cuda.empty_cache()
     paths.append(quorum_path(rng, dev))
+    torch.cuda.empty_cache()
+    paths.append(tools_path(rng, dev))
+    torch.cuda.empty_cache()
+    paths.append(multi_device_path(rng, dev))
 
     print(json.dumps({"phases": Phase.results}))
     kern_rows = []

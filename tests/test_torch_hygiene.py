@@ -35,6 +35,7 @@ SOURCES = sorted(PKG.rglob("*.py")) + [
     ROOT / "chip_smoke.py",
     ROOT / "experiments" / "torch_slice_breakdown.py",
     ROOT / "experiments" / "torch_kernel_variants.py",
+    ROOT / "experiments" / "torch_multi_card.py",
 ]
 
 
@@ -88,6 +89,15 @@ def test_fresh_interpreter_loads_no_jax_or_reference():
         f"sys.path.insert(0, {str(ROOT)!r})\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "import chip_smoke\n"
+        # the DCN worker's entry, as ``python -m`` runs it, up to its
+        # argument parsing, and everything its worker body imports
+        "import runpy, contextlib, io\n"
+        "sys.argv = ['dcn', '--help']\n"
+        "with contextlib.suppress(SystemExit), "
+        "contextlib.redirect_stdout(io.StringIO()):\n"
+        "    runpy.run_module('ceph_tpu_torch.parallel.dcn', "
+        "run_name='__main__')\n"
+        "import torch.distributed\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     out = subprocess.run(
@@ -127,7 +137,14 @@ def test_fresh_interpreter_loads_no_jax_or_reference():
         "ceph_tpu_torch.loadgen.cluster", "ceph_tpu_torch.loadgen.driver",
         "ceph_tpu_torch.loadgen.faults", "ceph_tpu_torch.loadgen.forensics",
         "ceph_tpu_torch.loadgen.histogram", "ceph_tpu_torch.loadgen.recorder",
-        "ceph_tpu_torch.loadgen.spec",
+        "ceph_tpu_torch.loadgen.spec", "ceph_tpu_torch.compressor",
+        "ceph_tpu_torch.compressor.compressor",
+        "ceph_tpu_torch.compressor.tpu_offload", "ceph_tpu_torch.corpus",
+        "ceph_tpu_torch.objectstore_tool", "ceph_tpu_torch.bench_sweep",
+        "ceph_tpu_torch.cli", "ceph_tpu_torch.parallel",
+        "ceph_tpu_torch.parallel.mesh", "ceph_tpu_torch.parallel.collectives",
+        "ceph_tpu_torch.parallel.dispatch", "ceph_tpu_torch.parallel.dcn",
+        "torch.distributed",
     ):
         assert name in loaded
     assert [m for m in loaded if _forbidden(m)] == []
@@ -239,24 +256,119 @@ def test_default_device_entry_points_raise_without_a_card(no_card):
         assert args.device == "cuda"
         with pytest.raises(RuntimeError, match="no CUDA device"):
             bench_cli.run(args)
+    # the compressor registry, the tools, the CLI's cluster and the
+    # multi-device tier
+    from ceph_tpu_torch import bench_sweep, cli, corpus, objectstore_tool
+    from ceph_tpu_torch.compressor import registry as comp_registry
+    from ceph_tpu_torch.parallel import make_ec_mesh
+    from ceph_tpu_torch.parallel.dcn import DcnCluster
+
+    from ceph_tpu_torch.compressor.tpu_offload import TpuZeroElimCompressor
+
+    for name in comp_registry.names():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            comp_registry.create(name)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TpuZeroElimCompressor()  # built directly, not through the registry
+    v0 = ROOT / "tests" / "corpus" / "v0"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        corpus.run_check(str(next(iter(corpus.iter_entries(str(v0))))))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        corpus.main(["check", "--base", str(v0)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        objectstore_tool.main(["--data-path", str(v0), "--op", "list"])
+    assert bench_sweep.parse_args(["--baseline"]).device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_sweep.run_baseline()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.Cluster(str(ROOT / "no-such-state-dir"))
+    assert cli.build_parser().parse_args(
+        ["-d", "x", "status"]).device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_ec_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DcnCluster(2, 2)
 
 
-@pytest.mark.parametrize("kw", [
-    {"use_mesh": True}, {"use_mesh": True, "mesh_devices": 1},
-    {"dcn_hosts": 2}, {"dcn_hosts": 1, "dcn_devices_per_host": 4},
-], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
-def test_multi_device_options_raise_instead_of_running_on_one(kw):
-    """The dispatch mesh and the DCN cluster belong to the multi-device
-    tier, which is not ported: LoadCluster refuses them before it boots
-    anything, on either device, rather than serve on one device."""
+def _mesh_too_many_devices():
+    """Without named devices, a mesh over more physical devices than
+    the box has is refused before anything boots, on either device."""
     from ceph_tpu_torch.loadgen import LoadCluster
 
-    for device in ("cpu", "cuda"):
-        with pytest.raises(NotImplementedError, match="multi-device"):
-            LoadCluster(n_osds=3, k=2, m=1, device=device, **kw)
-    cluster = LoadCluster.__new__(LoadCluster)
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    for device, n_physical in (("cpu", 1),
+                               ("cuda", torch.cuda.device_count())):
+        with pytest.raises(ValueError, match="requested"):
+            LoadCluster(n_osds=3, k=2, m=1, device=device, use_mesh=True,
+                        mesh_devices=n_physical + 1)
+
+
+def _mesh_one_device():
+    """mesh_devices=1 installs a real 1x1 mesh for the cluster's life."""
+    from ceph_tpu_torch.loadgen import LoadCluster
+    from ceph_tpu_torch.parallel import dispatch
+
+    cluster = LoadCluster(n_osds=3, k=2, m=1, pg_num=2, device="cpu",
+                          use_mesh=True, mesh_devices=1)
+    try:
+        assert dispatch.get_mesh() is cluster.mesh
+        assert cluster.mesh.shape == {"dp": 1, "sp": 1}
+        assert not cluster.mesh.logical
+    finally:
+        cluster.shutdown()
+    assert dispatch.get_mesh() is None
+
+
+def _dcn_serves_one_op():
+    """dcn_hosts=2 boots two gloo workers on the CPU that serve an op."""
+    from ceph_tpu_torch.codecs.matrix_codec import dispatch_counters
+    from ceph_tpu_torch.loadgen import LoadCluster
+
+    before = dispatch_counters().get("dcn_encode")
+    cluster = LoadCluster(n_osds=3, k=2, m=1, pg_num=2, chunk_size=2048,
+                          device="cpu", dcn_hosts=2)
+    try:
+        assert cluster.dcn.backend == "gloo" and len(cluster.dcn.hellos) == 2
+        cluster.io.write_full("o", b"x" * 8192)
+        assert cluster.io.read("o") == b"x" * 8192
+    finally:
+        cluster.shutdown()
+    assert dispatch_counters().get("dcn_encode") > before
+
+
+def _dcn_kill_counts_fallback():
+    """kill_dcn_host on a live DCN cluster: the next op is served on
+    the single-host route and counted in dcn_fallback."""
+    from ceph_tpu_torch.codecs.matrix_codec import dispatch_counters
+    from ceph_tpu_torch.loadgen import LoadCluster
+
+    before = dispatch_counters().get("dcn_fallback")
+    cluster = LoadCluster(n_osds=3, k=2, m=1, pg_num=2, chunk_size=2048,
+                          device="cpu", dcn_hosts=2, dcn_data_timeout=4.0)
+    try:
         cluster.kill_dcn_host(1)
+        cluster.dcn.procs[1].wait(timeout=30)
+        cluster.io.write_full("o", b"y" * 8192)
+        assert cluster.io.read("o") == b"y" * 8192
+        assert not cluster.dcn_live()
+    finally:
+        cluster.shutdown()
+    assert dispatch_counters().get("dcn_fallback") > before
+
+
+@pytest.mark.parametrize("case", [
+    _mesh_too_many_devices, _mesh_one_device, _dcn_serves_one_op,
+    _dcn_kill_counts_fallback,
+], ids=lambda f: f.__name__.strip("_"))
+def test_multi_device_options_raise_instead_of_running_on_one(case):
+    """The multi-device options of LoadCluster: they install the tier
+    (a mesh of physical devices, gloo DCN hosts) and never quietly run
+    on one device — a mesh the box cannot hold raises, and a dead DCN
+    host is served on the single-host route only with dcn_fallback
+    counting it. Each case runs under a 120 s limit."""
+    from test_torch_dcn import time_limit
+
+    with time_limit(120):
+        case()
 
 
 def test_codec_without_device_refuses_host_input():

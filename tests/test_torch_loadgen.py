@@ -602,11 +602,13 @@ def test_twin_bench_phase_results(monkeypatch):
 
 
 def test_chip_legs_above_one_raise():
-    """A leg over more than one chip needs the dispatch mesh: the port
-    refuses it instead of running on one device."""
+    """A leg over more than one chip asks the dispatch mesh for that
+    many physical devices: on a box with fewer it raises the mesh's
+    ValueError before anything boots, never running over logical
+    devices."""
     from ceph_tpu_torch.loadgen import bench_phase
 
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(ValueError, match="requested 2 devices"):
         bench_phase._leg(8, 2, 4, use_mesh=True, mesh_devices=2,
                          device="cpu")
 

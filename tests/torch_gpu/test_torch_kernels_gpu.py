@@ -790,3 +790,74 @@ def test_device_clock_of_a_cpu_cluster_is_none():
         assert DeviceClock.measure(codec, 4096) is None
     finally:
         cluster.shutdown()
+
+
+# -- the multi-device tier and the compressor on the card -----------------
+@pytest.mark.parametrize("n_dev,k,m,lanes", [(8, 8, 4, 65536),
+                                             (6, 6, 2, 4097),
+                                             (4, 8, 3, 1000)])
+def test_logical_mesh_equals_single_device_kernel_a(cuda, n_dev, k, m, lanes):
+    """A mesh of logical devices on the card: encode, ring parity and
+    decode byte-equal to one Kernel A launch over the whole dispatch;
+    every cell launches Kernel A once."""
+    from ceph_tpu_torch import kernels
+    from ceph_tpu_torch.parallel import (
+        make_ec_mesh, ring_parity, sharded_decode, sharded_encode)
+
+    gen = isa_rs_matrix(k, m)
+    bm = gf_matrix_to_bitmatrix(gen[k:])
+    mesh = make_ec_mesh(n_dev, k=k, devices=[cuda] * n_dev)
+    assert mesh.logical
+    data = _data((2 * mesh.shape["dp"], k, lanes)).to(cuda)
+    want = ce.gf_apply(bm, data)
+    before = kernels.GF_APPLY.launches
+    assert torch.equal(sharded_encode(mesh, bm, data), want)
+    assert kernels.GF_APPLY.launches - before == mesh.size
+    assert torch.equal(ring_parity(mesh, bm, data), want)
+    present = list(range(1, k + 1))
+    dec = gf_matrix_to_bitmatrix(decode_matrix(gen, k, present)[[0]])
+    survivors = torch.cat([data, want], dim=1)[:, present].contiguous()
+    assert torch.equal(sharded_decode(mesh, dec, survivors), data[:, :1])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("total", [1, 4097, (8 << 20) + 3])
+@pytest.mark.parametrize("init", [0, 0xFFFFFFFF])
+def test_sequence_parallel_crc_equals_kernel_c(cuda, total, init):
+    from ceph_tpu_torch.parallel import make_ec_mesh, sharded_crc32c
+
+    mesh = make_ec_mesh(8, k=8, devices=[cuda] * 8)
+    data = _data((2, total)).to(cuda)
+    got = sharded_crc32c(mesh, data, init=init)
+    assert torch.equal(got, crc32c_blocks(data, init))
+
+
+def test_compressor_scan_runs_on_the_card(cuda):
+    from ceph_tpu_torch.compressor import registry, tpu_offload
+
+    pages = _data((1024, 4096)).numpy().copy()
+    pages[::2] = 0
+    buf = pages.tobytes()
+    before = tpu_offload.device_masks()
+    for name in ("tpu_zeroelim", "tpu_zlib"):
+        blob = registry.create(name, device=cuda).compress(buf)
+        assert blob == registry.create(name, device="cpu").compress(buf)
+        assert registry.create(name, device=cuda).decompress(*blob) == buf
+    assert tpu_offload.device_masks() == before + 4  # two here, two CPU
+
+
+def test_dcn_pair_on_one_card_over_gloo(cuda):
+    """Two DCN hosts share the card over gloo: encode and decode equal
+    one Kernel A launch, each host launching Kernel A on its devices."""
+    from ceph_tpu_torch.parallel.dcn import DcnCluster
+
+    gen = isa_rs_matrix(8, 4)
+    bm = gf_matrix_to_bitmatrix(gen[8:])
+    data = _data((4, 8, 65536))
+    with DcnCluster(2, 2, device=cuda, backend="gloo") as dcn:
+        parity, counters = dcn.encode("isa", {"k": "8", "m": "4"},
+                                      data.numpy())
+        assert all(c.get("mesh_encode") == 1 for c in counters.values())
+        assert dcn.kernel_launches == 4
+    assert np.array_equal(parity, ce.gf_apply(bm, data.to(cuda)).cpu()
+                          .numpy())
