@@ -152,7 +152,42 @@ class Cluster:
         # anything in the map but not on disk is gone: mark it down
         for osd in sorted(self.mon.osdmap.up_osds() - set(self.daemons)):
             self.mon.osd_down(osd)
+        self.wait_linked()
         self.client = RadosClient(self.mon, backoff=0.02, secret=self.secret)
+
+    def wait_linked(self, timeout: float = 10.0) -> bool:
+        """Wait until every daemon reaches every other up OSD and every
+        PG a daemon leads is peered with no position held back. The
+        daemons boot one after another: a daemon that peers before a
+        peer has booted fails to reach it, holds its positions out of
+        reads (or out of the acting set) and retries on its tick, and
+        a command run in that window (a scrub, a read) would find a
+        shard missing. Past ``timeout`` the command runs on what it
+        finds (a peer that never answers is the command's to report)."""
+        from ceph_tpu_torch.cluster.osdmap import SHARD_NONE
+
+        end = time.monotonic() + timeout
+        while True:
+            osdmap = self.mon.osdmap
+            up = osdmap.up_osds()
+            busy = False
+            for d in self.daemons.values():
+                if (up - {d.osd_id}) - d.peers.avail_shards():
+                    busy = True
+                with d._pg_lock:
+                    pgs = list(d._pgs.items())
+                for (pool, pgid), pg in pgs:
+                    if (pool not in osdmap.pools
+                            or osdmap.pg_primary(pool, pgid) != d.osd_id):
+                        continue
+                    want = osdmap.pg_to_up_acting(pool, pgid)
+                    busy = busy or not pg.peered.is_set() or bool(
+                        pg.backend.recovering) or any(
+                        o == SHARD_NONE and want[i] != SHARD_NONE
+                        for i, o in enumerate(pg.acting))
+            if not busy or time.monotonic() >= end:
+                return not busy
+            time.sleep(0.05)
 
     def _boot_mon_quorum(self, root: str) -> None:
         """N monitor ranks, each with its own durable store; the map

@@ -807,17 +807,12 @@ class RMWPipeline:
     ) -> None:
         """Seed per-object state recovered from stored attrs (OI_KEY /
         HINFO_KEY) — the new-primary takeover path: a freshly elected
-        primary must not assume unknown objects are empty. The next tid
-        continues past the primed eversion's, so the takeover's writes
-        stamp later versions than the stored ones (the pg log head a new
-        primary resumes from); ceph_tpu keeps its tid and leaves that to
-        its caller."""
+        primary must not assume unknown objects are empty."""
         self._object_sizes[oid] = size
         if hinfo is not None:
             self._hinfo[oid] = hinfo
         if eversion is not None and eversion != (0, 0):
             self._eversions[oid] = eversion
-            self._next_tid = max(self._next_tid, eversion[1] + 1)
 
     def hinfo(self, oid: str) -> HashInfo | None:
         return self._hinfo.get(oid)

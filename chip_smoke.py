@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``ceph_tpu_torch``) on one card.
 
-Drives thirteen paths through the package's public entry points, at
+Drives fourteen paths through the package's public entry points, at
 BlueStore's 4 KiB csum block, each counted on its own:
 
 1. set-up: the card's name and power limit; build the native host tier
@@ -167,7 +167,19 @@ BlueStore's 4 KiB csum block, each counted on its own:
    RMW write and a reconstruct read on ``dcn_*``, then loses a host and
    serves the next op on ``dcn_fallback``. Every mesh cell launches Kernel A once a dispatch
    (dp x sp launches), every CRC device Kernel C once, every DCN host
-   Kernel A once a local device an op.
+   Kernel A once a local device an op;
+14. the cluster life-cycle path: a ``Monitor`` and 12 ``OSDDaemon``s on
+   the card over ``MemStore``s, ISA EC(8,4), 32 PGs, 16 clients: 32
+   RADOS objects of 4 MiB; a 64 MiB object through ``StripedIoCtx``'s
+   default layout (16 objects of 4 MiB); a pool snapshot, half the
+   objects overwritten, head and snap read, one rolled back; two
+   watchers notified; the primary of the fullest PG stopped, its
+   objects rewritten through the new primary, the old one revived and
+   caught up; one OSD marked out and every object read while backfill
+   runs under ``pg_temp``; one data and one parity shard corrupted,
+   repaired by ``scrub_all(repair=True)``, a clean second scrub; the
+   mgr's health and one balancer pass. Routes held to
+   ``predict_lifecycle`` (Kernel B writes, A or D decodes, C hashes).
 
 Kernel launch counts and the ``ec_dispatch`` / ``checksum.backends``
 counters are zeroed just before each path and read just after it: every
@@ -184,9 +196,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1874,6 +1888,7 @@ def pipeline_path(rng, dev) -> Counted:
                   f"the log holds dirty extents of {sorted(dirty)}")
             # the state the small overwrites start from, for the second pass
             before = shard_state(stores, over)
+            next_tid = rmw._next_tid
             with routes("overwrite_small"), Phase(
                     "pipeline_overwrite_small_host",
                     PIPE_SMALL_OPS * PIPE_SMALL):
@@ -1894,6 +1909,9 @@ def pipeline_path(rng, dev) -> Counted:
                 osize, ev = parse_oi(raw)
                 rmw2.prime_object(oid, osize, HashInfo.from_bytes(
                     stores2[0].getattr(oid, HINFO_KEY), dev), ev)
+            # the second pass continues the first's op sequence (the OI
+            # attr stamps the tid; prime_object leaves it alone)
+            rmw2._next_tid = next_tid
             with config.override(ec_host_dispatch_bytes=0), \
                     routes("overwrite_small_device"), Phase(
                         "pipeline_overwrite_small_device",
@@ -2712,6 +2730,140 @@ def predict_cluster(
     }
 
 
+def run_threads(jobs, what: str, timeout: float = 600) -> None:
+    """Run each callable of ``jobs`` on a thread of its own and join
+    them; raise the first error, and fail if a thread outlives
+    ``timeout``."""
+    errors: list = []
+
+    def run(job):
+        try:
+            job()
+        except Exception as e:  # reported by the joining thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(job,), name=f"{what}-{t}")
+               for t, job in enumerate(jobs)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=timeout)
+    check(not any(th.is_alive() for th in threads), f"a {what} thread hung")
+    if errors:
+        raise errors[0]
+
+
+class SmokeCluster:
+    """The daemons and clients of a cluster path: ``OSDDaemon``s on the
+    card at the pipeline's stripe unit, each stamped at boot, and
+    ``CLUSTER_CLIENTS`` client threads, each on its own
+    ``RadosClient`` over TCP on loopback."""
+
+    def __init__(self, dev, pool: str, name: str) -> None:
+        self.dev, self.pool, self.name = dev, pool, name
+        #: every daemon started, stopped ones too (``ClusterRoutes``
+        #: sums their counters)
+        self.started: list = []
+        self.open_clients: list = []
+        self.ioctxs: list = []
+
+    def start_osd(self, mon, i: int, store=None):
+        from ceph_tpu_torch.cluster import OSDDaemon
+
+        d = OSDDaemon(i, mon, store=store, chunk_size=PIPE_UNIT,
+                      tick_period=CLUSTER_TICK, device=self.dev)
+        # The tick's scrub scheduler takes a PG it has never scrubbed
+        # as due at once (its stamps start at 0; Ceph stamps a PG when
+        # the pool creates it), so every PG would deep-scrub one tick
+        # after boot, and again on each new primary, with launches in
+        # every phase. The smoke stamps them (before the pool exists,
+        # and before the daemon's first tick) as Ceph's pool creation
+        # does, and scrubs in a phase of its own.
+        now = time.monotonic()
+        d._scrub_stamps.update(
+            {(self.pool, pg): [now, now] for pg in range(CLUSTER_PG_NUM)})
+        self.started.append(d)
+        d.start()
+        return d
+
+    def connect(self, mon) -> None:
+        from ceph_tpu_torch.cluster import RadosClient
+
+        for _ in range(CLUSTER_CLIENTS):
+            client = RadosClient(mon, backoff=0.01)
+            self.open_clients.append(client)
+            self.ioctxs.append(client.open_ioctx(self.pool))
+
+    def clients(self, fn, items) -> None:
+        """``fn(ioctx, item)`` over ``items``, one thread a client."""
+        def serve(io, part):
+            for item in part:
+                fn(io, item)
+
+        n = len(self.ioctxs)
+        run_threads([functools.partial(serve, io, items[t::n])
+                     for t, io in enumerate(self.ioctxs)],
+                     f"{self.name}-client")
+
+    def stop_all(self) -> None:
+        from ceph_tpu_torch.pipeline.dispatcher import shutdown_all
+
+        while self.open_clients:
+            self.open_clients.pop().shutdown()
+        self.ioctxs.clear()
+        for d in self.started:
+            if not d._stopped:
+                d.stop()
+        shutdown_all()
+
+
+def read_back(model, io, oid: str) -> None:
+    check(io.read(oid) == model[oid].tobytes(),
+          f"{oid} read back other bytes than the model's")
+
+
+def scrub_live(live, repair: bool = False) -> dict:
+    """``scrub_all`` on every live daemon at once, as each OSD scrubs
+    the PGs it leads on its own (each paced by its own mClock scrub
+    class): {loc: ScrubResult}."""
+    out: dict = {}
+
+    def one(d):
+        for results in d.scrub_all(repair=repair).values():
+            for res in results:
+                out[res.oid] = res
+
+    run_threads([functools.partial(one, d) for d in live], "scrub")
+    return out
+
+
+def hashed_shards(mon, pool: str, daemons, locs) -> int:
+    """The live shards of the objects ``locs`` (heads or clones) that a
+    deep scrub hashes on the card: those of objects whose HashInfo (read
+    from a live shard's HINFO attr) holds shard hashes, at
+    ``csum_device_min_bytes`` or more a shard. A 4 KiB overwrite clears
+    the hashes, and so does a ``write_full`` over an object that has
+    them (it overwrites before it truncates); a ``write_full`` over a
+    cleared object hashes afresh."""
+    from ceph_tpu_torch.cluster.osd_daemon import SNAP_SEP, shard_key
+    from ceph_tpu_torch.cluster.osdmap import SHARD_NONE
+    from ceph_tpu_torch.pipeline.rmw import HINFO_KEY
+    from ceph_tpu_torch.utils import config
+
+    floor = int(config.get("csum_device_min_bytes"))
+    total = 0
+    for loc in locs:
+        oid = loc.split(":", 1)[1].split(SNAP_SEP, 1)[0]
+        acting = mon.osdmap.object_to_acting(pool, oid)
+        live_pos = [i for i, o in enumerate(acting) if o != SHARD_NONE]
+        st = daemons[acting[live_pos[0]]].store
+        key = shard_key(loc, live_pos[0])
+        hinfo = json.loads(st.getattr(key, HINFO_KEY))
+        if hinfo["total_chunk_size"] and st.stat(key) >= floor:
+            total += len(live_pos)
+    return total
+
+
 def cluster_path(rng, dev) -> Counted:
     """The cluster path: a ``Monitor``, 12 ``OSDDaemon``s on the card
     over ``MemStore``s, one ISA EC(8,4) pool of 32 PGs, and 16 client
@@ -2722,15 +2874,10 @@ def cluster_path(rng, dev) -> Counted:
     read with a third down, deep scrub, and one flipped byte found,
     repaired and scrubbed clean. Each phase's routes are held against
     ``predict_cluster``, each read against a numpy model."""
-    import threading
-
-    from ceph_tpu_torch.cluster import Monitor, OSDDaemon, RadosClient
+    from ceph_tpu_torch.cluster import Monitor
     from ceph_tpu_torch.cluster.osd_daemon import make_loc, shard_key
     from ceph_tpu_torch.cluster.osdmap import SHARD_NONE
-    from ceph_tpu_torch.pipeline.dispatcher import (
-        _stream_counters,
-        shutdown_all,
-    )
+    from ceph_tpu_torch.pipeline.dispatcher import _stream_counters
     from ceph_tpu_torch.pipeline.rmw import HINFO_KEY
     from ceph_tpu_torch.store import Transaction
     from ceph_tpu_torch.utils import config
@@ -2745,6 +2892,9 @@ def cluster_path(rng, dev) -> Counted:
     small_model = {oid: rng.integers(0, 256, CLUSTER_SMALL, dtype=np.uint8)
                    for oid in small}
     down_a, down_b = CLUSTER_DOWN
+    cl = SmokeCluster(dev, pool, "cluster")
+    clients = cl.clients
+    read_all = functools.partial(read_back, model)
 
     def boot():
         """A monitor, the daemons, the pool, and CLUSTER_CLIENTS
@@ -2752,58 +2902,12 @@ def cluster_path(rng, dev) -> Counted:
         mon = Monitor(device=dev)
         for i in range(CLUSTER_OSDS):
             mon.osd_crush_add(i)
-        daemons = [start_osd(mon, i) for i in range(CLUSTER_OSDS)]
+        daemons = [cl.start_osd(mon, i) for i in range(CLUSTER_OSDS)]
         mon.osd_erasure_code_profile_set(
             "isa84", {"plugin": "isa", **PIPE_PROFILE})
         mon.osd_pool_create(pool, CLUSTER_PG_NUM, "isa84")
-        for _ in range(CLUSTER_CLIENTS):
-            client = RadosClient(mon, backoff=0.01)
-            open_clients.append(client)
-            ioctxs.append(client.open_ioctx(pool))
+        cl.connect(mon)
         return mon, daemons
-
-    def start_osd(mon, i, store=None):
-        d = OSDDaemon(i, mon, store=store, chunk_size=PIPE_UNIT,
-                      tick_period=CLUSTER_TICK, device=dev)
-        # The tick's scrub scheduler takes a PG it has never scrubbed
-        # as due at once (its stamps start at 0; Ceph stamps a PG when
-        # the pool creates it), so every PG would deep-scrub one tick
-        # after boot, and again on each new primary, with launches in
-        # every phase. The smoke stamps them (before the pool exists,
-        # and before the daemon's first tick) as Ceph's pool creation
-        # does, and scrubs in a phase of its own.
-        now = time.monotonic()
-        d._scrub_stamps.update(
-            {(pool, pg): [now, now] for pg in range(CLUSTER_PG_NUM)})
-        started.append(d)
-        d.start()
-        return d
-
-    def clients(fn, items):
-        """``fn(ioctx, item)`` over ``items`` from CLUSTER_CLIENTS
-        threads, each on its own RadosClient; raises the first error,
-        and fails if a thread outlives its deadline."""
-        errors: list = []
-
-        def run(io, part):
-            try:
-                for item in part:
-                    fn(io, item)
-            except Exception as e:  # reported by the joining thread
-                errors.append(e)
-
-        threads = [threading.Thread(target=run,
-                                    args=(io, items[t::CLUSTER_CLIENTS]),
-                                    name=f"client-{t}")
-                   for t, io in enumerate(ioctxs)]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=600)
-        check(not any(th.is_alive() for th in threads),
-              "a client thread of the cluster path hung")
-        if errors:
-            raise errors[0]
 
     def settle(live, what, deadline_s=300.0):
         wait_settled(mon, live, what, deadline_s)
@@ -2822,55 +2926,15 @@ def cluster_path(rng, dev) -> Counted:
             }
         return out
 
-    def read_all(io, oid):
-        got = io.read(oid)
-        check(got == model[oid].tobytes(),
-              f"{oid} read back other bytes than the model's")
-
-    def scrub(live, repair=False):
-        """Deep-scrub every PG on its primary: {oid: ScrubResult}."""
-        out = {}
-        for d in live:
-            for results in d.scrub_all(repair=repair).values():
-                for res in results:
-                    out[res.oid] = res
-        return out
-
-    def hashed_shards(objs):
-        """The live shards of ``objs`` a deep scrub hashes: those of
-        objects whose HashInfo (read from a live shard's HINFO attr)
-        holds shard hashes. A 4 KiB overwrite clears them, and so does
-        a ``write_full`` over an object that has them (it overwrites
-        before it truncates); a ``write_full`` over a cleared object
-        hashes afresh."""
+    def hashed(objs):
         pool_id = mon.osdmap.pools[pool].pool_id
-        total = 0
-        for oid in objs:
-            acting = mon.osdmap.object_to_acting(pool, oid)
-            live_pos = [i for i, o in enumerate(acting) if o != SHARD_NONE]
-            raw = daemons[acting[live_pos[0]]].store.getattr(
-                shard_key(make_loc(pool_id, oid), live_pos[0]), HINFO_KEY)
-            if json.loads(raw)["total_chunk_size"]:
-                total += len(live_pos)
-        return total
+        return hashed_shards(mon, pool, daemons,
+                             [make_loc(pool_id, oid) for oid in objs])
 
-    started: list = []
-    open_clients: list = []
-    ioctxs: list = []
-
-    def stop_all():
-        while open_clients:
-            open_clients.pop().shutdown()
-        ioctxs.clear()
-        for d in started:
-            if not d._stopped:
-                d.stop()
-        shutdown_all()
-
-    routes = ClusterRoutes(started)
+    routes = ClusterRoutes(cl.started)
     write_bytes = CLUSTER_OBJECTS * size
     with contextlib.ExitStack() as stack:
-        stack.callback(stop_all)
+        stack.callback(cl.stop_all)
         stack.enter_context(config.override(
             csum_block_size=CSUM_BLOCK, osd_deep_scrub_stride=524288))
         counted = stack.enter_context(Counted("cluster"))
@@ -2884,7 +2948,7 @@ def cluster_path(rng, dev) -> Counted:
             clients(lambda io, oid: io.write_full(oid, model[oid].tobytes()),
                     oids)
         first = stores_of(daemons, oids)
-        stop_all()
+        cl.stop_all()
 
         # -- 2. the same over fresh stores, ec_streaming_dispatch on ----
         mon, daemons = boot()
@@ -2921,7 +2985,7 @@ def cluster_path(rng, dev) -> Counted:
                     int(rng.integers(0, size // PIPE_UNIT)) * PIPE_UNIT,
                     rng.integers(0, 256, PIPE_UNIT, dtype=np.uint8))
                    for _ in range(CLUSTER_OVERWRITES)]
-        io = ioctxs[0]
+        io = cl.ioctxs[0]
         with routes("overwrite"), Phase(
                 "cluster_overwrite", CLUSTER_OVERWRITES * PIPE_UNIT):
             for oid, off, patch in patches:
@@ -2951,7 +3015,8 @@ def cluster_path(rng, dev) -> Counted:
         # -- 6. one returns and catches up, the other goes out ----------
         with routes("catch_up"), Phase("cluster_catch_up",
                                        len(rewritten) * size):
-            daemons[down_a] = start_osd(mon, down_a, daemons[down_a].store)
+            daemons[down_a] = cl.start_osd(mon, down_a,
+                                           daemons[down_a].store)
             live.append(daemons[down_a])
             settle(live, f"after osd.{down_a} returned")
         catch_up_want = {pos for oid in oids for pos, o in enumerate(
@@ -2971,16 +3036,16 @@ def cluster_path(rng, dev) -> Counted:
 
         # -- 7. deep scrub, a flipped byte, repair ----------------------
         shard_bytes = size // k
-        scrubbed = {"deep_scrub": hashed_shards(oids)}
+        scrubbed = {"deep_scrub": hashed(oids)}
         with routes("deep_scrub"), Phase(
                 "cluster_deep_scrub", scrubbed["deep_scrub"] * shard_bytes):
-            results = scrub(live)
+            results = scrub_live(live)
         check(len(results) == len(oids)
               and all(r.ok for r in results.values()),
               f"deep scrub not clean: "
               f"{[(o, r.errors) for o, r in results.items() if not r.ok]}")
         pool_id = mon.osdmap.pools[pool].pool_id
-        victim = next(oid for oid in rewritten if hashed_shards([oid]))
+        victim = next(oid for oid in rewritten if hashed([oid]))
         acting = mon.osdmap.object_to_acting(pool, victim)
         pos = next(i for i in range(k - 1, -1, -1) if acting[i] != SHARD_NONE)
         key = shard_key(make_loc(pool_id, victim), pos)
@@ -2993,7 +3058,7 @@ def cluster_path(rng, dev) -> Counted:
         pgid = mon.osdmap.object_to_pg(pool, victim)
         pg_objs = [oid for oid in oids
                    if mon.osdmap.object_to_pg(pool, oid) == pgid]
-        scrubbed["flipped_byte_scrub"] = hashed_shards(pg_objs)
+        scrubbed["flipped_byte_scrub"] = hashed(pg_objs)
         with routes("flipped_byte_scrub"), Phase(
                 "cluster_flipped_byte_scrub",
                 scrubbed["flipped_byte_scrub"] * shard_bytes):
@@ -3007,15 +3072,15 @@ def cluster_path(rng, dev) -> Counted:
         scrubbed["repair"] = scrubbed["deep_scrub"]
         with routes("repair"), Phase("cluster_repair",
                                      scrubbed["repair"] * shard_bytes):
-            fixed = scrub(live, repair=True)
+            fixed = scrub_live(live, repair=True)
         check([o for o, r in fixed.items() if getattr(r, "repaired", False)]
               == [make_loc(pool_id, victim)],
               "the repair pass did not repair exactly the flipped object")
-        scrubbed["scrub_after_repair"] = hashed_shards(oids)
+        scrubbed["scrub_after_repair"] = hashed(oids)
         with routes("scrub_after_repair"), Phase(
                 "cluster_scrub_after_repair",
                 scrubbed["scrub_after_repair"] * shard_bytes):
-            again = scrub(live)
+            again = scrub_live(live)
         check(all(r.ok for r in again.values()),
               "the scrub after the repair is not clean")
         read_all(io, victim)
@@ -3493,15 +3558,11 @@ def quorum_path(rng, dev) -> Counted:
     degraded with one OSD stopped and marked down through the new leader.
     Routes: one Kernel B launch a write; each degraded object's decode
     by its matrix, the decodes held to the map's holes."""
-    import threading
-
-    from ceph_tpu_torch.cluster import OSDDaemon, RadosClient
     from ceph_tpu_torch.cluster.mon_quorum import (
         MonQuorumService,
         QuorumMonitor,
     )
     from ceph_tpu_torch.cluster.osdmap import Incremental, OSDMap
-    from ceph_tpu_torch.pipeline.dispatcher import shutdown_all
     from ceph_tpu_torch.utils import config
 
     k, m = int(PIPE_PROFILE["k"]), int(PIPE_PROFILE["m"])
@@ -3511,47 +3572,13 @@ def quorum_path(rng, dev) -> Counted:
     oids = [f"rbd_data.q{i:015x}" for i in range(QUORUM_OBJECTS)]
     model = {oid: rng.integers(0, 256, size, dtype=np.uint8) for oid in oids}
     half = QUORUM_OBJECTS // 2
-    daemons: list = []
-    open_clients: list = []
-    ioctxs: list = []
-
-    def stop_all():
-        while open_clients:
-            open_clients.pop().shutdown()
-        for d in daemons:
-            if not d._stopped:
-                d.stop()
-        shutdown_all()
-
-    def clients(fn, items):
-        errors: list = []
-
-        def run(io, part):
-            try:
-                for item in part:
-                    fn(io, item)
-            except Exception as e:  # reported by the joining thread
-                errors.append(e)
-
-        threads = [threading.Thread(target=run,
-                                    args=(io, items[t::len(ioctxs)]),
-                                    name=f"quorum-client-{t}")
-                   for t, io in enumerate(ioctxs)]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=600)
-        check(not any(th.is_alive() for th in threads),
-              "a client thread of the quorum path hung")
-        if errors:
-            raise errors[0]
+    cl = SmokeCluster(dev, pool, "quorum")
+    daemons = cl.started
+    clients = cl.clients
+    read = functools.partial(read_back, model)
 
     def write(io, oid):
         io.write_full(oid, model[oid].tobytes())
-
-    def read(io, oid):
-        check(io.read(oid) == model[oid].tobytes(),
-              f"{oid} read back other bytes than were written")
 
     def log_epochs(rank):
         return [Incremental.from_bytes(b).epoch
@@ -3559,7 +3586,7 @@ def quorum_path(rng, dev) -> Counted:
 
     routes = ClusterRoutes(daemons)
     with contextlib.ExitStack() as stack:
-        stack.callback(stop_all)
+        stack.callback(cl.stop_all)
         stack.enter_context(config.override(csum_block_size=CSUM_BLOCK))
         counted = stack.enter_context(Counted("quorum"))
         stack.enter_context(routes.recording())
@@ -3568,20 +3595,11 @@ def quorum_path(rng, dev) -> Counted:
         for i in range(CLUSTER_OSDS):
             mon.osd_crush_add(i)
         for i in range(CLUSTER_OSDS):
-            d = OSDDaemon(i, mon, chunk_size=PIPE_UNIT,
-                          tick_period=CLUSTER_TICK, device=dev)
-            now = time.monotonic()  # stamped as cluster_path's daemons
-            d._scrub_stamps.update(
-                {(pool, pg): [now, now] for pg in range(CLUSTER_PG_NUM)})
-            daemons.append(d)
-            d.start()
+            cl.start_osd(mon, i)
         mon.osd_erasure_code_profile_set(
             "isa84", {"plugin": "isa", **PIPE_PROFILE})
         mon.osd_pool_create(pool, CLUSTER_PG_NUM, "isa84")
-        for _ in range(CLUSTER_CLIENTS):
-            client = RadosClient(mon, backoff=0.01)
-            open_clients.append(client)
-            ioctxs.append(client.open_ioctx(pool))
+        cl.connect(mon)
         wait_settled(mon, daemons, "after boot")
 
         with routes("write_before_kill"), Phase(
@@ -3843,9 +3861,10 @@ def wait_linked(mon, live, what: str, deadline_s: float = 120.0) -> None:
 def settled_cli():
     """While entered, every CLI command boots stamped daemons
     (``stamped_daemons``) and runs once its cluster is linked and quiet
-    (``wait_linked``): the CLI boots its daemons one after another, so a
-    command that reads right after boot could otherwise decode around a
-    shard whose daemon booted after the primary."""
+    (``wait_linked``): the CLI boots its daemons one after another, and
+    its own wait (``Cluster.wait_linked``) gives up silently after 10 s,
+    where a command that reads could decode around a shard whose daemon
+    booted after the primary; the smoke's fails loudly."""
     from ceph_tpu_torch import cli
 
     boot = cli.Cluster
@@ -4413,6 +4432,394 @@ def multi_device_path(rng, dev) -> Counted:
     return counted
 
 
+# -- path 14: the cluster life cycle ----------------------------------------
+
+#: path 14: RADOS objects of Ceph's default object size, a striped object
+#: in libradosstriper's default layout (64 KiB units, 4 stripes, 4 MiB
+#: objects: 16 objects), the half overwritten after the snapshot
+LIFE_OBJECTS = 32
+LIFE_STRIPED_BYTES = 64 * MIB
+#: the striped object's calls: the op size in which ``rados put
+#: --striper`` writes a file (src/tools/rados/rados.cc, default_op_size
+#: = 1 << 22), 16 stripe units on each of 4 objects a call
+LIFE_STRIPED_CALL = 4 * MIB
+LIFE_WATCHERS = 2
+LIFE_OUT = 11  # marked out (and left up) for the backfill phase
+LIFE_PHASES = ("write", "striped_write", "striped_read", "snap_overwrite",
+               "snap_read", "rollback", "watch_notify", "takeover",
+               "recovery", "read_recovered", "backfill", "scrub_repair",
+               "scrub_clean", "read_after_out", "mgr")
+
+
+def predict_lifecycle(
+    on_card: bool, ops: dict[str, int], ring: dict[str, dict[str, int]],
+    decodes: dict[str, list[tuple]], hashed: dict[str, int],
+) -> dict[str, dict[str, int]]:
+    """The routes of path 14's phases. ``ops``: the fused writes each
+    phase drives, from its op counts (every one a whole stripe or more
+    at the 4 KiB csum block: one Kernel B launch each, except that ops a
+    primary coalesces share one launch a ring batch; ``ring``: each
+    phase's ``stream.*`` counts, which follow the clients' timing, as on
+    the cluster path). ``decodes``: each phase's decode calls, from the
+    map's holes and the reads' sizes (a phase whose decodes follow
+    timing or the PG logs passes the calls it recorded, once they are
+    held to the positions the map allows), each routed by its matrix
+    and size as ``predict_cluster`` routes them. ``hashed``: the Kernel
+    C hashes of each phase (a deep scrub hashes every live shard of
+    every object with HashInfo once, a repair each rebuilt shard once
+    more; recovery verifies follow the PG logs, as on the cluster path;
+    no other phase hashes)."""
+    from ceph_tpu_torch.codecs import registry
+    from ceph_tpu_torch.utils import config
+
+    limit = int(config.get("ec_host_dispatch_bytes"))
+    codec = registry.factory("isa", PIPE_PROFILE, device="cpu")
+
+    def routed(phase):
+        batched = ring.get(phase, {})
+        launches = (ops.get(phase, 0) - batched.get("stream.ops", 0)
+                    + batched.get("stream.batches", 0))
+        return merge_routes(
+            fused_writes(on_card, launches), batched,
+            *(decode_route(on_card, codec, call, limit)
+              for call in decodes.get(phase, [])),
+            hashes(on_card, hashed.get(phase, 0)))
+
+    return {phase: routed(phase) for phase in LIFE_PHASES}
+
+
+def object_decodes(osdmap, pool: str, reads, k: int, n: int) -> list[tuple]:
+    """The decode call (present, wanted, input bytes, host input) that
+    each read of ``reads`` ((oid, bytes a shard)) needs under
+    ``osdmap``: the lost data positions from the first k live
+    positions' bytes, as the stores return them (host memory); none when
+    only parity positions are lost."""
+    return [(present, want, k * nbytes, True) for oid, nbytes in reads
+            for present, want in cluster_reads(osdmap, pool, [oid], k, n)]
+
+
+def lifecycle_path(rng, dev) -> Counted:
+    """Path 14, the cluster life cycle: a ``Monitor`` and 12
+    ``OSDDaemon``s on the card over ``MemStore``s, one ISA EC(8,4) pool
+    of 32 PGs at a 4 KiB stripe unit, 16 client threads. 32 RADOS
+    objects of 4 MiB; a 64 MiB object through ``StripedIoCtx``'s
+    default layout (16 objects of 4 MiB) in calls of 4 MiB; a pool
+    snapshot, half the objects overwritten (each clones its head first),
+    head and snap read back, one object rolled back; two watchers and a
+    notify; the primary of the PG with the most objects stopped, its
+    objects rewritten through the new primary, the old one revived and
+    caught up; one OSD marked out and every object read while backfill
+    moves its shards under ``pg_temp``; one data and one parity shard
+    corrupted, ``scrub_all(repair=True)`` and a clean second scrub;
+    every object and the striped one read around the out OSD's hole;
+    the mgr's health and one balancer pass. Every read is held against
+    a numpy model, every phase's routes against ``predict_lifecycle``,
+    every decode against the positions the map leaves."""
+    from ceph_tpu_torch.cluster import Manager, Monitor, RadosClient
+    from ceph_tpu_torch.cluster.osd_daemon import make_loc, shard_key
+    from ceph_tpu_torch.cluster.striper import StripedIoCtx
+    from ceph_tpu_torch.store import Transaction
+    from ceph_tpu_torch.utils import config
+
+    k, m = int(PIPE_PROFILE["k"]), int(PIPE_PROFILE["m"])
+    n = k + m
+    size = OBJECT_BYTES
+    shard = size // k
+    pool = "rbd"
+    oids = [f"rbd_data.life.{i:016x}" for i in range(LIFE_OBJECTS)]
+    model = {oid: rng.integers(0, 256, size, dtype=np.uint8) for oid in oids}
+    striped = rng.integers(0, 256, LIFE_STRIPED_BYTES, dtype=np.uint8)
+    cl = SmokeCluster(dev, pool, "life")
+    clients = cl.clients
+    read_all = functools.partial(read_back, model)
+
+    def whole_reads(objs):
+        """The decodes of whole reads of ``objs`` under today's map."""
+        return object_decodes(mon.osdmap, pool, [(o, shard) for o in objs],
+                              k, n)
+
+    def striped_reads(st):
+        """The decodes of a whole read of the striped object: one read
+        a run of each piece (``StripedIoCtx._extents``)."""
+        return object_decodes(mon.osdmap, pool, [
+            (st._piece("vol", idx), run // k)
+            for idx, _off, run in st._extents(0, LIFE_STRIPED_BYTES)], k, n)
+
+    routes = ClusterRoutes(cl.started)
+    ops: dict[str, int] = {}
+    hashed: dict[str, int] = {}
+    want: dict[str, list] = {}  # each phase's decodes, from the map
+    with contextlib.ExitStack() as stack:
+        stack.callback(cl.stop_all)
+        stack.enter_context(config.override(
+            csum_block_size=CSUM_BLOCK, osd_deep_scrub_stride=524288,
+            ec_streaming_dispatch=False))
+        counted = stack.enter_context(Counted("cluster_lifecycle"))
+        stack.enter_context(routes.recording())
+
+        mon = Monitor(device=dev)
+        for i in range(CLUSTER_OSDS):
+            mon.osd_crush_add(i)
+        daemons = [cl.start_osd(mon, i) for i in range(CLUSTER_OSDS)]
+        mon.osd_erasure_code_profile_set(
+            "isa84", {"plugin": "isa", **PIPE_PROFILE})
+        mon.osd_pool_create(pool, CLUSTER_PG_NUM, "isa84")
+        cl.connect(mon)
+        wait_linked(mon, daemons, "after the life-cycle cluster booted")
+        io = cl.ioctxs[0]
+        pool_id = mon.osdmap.pools[pool].pool_id
+
+        # -- 1. 32 RADOS objects of 4 MiB -------------------------------
+        ops["write"] = len(oids)
+        with routes("write"), Phase("life_write", len(oids) * size):
+            clients(lambda io, oid: io.write_full(oid, model[oid].tobytes()),
+                    oids)
+
+        # -- 2. 64 MiB through the striper's default layout -------------
+        st = StripedIoCtx(io)
+        check((st.su, st.sc, st.object_size) == (65536, 4, 4 * MIB),
+              "StripedIoCtx's default layout is not 64 KiB x 4 x 4 MiB")
+        calls = LIFE_STRIPED_BYTES // LIFE_STRIPED_CALL
+        units = LIFE_STRIPED_CALL // st.su
+        # each call: one 64 KiB write a stripe unit (in flight at once,
+        # 16 on each of 4 objects), and the size metadata object
+        # rewritten once
+        ops["striped_write"] = calls * (units + 1)
+        with routes("striped_write"), Phase("life_striped_write",
+                                            LIFE_STRIPED_BYTES):
+            for c in range(calls):
+                lo = c * LIFE_STRIPED_CALL
+                st.write("vol", striped[lo:lo + LIFE_STRIPED_CALL].tobytes(),
+                         offset=lo)
+        pieces = sorted(o for o in io.list_objects() if o.startswith("vol."))
+        check(len(pieces) == LIFE_STRIPED_BYTES // st.object_size + 1,
+              f"the striped object spans {pieces}")
+        with routes("striped_read"), Phase("life_striped_read",
+                                           LIFE_STRIPED_BYTES):
+            check(st.stat("vol") == LIFE_STRIPED_BYTES
+                  and st.read("vol") == striped.tobytes(),
+                  "the striped object read back other bytes")
+
+        # -- 3. a pool snapshot, half overwritten, one rolled back ------
+        io.snap_create("life1")
+        snapped = {oid: model[oid].copy() for oid in oids}
+        over = oids[::2]
+        for oid in over:
+            model[oid] = rng.integers(0, 256, size, dtype=np.uint8)
+        # each overwrite clones its head first (one whole write more)
+        ops["snap_overwrite"] = 2 * len(over)
+        with routes("snap_overwrite"), Phase("life_snap_overwrite",
+                                             len(over) * size):
+            clients(lambda io, oid: io.write_full(oid, model[oid].tobytes()),
+                    over)
+
+        def read_both(io, oid):
+            read_all(io, oid)
+            check(io.read(oid, snap="life1") == snapped[oid].tobytes(),
+                  f"{oid} at the snapshot read back other bytes")
+
+        with routes("snap_read"), Phase("life_snap_read", 2 * len(oids) * size):
+            clients(read_both, oids)
+        back = over[0]
+        ops["rollback"] = 1
+        with routes("rollback"), Phase("life_rollback", size):
+            io.snap_rollback(back, "life1")
+            model[back] = snapped[back].copy()
+            read_all(io, back)
+
+        # -- 4. two watchers and a notify --------------------------------
+        watched = oids[1]
+        events: list = []
+        watchers = [RadosClient(mon, backoff=0.01)
+                    for _ in range(LIFE_WATCHERS)]
+        cl.open_clients.extend(watchers)
+        with routes("watch_notify"):
+            cookies = [w.open_ioctx(pool).watch(
+                watched, lambda o, d, w=w: events.append((o, bytes(d))))
+                for w in watchers]
+            acked = io.notify(watched, b"life-cycle")
+        check(sorted(acked["acked"]) == sorted(cookies)
+              and acked["missed"] == []
+              and events == [(watched, b"life-cycle")] * LIFE_WATCHERS,
+              f"notify reached {acked}, events {events}")
+
+        # -- 5. the primary of the fullest PG stopped, then revived -----
+        by_pg: dict[int, list] = {}
+        for oid in oids:
+            by_pg.setdefault(mon.osdmap.object_to_pg(pool, oid), []).append(oid)
+        pgid, pg_oids = max(sorted(by_pg.items()), key=lambda kv: len(kv[1]))
+        victim = mon.osdmap.pg_primary(pool, pgid)
+        # the positions the victim holds in any PG: its catch-up and
+        # the repair of the PGs it leads rebuild only those
+        victim_pos = {mon.osdmap.pg_to_up_acting(pool, p).index(victim)
+                      for p in range(CLUSTER_PG_NUM)}
+        daemons[victim].stop()
+        mon.osd_down(victim)
+        live = [d for d in daemons if d.osd_id != victim]
+        wait_settled(mon, live, f"after osd.{victim} went down")
+        new_primary = mon.osdmap.pg_primary(pool, pgid)
+        for oid in pg_oids:
+            model[oid] = rng.integers(0, 256, size, dtype=np.uint8)
+        # a head the snapshot still shares clones first: a degraded
+        # read of the old head around the victim's hole, and one whole
+        # write more
+        cloned = [oid for oid in pg_oids if oid not in over]
+        ops["takeover"] = len(pg_oids) + len(cloned)
+        want["takeover"] = whole_reads(cloned)
+        with routes("takeover"), Phase("life_takeover", len(pg_oids) * size):
+            clients(lambda io, oid: io.write_full(oid, model[oid].tobytes()),
+                    pg_oids)
+        # A returning daemon peers a PG it leads at the PG's first op:
+        # one stat an object has every PG peer, the victim's repair its
+        # own shards, before the phase ends.
+        with routes("recovery"), Phase("life_recovery", len(pg_oids) * size):
+            daemons[victim] = cl.start_osd(mon, victim, daemons[victim].store)
+            live.append(daemons[victim])
+            wait_settled(mon, live, f"after osd.{victim} returned")
+            clients(lambda io, oid: io.stat(oid), oids)
+            wait_settled(mon, live, f"after osd.{victim}'s PGs peered")
+        check(mon.osdmap.pg_primary(pool, pgid) == victim,
+              f"osd.{victim} did not lead PG {pgid} again")
+        want["read_recovered"] = []
+        with routes("read_recovered"), Phase("life_read_recovered",
+                                             2 * len(pg_oids) * size):
+            for oid in pg_oids:
+                read_all(io, oid)
+                check(io.read(oid, snap="life1") == snapped[oid].tobytes(),
+                      f"{oid} at the snapshot changed through the takeover")
+
+        # -- 6. one OSD out: reads under pg_temp while backfill runs ----
+        out_osd = LIFE_OUT if LIFE_OUT != victim else LIFE_OUT - 1
+        with routes("backfill"), Phase("life_backfill", len(oids) * size):
+            mon.osd_out(out_osd)
+            under_temp = bool(mon.osdmap.pg_temp)
+            clients(read_all, oids)
+            wait_settled(mon, live, f"after osd.{out_osd} went out")
+        print(f"life-cycle backfill: pg_temp {'up' if under_temp else 'down'}"
+              " when the reads started")
+        check(not any(out_osd in mon.osdmap.object_to_acting(pool, oid)
+                      for oid in oids),
+              f"osd.{out_osd} still holds a position after backfill")
+        # a read that found its PG's pg_temp cleared decodes around the
+        # out OSD's hole; one under pg_temp decodes nothing
+        want["backfill"] = whole_reads(oids)
+
+        # -- 7. one data and one parity shard corrupted, repaired -------
+        locs = sorted({key.rpartition("#s")[0] for d in live
+                       for key in d.store.list_objects()
+                       if key.startswith(f"{pool_id}:")})
+        bad = {}
+        for oid, pos in ((oids[3], 2), (oids[5], k + 1)):
+            acting = mon.osdmap.object_to_acting(pool, oid)
+            key = shard_key(make_loc(pool_id, oid), pos)
+            store = daemons[acting[pos]].store
+            byte = store.read(key, 777, 1)[0]
+            store.queue_transactions(Transaction().write(
+                key, 777, bytes([byte ^ 0x5A])))
+            bad[make_loc(pool_id, oid)] = [pos]
+        hashed["scrub_repair"] = (hashed_shards(mon, pool, daemons, locs)
+                                  + len(bad))
+        with routes("scrub_repair"), Phase(
+                "life_scrub_repair", len(oids) * size):
+            fixed = scrub_live(live, repair=True)
+        got = {loc: sorted({e.shard for e in r.errors})
+               for loc, r in fixed.items() if not r.ok}
+        check(got == bad and all(fixed[loc].repaired for loc in bad),
+              f"the repair scrub found {got}, want {bad} repaired")
+        hashed["scrub_clean"] = hashed_shards(mon, pool, daemons, locs)
+        with routes("scrub_clean"), Phase("life_scrub_clean",
+                                          len(oids) * size):
+            again = scrub_live(live)
+        check(sorted(again) == locs and all(r.ok for r in again.values()),
+              "the scrub after the repair is not clean")
+
+        # -- 8. every object read around the out OSD's hole -------------
+        want["read_after_out"] = whole_reads(oids) + striped_reads(st)
+        with routes("read_after_out"), Phase(
+                "life_read_after_out", len(oids) * size + LIFE_STRIPED_BYTES):
+            clients(read_all, oids)
+            check(st.read("vol") == striped.tobytes(),
+                  "the striped object changed through the backfill")
+
+        # -- 9. the mgr: health and one balancer pass --------------------
+        # 12 OSDs for 12 positions: with one out, every PG has a hole
+        # (undersized and degraded, one missing shard an object), and
+        # nothing else is wrong; every OSD holds a shard of every PG, so
+        # the balancer has nothing to move
+        mgr = Manager(mon)
+        want["mgr"] = []
+        with routes("mgr"):
+            for d in live:
+                d.report_pg_stats(force=True)
+            health = mgr.health()
+            reweights = mgr.balance_once()
+            wait_settled(mon, live, "after the balancer pass")
+        print(f"life-cycle mgr: {health['status']} {health['checks']}; "
+              f"balancer reweights {reweights}")
+        degraded = f"{CLUSTER_PG_NUM} pgs degraded ({len(locs)} object copies)"
+        check(health["status"] == "HEALTH_WARN"
+              and health["checks"].get("PG_DEGRADED", {}).get("detail")
+              == degraded and set(health["checks"]) <= {"PG_DEGRADED",
+                                                        "PG_STUCK"},
+              f"the mgr's health after the life cycle: {health}, want "
+              f"PG_DEGRADED {degraded!r} alone (PG_STUCK aside)")
+        check(not reweights, f"the balancer moved {reweights}")
+
+    on_card = dev.type == "cuda"
+    rows = routes.rows
+    decodes = routes.phase_decodes
+    print("cluster_lifecycle decodes: " + json.dumps(
+        {phase: [list(map(list, call[:2])) + list(call[2:])
+                 for call in calls] for phase, calls in decodes.items()
+         if calls}))
+    # phases whose decodes the map and the reads' sizes fix
+    for phase in ("takeover", "read_recovered", "read_after_out", "mgr"):
+        check(sorted(decodes.get(phase, [])) == sorted(want[phase]),
+              f"life-cycle phase {phase} decoded {decodes.get(phase)}, "
+              f"the map asks for {want[phase]}")
+    # phases whose decodes follow timing or the PG logs: held to the
+    # positions the map allows
+    left = list(want["backfill"])
+    for call in decodes.get("backfill", []):
+        check(call in left, f"the backfill phase decoded {call}, outside "
+              f"the out OSD's holes {want['backfill']}")
+        left.remove(call)
+    check(all(call[1] and set(call[1]) <= victim_pos
+              for call in decodes.get("recovery", [])),
+          f"the recovery rebuilt other shards than osd.{victim}'s "
+          f"{sorted(victim_pos)}: {decodes.get('recovery')}")
+    repaired = sorted(call[1] for call in decodes.get("scrub_repair", []))
+    check(repaired == [(2,), (k + 1,)],
+          f"the repair rebuilt {repaired}, want positions 2 and {k + 1}")
+    for phase in ("backfill", "recovery", "scrub_repair"):
+        want[phase] = decodes.get(phase, [])
+    hashed["recovery"] = sum(v for key, v in rows.get("recovery", {}).items()
+                             if key.startswith("backend."))
+    for row in rows.values():
+        for key in ClusterRoutes.COALESCE_KEYS:
+            row.pop(f"coalesce.{key}", None)
+    ring = {phase: {key: val for key, val in row.items()
+                    if key.startswith("stream.")}
+            for phase, row in rows.items()}
+    predicted = predict_lifecycle(on_card, ops, ring, want, hashed)
+    print("cluster_lifecycle route split: " + json.dumps(
+        {"predicted": predicted, "observed": rows}))
+    for phase, want_row in predicted.items():
+        check(rows.get(phase, {}) == want_row,
+              f"life-cycle phase {phase} routes {rows.get(phase)}, "
+              f"predicted {want_row}")
+    print(f"cluster_lifecycle outputs: {len(oids)} objects of {size} B and "
+          f"a {LIFE_STRIPED_BYTES} B striped object ({len(pieces)} objects, "
+          f"{calls} calls) written; snapshot read, {len(over)} overwritten, "
+          f"{back} rolled back; {LIFE_WATCHERS} watchers notified; "
+          f"osd.{victim} stopped ({len(pg_oids)} objects of PG {pgid} "
+          f"rewritten through osd.{new_primary}) and revived; "
+          f"osd.{out_osd} backfilled out; 2 corrupt shards repaired, scrub "
+          f"clean; every object read around the hole; mgr "
+          f"{health['status']}")
+    return counted
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4481,6 +4888,8 @@ def main(argv=None) -> int:
     paths.append(tools_path(rng, dev))
     torch.cuda.empty_cache()
     paths.append(multi_device_path(rng, dev))
+    torch.cuda.empty_cache()
+    paths.append(lifecycle_path(rng, dev))
 
     print(json.dumps({"phases": Phase.results}))
     kern_rows = []

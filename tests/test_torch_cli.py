@@ -206,6 +206,27 @@ def test_device_reaches_the_monitor_and_every_daemon(cdir, capsys):
         cl.shutdown()
 
 
+def test_boot_waits_until_every_daemon_links(cdir, tmp_path, capsys):
+    """A boot returns once every daemon reaches every other up OSD and
+    every PG a daemon leads is peered with no position held back (the
+    daemons boot one after another), so a scrub right after it finds
+    every shard."""
+    run(capsys, cdir, "vstart", "--osds", "6")
+    run(capsys, cdir, "profile-set", "rs42", "plugin=isa", "k=4", "m=2")
+    run(capsys, cdir, "pool-create", "p", "8", "rs42")
+    src = tmp_path / "in.bin"
+    src.write_bytes(bytes(range(256)) * 300)
+    run(capsys, cdir, "put", "p", "o1", str(src))
+    cl = Cluster(cdir, device="cpu")
+    try:
+        assert cl.wait_linked(timeout=0)
+        results = [r for d in cl.daemons.values()
+                   for res in d.scrub_all().values() for r in res]
+        assert len(results) == 1 and results[0].ok, results
+    finally:
+        cl.shutdown()
+
+
 @pytest.mark.parametrize("store", ["file", "block"])
 @pytest.mark.parametrize("mons", [1, 3])
 @pytest.mark.parametrize("maker", ["ref", "port"])

@@ -1725,6 +1725,16 @@ def _stores(c):
     return out
 
 
+def _object_stores(c):
+    """``_stores`` without the per-PG ``pgmeta`` objects: their peering
+    stamps (``les``, ``acting``) are written by peering passes whose
+    timing against map changes varies from run to run in either
+    package; every object shard stays in."""
+    return {osd: {key: v for key, v in st.items()
+                  if not key.startswith("pgmeta")}
+            for osd, st in _stores(c).items()}
+
+
 def _reads(c, oids):
     out = {}
     for oid in oids:

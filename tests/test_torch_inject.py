@@ -54,10 +54,13 @@ def read_op(st, oid, length):
     return op.data, outcome(op)[1:], sorted(op.error_shards)
 
 
-@pytest.mark.parametrize("type", [0, 1, 2])
-def test_read_inject(rng, type):
+@pytest.mark.parametrize("type,stripes", [(0, 1), (1, 1), (2, 1), (2, 2)],
+                         ids=["0", "1", "2", "2-two_stripes"])
+def test_read_inject(rng, type, stripes):
+    """(2, 2) is ``tests/test_inject_types.py``'s silent read-path case:
+    a two-stripe object read whole."""
     tw = Twin()
-    data = payload(rng, K * PAGE)
+    data = payload(rng, stripes * K * PAGE)
     tw.submit("obj", 0, data)
     count = lambda st: st.pkg.inject.ec_inject.injected_count  # noqa: E731
     before = tw.do(count)

@@ -179,10 +179,9 @@ def test_store_carried_across_reads_recovers_scrubs(rng, direction):
     assert dst.snapshot() == snaps
     # the carried store keeps taking writes, equal to the source's; the
     # takeover continues the source's op sequence (the tid is the OI
-    # eversion's version): the port's prime_object resumes it from the
-    # primed eversions, ceph_tpu's caller sets it
-    if dst_pkg is REF:
-        dst.rmw._next_tid = src.rmw._next_tid
+    # eversion's version): prime_object leaves the tid alone in both
+    # packages, so the caller sets it
+    dst.rmw._next_tid = src.rmw._next_tid
     more = payload(rng, 3000)
     for st in (src, dst):
         st.rmw.submit("obj0", len(contents["obj0"]), more)
