@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``ceph_tpu_torch``) on one card.
 
-Drives fourteen paths through the package's public entry points, at
+Drives fifteen paths through the package's public entry points, at
 BlueStore's 4 KiB csum block, each counted on its own:
 
 1. set-up: the card's name and power limit; build the native host tier
@@ -74,9 +74,9 @@ BlueStore's 4 KiB csum block, each counted on its own:
    op sizes and printed as the route split;
 7. the store path, the same EC(8,4) backend over 12 ``BlockStore``
    shards (``osd.0``-``osd.11``, one preallocated device file each in a
-   temporary directory), 64 objects of 4 MiB: 8 PG threads, each with
+   temporary directory), 32 objects of 4 MiB: 8 PG threads, each with
    its own ``RMWPipeline`` and ``PGLog``, append 128 KiB at a time
-   (2,048 fused encode+csum ops) through the streaming dispatcher's
+   (1,024 fused encode+csum ops) through the streaming dispatcher's
    native ring with ``ec_streaming_dispatch`` on, every batch one
    Kernel B launch and every blob csum adopted from the kernel (no
    host hash: the smoke counts ``BlockStore._csum`` calls); a per-op
@@ -97,9 +97,9 @@ BlueStore's 4 KiB csum block, each counted on its own:
    one pool of the pipeline's ISA EC(8,4) profile at a 4 KiB stripe
    unit with 32 PGs (Ceph's ``osd_pool_default_pg_num``), and 16 client
    threads with a ``RadosClient`` each, over TCP on loopback: the
-   ``write_full`` of 64 objects of 4 MiB with ``ec_streaming_dispatch``
+   ``write_full`` of 32 objects of 4 MiB with ``ec_streaming_dispatch``
    off, the same over fresh stores with it on (stores equal in bytes
-   and HINFO), 64 objects of 128 KiB through the ring (one Kernel B
+   and HINFO), 32 objects of 128 KiB through the ring (one Kernel B
    launch a batch), the read-back, 64 overwrites of 4 KiB (host parity
    deltas), osd.3 and osd.7 stopped and marked down and every object
    read degraded (Kernel A or D, as the map's lost positions ask), 16
@@ -169,9 +169,9 @@ BlueStore's 4 KiB csum block, each counted on its own:
    (dp x sp launches), every CRC device Kernel C once, every DCN host
    Kernel A once a local device an op;
 14. the cluster life-cycle path: a ``Monitor`` and 12 ``OSDDaemon``s on
-   the card over ``MemStore``s, ISA EC(8,4), 32 PGs, 16 clients: 32
-   RADOS objects of 4 MiB; a 64 MiB object through ``StripedIoCtx``'s
-   default layout (16 objects of 4 MiB); a pool snapshot, half the
+   the card over ``MemStore``s, ISA EC(8,4), 32 PGs, 16 clients: 16
+   RADOS objects of 4 MiB; a 32 MiB object through ``StripedIoCtx``'s
+   default layout (8 objects of 4 MiB); a pool snapshot, half the
    objects overwritten, head and snap read, one rolled back; two
    watchers notified; the primary of the fullest PG stopped, its
    objects rewritten through the new primary, the old one revived and
@@ -179,7 +179,28 @@ BlueStore's 4 KiB csum block, each counted on its own:
    runs under ``pg_temp``; one data and one parity shard corrupted,
    repaired by ``scrub_all(repair=True)``, a clean second scrub; the
    mgr's health and one balancer pass. Routes held to
-   ``predict_lifecycle`` (Kernel B writes, A or D decodes, C hashes).
+   ``predict_lifecycle`` (Kernel B writes, A or D decodes, C hashes);
+15. the cluster under faults: a ``LoadCluster`` of 12 OSD daemons on the
+   card (the cluster path's ISA EC(8,4), 4 KiB stripe unit, 32 PGs,
+   4 MiB objects) with the reference fault tests' timeouts: a kill at
+   each RMW commit point (``rmw.prepare_done``,
+   ``rmw.subwrite_applied_before_ack``, ``rmw.primary_before_commit``,
+   ``rmw.primary_committed_before_reply``), each followed by the
+   revive, recovery, an exact read and a clean scrub, and the
+   rollbacks or rollforwards each point implies; the last point again
+   under the seeded flaky links; 64 KiB records appended to 4 logs with
+   every client frame duplicated and a primary killed midway (each log
+   exactly its records, the duplicates reqid-dedup hits); path 10's
+   loadgen run under flaky links with the lock detector armed (200
+   ops; green, exactly once, scrub clean, no lockdep finding, frames
+   dropped, duplicated and delayed on the plane and in the
+   exposition); a fresh cluster's 16 objects with one member stopped,
+   its store tampered with, 8 objects overwritten and the member
+   revived (the residue rolled back); and the most-primary OSD
+   partitioned asymmetrically under 8 overwrites, then healed
+   (elections counted). Routes held to ``predict_faults``: B a write
+   or append (bounded by the client ops and resends), A or D a rebuild
+   at the positions the map allows, C a verify or scrub stride.
 
 Kernel launch counts and the ``ec_dispatch`` / ``checksum.backends``
 counters are zeroed just before each path and read just after it: every
@@ -286,9 +307,11 @@ CLAY_SHEC_STRIPES = 16  # of one 4 MiB object each
 XXH_BYTES = 64 * MIB
 
 # the store path: the same EC(8,4) pipeline over 12 BlockStore shards
-# (osd.0-osd.11, one preallocated device file each), 64 objects of 4 MiB
-# appended by 8 PG threads through the streaming dispatcher's ring
-STORE_OBJECTS = 64
+# (osd.0-osd.11, one preallocated device file each), 32 objects of 4 MiB
+# appended by 8 PG threads through the streaming dispatcher's ring (32,
+# like the cluster path's 32, keeps the whole smoke near half its time
+# limit)
+STORE_OBJECTS = 32
 STORE_APPEND = 128 * 1024  # 4 full stripes: its 128 KiB fits one ring slot
 STORE_THREADS = 8  # PGs, each with its own RMWPipeline and PGLog
 #: per shard: 32 MiB of shard data, the KV WAL and snapshots, COW headroom
@@ -304,7 +327,7 @@ STREAM_KEYS = ("ops", "batches", "batched_ops", "max_batch", "batch_faults",
 # the pipeline's EC(8,4) profile, 16 client threads over TCP on loopback
 CLUSTER_OSDS = 12
 CLUSTER_PG_NUM = 32  # osd_pool_default_pg_num
-CLUSTER_OBJECTS = 64
+CLUSTER_OBJECTS = 32
 CLUSTER_CLIENTS = 16
 CLUSTER_SMALL = 128 * 1024  # the ring phase's objects: one ring slot each
 CLUSTER_OVERWRITES = 64
@@ -2244,7 +2267,7 @@ def predict_store(
 def store_path(rng, dev) -> Counted:
     """The store path: the EC(8,4) pipeline of the pipeline path over
     12 BlockStore shards (one preallocated device file each, in a
-    temporary directory), 64 objects of 4 MiB. 8 PG threads append
+    temporary directory), 32 objects of 4 MiB. 8 PG threads append
     through the streaming dispatcher's ring, a per-op twin writes the
     same appends into fresh stores; then read-back, degraded read,
     rebuild into an empty store, reopen from the device files, deep
@@ -2655,6 +2678,27 @@ def wait_settled(mon, live, what: str, deadline_s: float = 300.0) -> None:
         time.sleep(0.05)
 
 
+def wait_stopped(stopped, what: str, deadline_s: float = 60.0) -> None:
+    """Wait until no peering pass runs on the stopped daemons
+    ``stopped``. ``OSDDaemon.stop`` ends a daemon's op workers and
+    ticks, but a pass its peering FSM began before the stop runs to its
+    end, and may rebuild a shard of its own from the survivors: a
+    decode that would land in whatever phase comes next."""
+    end = time.monotonic() + deadline_s
+    while True:
+        busy = []
+        for d in stopped:
+            with d._pg_lock:
+                pgs = list(d._pgs.items())
+            busy += [(d.osd_id, pgid) for (_pl, pgid), pg in pgs
+                     if pg.fsm._draining]
+        if not busy:
+            return
+        check(time.monotonic() < end, f"a stopped daemon's peering ran on "
+              f"{what} past {deadline_s} s: {busy[:8]}")
+        time.sleep(0.05)
+
+
 def cluster_reads(osdmap, pool: str, oids, k: int, n: int) -> list[tuple]:
     """The decode each whole-object read of ``oids`` needs under
     ``osdmap``: the lost data positions (holes below k) from the first k
@@ -2998,6 +3042,8 @@ def cluster_path(rng, dev) -> Counted:
         for i in CLUSTER_DOWN:
             daemons[i].stop()
             mon.osd_down(i)
+        wait_stopped([daemons[i] for i in CLUSTER_DOWN],
+                     "after two OSDs went down")
         live = [d for d in daemons if d.osd_id not in CLUSTER_DOWN]
         settle(live, "after two OSDs went down")
         want_reads = cluster_reads(mon.osdmap, pool, oids, k, n)
@@ -3027,6 +3073,7 @@ def cluster_path(rng, dev) -> Counted:
         third = CLUSTER_THIRD
         daemons[third].stop()
         mon.osd_down(third)
+        wait_stopped([daemons[third]], f"after osd.{third} went down")
         live = [d for d in live if d.osd_id != third]
         settle(live, f"after osd.{third} went down")
         want_recovered = cluster_reads(mon.osdmap, pool, oids, k, n)
@@ -3340,13 +3387,29 @@ def device_busy_us(prof) -> float:
 def loadgen_path(dev) -> Counted:
     """The loadgen path: ``bench_cli loadgen --preset mixed`` in-process
     on 12 OSD daemons on the card, the most-primary OSD killed at op 200
-    and revived at op 400, with the device clock and 8 captured traces.
-    The run must be green (no verify failure, exactly once, recovered)
-    and its cluster scrub-clean (a scrub pass, without repair, before it
-    shuts down). Every write's fused encode is held to the driver's write
-    ops, every RMW delta to its overwrites (re-executions of ops resent
-    across the kill at most), every decode to its matrix, every hash to
-    Kernel C; an ``Exporter`` scrape matches the per-class op counts."""
+    and revived at op 400, with the device clock and 8 captured traces,
+    held as ``loadgen_run`` holds it."""
+    with Counted("loadgen") as counted:
+        loadgen_run(dev, LOADGEN_ARGV, "loadgen")
+    if dev.type == "cuda":
+        for name in ("gf_apply_csum", "gf_apply", "crc32c_blocks"):
+            check(counted.launches[name] > 0,
+                  f"kernel {name} never launched on the loadgen path")
+    return counted
+
+
+def loadgen_run(dev, argv: list[str], name: str) -> dict:
+    """One ``bench_cli loadgen`` run of ``argv`` in-process on the card
+    (the loadgen path's, or path 15's under lossy links). The run must
+    be green (no verify failure, exactly once, recovered) and its
+    cluster scrub-clean (a scrub pass, without repair, before it shuts
+    down). Every write's fused encode is held to the load generator's
+    write ops, every RMW delta to its overwrites (re-executions of ops
+    resent across a fault at most), every decode to its matrix, every
+    hash to Kernel C; an ``Exporter`` scrape matches the per-class op
+    counts.
+    Returns the run's report, with the exposition text its cluster
+    rendered before it shut down (``"exposition"``)."""
     import io
     import urllib.request
 
@@ -3357,7 +3420,7 @@ def loadgen_path(dev) -> Counted:
     from ceph_tpu_torch.pipeline import recovery
     from ceph_tpu_torch.pipeline.recovery import be_deep_scrub
     from ceph_tpu_torch.utils import config
-    from ceph_tpu_torch.utils.exporter import Exporter
+    from ceph_tpu_torch.utils.exporter import Exporter, render_exposition
     from ceph_tpu_torch.utils.perf_counters import perf_collection
 
     on_card = dev.type == "cuda"
@@ -3411,13 +3474,13 @@ def loadgen_path(dev) -> Counted:
                     recovery.be_deep_scrub = be_deep_scrub
                 seen["resends"] = perf_collection.dump()[
                     "loadgen_client"]["op_resend"]
+                seen["exposition"] = render_exposition(perf_collection)
             finally:
                 super().shutdown()
 
     err = io.StringIO()
-    args = bench_cli.parse_args(LOADGEN_ARGV + ["--device", dev.type])
+    args = bench_cli.parse_args(argv + ["--device", dev.type])
     with contextlib.ExitStack() as stack:
-        counted = stack.enter_context(Counted("loadgen"))
         stack.enter_context(routes.recording())
         stack.enter_context(config.override(**LOADGEN_OVERRIDES))
         real = loadgen.LoadCluster
@@ -3487,7 +3550,7 @@ def loadgen_path(dev) -> Counted:
     ring_ops = own.get("stream.ops", 0)
     alone = own.get("fused_encode", 0) - batches
     deltas = own.get("host_delta", 0)
-    print("loadgen counts: " + json.dumps({
+    print(f"{name} counts: " + json.dumps({
         "done": done, "failed": failed, "resends": resends,
         "writes_alone": alone, "writes_in_ring": ring_ops,
         "ring_batches": batches, "host_deltas": deltas,
@@ -3520,25 +3583,21 @@ def loadgen_path(dev) -> Counted:
         "scrub": scrub,
     }
     observed = {"run": run_row, "scrub": scrub_row}
-    print("loadgen route split: " + json.dumps(
+    print(f"{name} route split: " + json.dumps(
         {"predicted": predicted, "observed": observed}))
     for phase, want_row in predicted.items():
         check(observed[phase] == want_row,
-              f"loadgen {phase} routes {observed[phase]}, predicted "
+              f"{name} {phase} routes {observed[phase]}, predicted "
               f"{want_row}")
     check(all(len(call[1]) == 1 for call in routes.phase_decodes["run"]),
           "a loadgen decode wanted more than the one killed OSD's shard")
-    if on_card:
-        for name in ("gf_apply_csum", "gf_apply", "crc32c_blocks"):
-            check(counted.launches[name] > 0,
-                  f"kernel {name} never launched on the loadgen path")
     idle = 1.0 - busy_s / wall_s
-    print(f"loadgen: {elapsed:.6f}\t{int(kib)}  "
+    print(f"{name}: {elapsed:.6f}\t{int(kib)}  "
           f"({report['gbps']:.6f} GB/s over the measured window; "
           f"lat_p99_ms {report.get('lat_p99_ms')}, lat_p99_ms_device "
           f"{report.get('lat_p99_ms_device')}, device idle share "
           f"{idle:.4f} of {wall_s:.3f} s)")
-    print(json.dumps({"loadgen": {
+    print(json.dumps({name: {
         "lat_p99_ms": report.get("lat_p99_ms"),
         "lat_p99_ms_device": report.get("lat_p99_ms_device"),
         "device_floor_ms": report.get("device_floor_ms"),
@@ -3546,7 +3605,8 @@ def loadgen_path(dev) -> Counted:
         "fault": report.get("fault"), "wall_s": wall_s,
         "device_busy_s": busy_s, "device_idle_share": idle,
         "ops": done, "errors": failed}}))
-    return counted
+    report["exposition"] = seen["exposition"]
+    return report
 
 
 def quorum_path(rng, dev) -> Counted:
@@ -3616,6 +3676,8 @@ def quorum_path(rng, dev) -> Counted:
             clients(read, oids)
         daemons[QUORUM_DOWN].stop()
         mon.osd_down(QUORUM_DOWN)  # committed through the new leader
+        wait_stopped([daemons[QUORUM_DOWN]],
+                     f"after osd.{QUORUM_DOWN} went down")
         leader1 = svc.leader_rank()
         live = [d for d in daemons if d.osd_id != QUORUM_DOWN]
         wait_settled(mon, live, f"after osd.{QUORUM_DOWN} went down")
@@ -4437,8 +4499,9 @@ def multi_device_path(rng, dev) -> Counted:
 #: path 14: RADOS objects of Ceph's default object size, a striped object
 #: in libradosstriper's default layout (64 KiB units, 4 stripes, 4 MiB
 #: objects: 16 objects), the half overwritten after the snapshot
-LIFE_OBJECTS = 32
-LIFE_STRIPED_BYTES = 64 * MIB
+#: path 14's depth, set to keep the whole smoke near half its time limit
+LIFE_OBJECTS = 16
+LIFE_STRIPED_BYTES = 32 * MIB
 #: the striped object's calls: the op size in which ``rados put
 #: --striper`` writes a file (src/tools/rados/rados.cc, default_op_size
 #: = 1 << 22), 16 stripe units on each of 4 objects a call
@@ -4501,9 +4564,9 @@ def object_decodes(osdmap, pool: str, reads, k: int, n: int) -> list[tuple]:
 def lifecycle_path(rng, dev) -> Counted:
     """Path 14, the cluster life cycle: a ``Monitor`` and 12
     ``OSDDaemon``s on the card over ``MemStore``s, one ISA EC(8,4) pool
-    of 32 PGs at a 4 KiB stripe unit, 16 client threads. 32 RADOS
-    objects of 4 MiB; a 64 MiB object through ``StripedIoCtx``'s
-    default layout (16 objects of 4 MiB) in calls of 4 MiB; a pool
+    of 32 PGs at a 4 KiB stripe unit, 16 client threads. 16 RADOS
+    objects of 4 MiB; a 32 MiB object through ``StripedIoCtx``'s
+    default layout (8 objects of 4 MiB) in calls of 4 MiB; a pool
     snapshot, half the objects overwritten (each clones its head first),
     head and snap read back, one object rolled back; two watchers and a
     notify; the primary of the PG with the most objects stopped, its
@@ -4569,7 +4632,7 @@ def lifecycle_path(rng, dev) -> Counted:
         io = cl.ioctxs[0]
         pool_id = mon.osdmap.pools[pool].pool_id
 
-        # -- 1. 32 RADOS objects of 4 MiB -------------------------------
+        # -- 1. 16 RADOS objects of 4 MiB -------------------------------
         ops["write"] = len(oids)
         with routes("write"), Phase("life_write", len(oids) * size):
             clients(lambda io, oid: io.write_full(oid, model[oid].tobytes()),
@@ -4655,6 +4718,7 @@ def lifecycle_path(rng, dev) -> Counted:
                       for p in range(CLUSTER_PG_NUM)}
         daemons[victim].stop()
         mon.osd_down(victim)
+        wait_stopped([daemons[victim]], f"after osd.{victim} went down")
         live = [d for d in daemons if d.osd_id != victim]
         wait_settled(mon, live, f"after osd.{victim} went down")
         new_primary = mon.osdmap.pg_primary(pool, pgid)
@@ -4820,6 +4884,491 @@ def lifecycle_path(rng, dev) -> Counted:
     return counted
 
 
+# -- path 15: the cluster under faults ---------------------------------------
+
+#: path 15's crash drills: each named RMW commit point, armed on the daemon
+#: ``tests/test_rmw_crash_points.py`` arms it on
+FAULT_POINTS = (("rmw.prepare_done", "primary"),
+                ("rmw.subwrite_applied_before_ack", "replica"),
+                ("rmw.primary_before_commit", "primary"),
+                ("rmw.primary_committed_before_reply", "primary"))
+FAULT_NET_SEED = 0x5EED  # TestCrashUnderLossyLinks' profile seed
+FAULT_DUP_SEED = 5  # TestChaosSmoke's duplicated client links
+FAULT_LOGS = 4  # append logs, one 64 KiB record an append
+FAULT_RECORDS = 6  # records a log; the primary of the first log dies midway
+FAULT_RECORD = 64 * 1024
+FAULT_OBJECTS = 16  # the thrash and partition phases' objects
+FAULT_OVERWRITES = 8  # overwritten while a member is away, in each phase
+#: the lossy-link loadgen run: path 10's argv with the kill and revive
+#: replaced by the flaky link profile and the lock detector, its 600 ops
+#: cut to fit the smoke's time
+FAULT_LOADGEN_OPS = 200
+FAULT_TICK = 0.2
+#: the reference fault tests' client ladder (tests/test_rmw_crash_points.py)
+FAULT_CLIENT = {"client_op_timeout": 2.0, "client_max_attempts": 12,
+                "client_backoff": 0.05}
+#: the reference fault tests' peer timeouts (daemons read them at boot:
+#: a lost frame resolves inside the client's ladder, not a 10 s RPC
+#: stall), the cluster path's csum block and scrub stride, scheduled
+#: scrubs off (with ``stamped_daemons``: the path scrubs in phases of
+#: its own, and a scheduled scrub of a PG with a member just killed
+#: waits out the daemon's 15 s op timeout on its HINFO vote), and the loadgen
+#: path's crossovers, so a 384 KiB append log's decode (8 x 48 KiB of
+#: survivors) and its 48 KiB shards' hashes take the card
+FAULT_OVERRIDES = {"osd_peer_rpc_timeout": 1.0,
+                   "osd_subop_resend_interval": 0.2,
+                   "csum_block_size": CSUM_BLOCK,
+                   "osd_deep_scrub_stride": 524288,
+                   "ec_streaming_dispatch": False,
+                   "ec_host_dispatch_bytes": 64 * 1024,
+                   "csum_device_min_bytes": 32 * 1024,
+                   "osd_scrub_min_interval": 1e12,
+                   "osd_deep_scrub_interval": 1e12}
+
+
+def fault_argv() -> list[str]:
+    """Path 10's loadgen argv with ``--net-fault flaky --lockdep`` in
+    place of its kill and revive, and ``FAULT_LOADGEN_OPS`` ops."""
+    argv, skip = [], False
+    for arg in LOADGEN_ARGV:
+        if skip:
+            skip = False
+        elif arg in ("--fault-at", "--revive-at"):
+            skip = True
+        else:
+            argv.append(arg)
+    return argv + ["--net-fault", "flaky", "--lockdep",
+                   "--ops", str(FAULT_LOADGEN_OPS)]
+
+
+def predict_faults(
+    on_card: bool, rows: dict[str, dict[str, int]],
+    decodes: dict[str, list[tuple]], hashed: dict[str, int],
+) -> dict[str, dict[str, int]]:
+    """The routes of path 15's held phases. A whole write or a 64 KiB
+    append is one fused encode+csum (Kernel B; writes a primary
+    coalesces share their ring batch's launch, so each phase's
+    ``stream.*`` counts, which follow timing, are taken as observed); a
+    resend the reqid dedup absorbs takes none, and an op re-executed
+    after a crash one more (``faults_path`` bounds the fused ops by the
+    phase's client ops and resends); every rebuild is the decode its
+    matrix asks for (Kernel A, or Kernel D where the lost row is an
+    XOR), each recorded call held to the positions the map allows; a
+    scrub hashes every stride of every live shard with HashInfo once
+    (``hashed``), and recovery verifies the objects it rebuilt whole
+    (their count follows the PG logs), all on Kernel C."""
+    from ceph_tpu_torch.codecs import registry
+
+    limit = FAULT_OVERRIDES["ec_host_dispatch_bytes"]
+    codec = registry.factory("isa", PIPE_PROFILE, device="cpu")
+    out = {}
+    for phase, row in rows.items():
+        ring = {key: val for key, val in row.items()
+                if key.startswith("stream.")}
+        verifies = sum(val for key, val in row.items()
+                       if key.startswith("backend.")) - hashed.get(phase, 0)
+        out[phase] = merge_routes(
+            fused_writes(on_card, row.get("fused_encode", 0)), ring,
+            *(decode_route(on_card, codec, call, limit)
+              for call in decodes.get(phase, [])),
+            hashes(on_card, hashed.get(phase, 0) + max(verifies, 0)))
+    return out
+
+
+def fault_cluster(dev, pool: str):
+    """A ``LoadCluster`` in the cluster path's layout on ``dev``: 12
+    OSDs, ISA EC(8,4) at the 4 KiB stripe unit, 32 PGs, the reference
+    fault tests' client ladder; returned once its daemons link."""
+    from ceph_tpu_torch.loadgen import LoadCluster
+
+    cluster = LoadCluster(
+        n_osds=CLUSTER_OSDS, k=int(PIPE_PROFILE["k"]),
+        m=int(PIPE_PROFILE["m"]), pg_num=CLUSTER_PG_NUM,
+        chunk_size=PIPE_UNIT, pool=pool, plugin="isa",
+        tick_period=FAULT_TICK, device=dev, **FAULT_CLIENT)
+    try:
+        wait_linked(cluster.mon, list(cluster.daemons.values()),
+                    f"after the {pool} cluster booted")
+    except BaseException:
+        cluster.shutdown()
+        raise
+    return cluster
+
+
+def tamper(store, rng) -> int:
+    """``tests/test_cluster_chaos.py``'s divergent residue on a down
+    member's store: garbage over the head of about 40 % of its object
+    shards, stamped with an eversion 500 ops past the committed one."""
+    from ceph_tpu_torch.pipeline.rmw import OI_KEY, pack_oi, parse_oi
+    from ceph_tpu_torch.store import Transaction
+
+    count = 0
+    for key in store.list_objects():
+        if "#s" not in key or rng.random() > 0.6:
+            continue
+        nbytes = store.stat(key)
+        if not nbytes:
+            continue
+        osize, ev = parse_oi(store.getattr(key, OI_KEY))
+        store.queue_transactions(
+            Transaction()
+            .write(key, 0, bytes([0x99]) * min(nbytes, 512))
+            .setattr(key, OI_KEY, pack_oi(osize, (ev[0], ev[1] + 500))))
+        count += 1
+    return count
+
+
+def faults_path(rng, dev) -> Counted:
+    """Path 15, the cluster under faults: a ``LoadCluster`` of 12 OSD
+    daemons on the card (ISA EC(8,4), 4 KiB stripe unit, 32 PGs, 4 MiB
+    objects) with the reference fault tests' timeouts.
+
+    1. The crash drill of ``tests/test_rmw_crash_points.py`` at each RMW
+       commit point: a write, the point armed to kill its daemon, a
+       second write, the kill, the reply, the revive and recovery, the
+       new bytes read back, a clean scrub; each point's rollbacks and
+       rollforwards counted.
+    2. The committed-before-reply drill under the seeded flaky links;
+       then 64 KiB records appended to 4 logs with every client frame
+       duplicated and the first log's primary killed midway: each log
+       exactly its records, resends absorbed by the reqid dedup.
+    3. Path 10's loadgen run under flaky links with the lock detector
+       armed: green, exactly once, scrub clean, no lockdep finding, and
+       frames dropped, duplicated and delayed, counted by the plane and
+       in the exposition.
+    4. A fresh cluster: 16 objects, one member stopped, its store
+       tampered with (garbage under bumped eversions), 8 objects
+       overwritten through the survivors, the member revived: its
+       catch-up rolls the residue back.
+    5. The most-primary OSD partitioned asymmetrically while 8 objects
+       are overwritten, then healed: re-elections counted.
+
+    Every read is held against a numpy model and every scrub is clean;
+    every held phase's routes are held to ``predict_faults``, its fused
+    writes to its client ops and resends, and its decodes to the
+    positions the map allows."""
+    from ceph_tpu_torch.loadgen import cluster as loadgen_cluster
+    from ceph_tpu_torch.msg.messenger import LinkRule, net_faults
+    from ceph_tpu_torch.utils import config, lockdep
+    from ceph_tpu_torch.utils.crash_points import crash_points
+
+    size = OBJECT_BYTES
+    on_card = dev.type == "cuda"
+    started: list = []  # every daemon booted, revived ones too
+    routes = ClusterRoutes(started)
+    bounds: dict[str, tuple[int, int]] = {}  # phase: client ops, resends
+    allowed: dict[str, set] = {}  # phase: positions a decode may rebuild
+    hashed: dict[str, int] = {}  # phase: scrub strides hashed
+    model: dict[str, np.ndarray] = {}
+    summary: dict = {"crash": {}}
+
+    def counter(c, set_name: str, key: str) -> int:
+        return sum(getattr(d, set_name).get(key) for d in started)
+
+    @contextlib.contextmanager
+    def held(c, name: str, nbytes: int, ops: int = 0, rebuilds=()):
+        """A held phase: its routes recorded, its fused ops bounded by
+        ``ops`` client writes and the resends the phase took, its
+        decodes by the positions ``rebuilds``."""
+        resent = c.client.objecter.resends
+        with routes(name), Phase(f"faults_{name}", nbytes):
+            yield
+        bounds[name] = (ops, c.client.objecter.resends - resent)
+        allowed[name] = set(rebuilds)
+
+    def boot(pool: str):
+        c = fault_cluster(dev, pool)
+        started.extend(c.daemons.values())
+        return c
+
+    def live(c) -> list:
+        return [c.daemons[i] for i in c.live_osds()]
+
+    def reachable(c, what: str, deadline_s: float = 120.0) -> None:
+        """Wait until every live daemon reaches every other up OSD (a
+        lost frame's RPC timeout marks a peer down in the messenger, and
+        a read decodes around it until a tick re-admits it), then until
+        the cluster has recovered."""
+        end = time.monotonic() + deadline_s
+        while True:
+            up = c.mon.osdmap.up_osds()
+            unlinked = {d.osd_id: sorted((up - {d.osd_id})
+                                         - d.peers.avail_shards())
+                        for d in live(c)}
+            if not any(unlinked.values()):
+                break
+            check(time.monotonic() < end, f"the daemons did not reach "
+                  f"each other {what} within {deadline_s} s: {unlinked}")
+            time.sleep(0.05)
+        check(c.wait_recovered(max(end - time.monotonic(), 1.0)),
+              f"the cluster did not recover {what}")
+
+    def positions(c, osd: int) -> set:
+        """The positions ``osd`` holds in any PG of the pool."""
+        spec = c.mon.osdmap.pools[c.pool]
+        return {i for p in range(spec.pg_num) for i, o in enumerate(
+            c.mon.osdmap.pg_to_up_acting(c.pool, p)) if o == osd}
+
+    def revive(c, osd: int, name: str, rebuilds: set) -> None:
+        """Revive ``osd`` (or heal its links, ``name`` ending in
+        ``heal``) and wait until every PG is peered and caught up: a
+        returning primary peers a PG it leads at the PG's first op, so
+        every object is stat'ed first. A decode may rebuild only the
+        positions ``rebuilds`` that ``osd`` held before it went."""
+        with held(c, name, len(model) * size, rebuilds=rebuilds):
+            if name.endswith("heal"):
+                c.net_heal()
+            else:
+                c.revive(osd)
+                started.append(c.daemons[osd])
+            wait_settled(c.mon, live(c), f"after osd.{osd} returned")
+            for oid in model:
+                check(c.io.stat(oid) == model[oid].size,
+                      f"{oid} stat'ed another size after osd.{osd} "
+                      "returned")
+            wait_settled(c.mon, live(c), f"after osd.{osd}'s PGs peered")
+            check(c.wait_recovered(120),
+                  f"the cluster did not recover after osd.{osd} returned")
+
+    def read_scrub(c, name: str) -> None:
+        """Every object read against the model, then a deep scrub on
+        every primary at once: clean, every object's shards hashed."""
+        with held(c, f"{name}_read", len(model) * size):
+            for oid in model:
+                read_back(model, c.io, oid)
+        pool_id = c.mon.osdmap.pools[c.pool].pool_id
+        locs = sorted({key.rpartition("#s")[0] for d in live(c)
+                       for key in d.store.list_objects()
+                       if key.startswith(f"{pool_id}:")})
+        hashed[f"{name}_scrub"] = hashed_shards(c.mon, c.pool, c.daemons,
+                                                locs)
+        with held(c, f"{name}_scrub", len(model) * size):
+            found = scrub_live(live(c))
+        check(sorted(found) == locs and all(r.ok for r in found.values()),
+              f"the scrub after {name} is not clean: "
+              f"{[r.oid for r in found.values() if not r.ok]}")
+
+    def drill(c, point: str, role: str, name: str, lossy=False) -> dict:
+        """``_kill_at_point_and_converge``. Under ``lossy`` links the
+        plane is cleared once the victim has recovered, and the read and
+        the scrub wait until every daemon reaches every peer again; a
+        peer the lossy links marked down has its shard rebuilt like the
+        victim's, so a decode may rebuild any position. Returns the
+        drill's counts."""
+        oid = f"rbd_data.fault.{name}"
+        old = rng.integers(0, 256, size, dtype=np.uint8)
+        new = rng.integers(0, 256, size, dtype=np.uint8)
+        acting = c.mon.osdmap.object_to_acting(c.pool, oid)
+        victim = acting[0] if role == "primary" else acting[1]
+        held_pos = set(range(len(acting))) if lossy else positions(c, victim)
+        before = {key: counter(c, "rmw_crash_pc", key)
+                  for key in ("rollforwards", "rollbacks")}
+        dedup = counter(c, "net_pc", "dedup_hits")
+        with held(c, f"{name}_write", 2 * size, ops=2, rebuilds=held_pos):
+            check(c.io.write_full(oid, old.tobytes()) == size,
+                  f"{oid}: the first write did not land")
+            model[oid] = old
+            pt = crash_points.arm(point, "kill", osd=victim)
+            comp = c.io.aio_write_full(oid, new.tobytes())
+            check(pt.wait_hit(30), f"{point} never fired on osd.{victim}")
+            c.kill(victim)
+            wait_stopped([c.daemons[victim]], f"after the {point} kill")
+            reply = comp.wait_for_complete(90)
+            check(reply.size == size,
+                  f"{oid}: the reply after the {point} kill says "
+                  f"{reply.size} B")
+            model[oid] = new
+        crash_points.clear()
+        revive(c, victim, f"{name}_recovery", held_pos)
+        if lossy:
+            net_faults.clear()
+            reachable(c, "after the lossy links healed")
+        read_scrub(c, name)
+        return {"victim": victim, "role": role, **{
+            key: counter(c, "rmw_crash_pc", key) - val
+            for key, val in before.items()},
+            "dedup_hits": counter(c, "net_pc", "dedup_hits") - dedup}
+
+    with contextlib.ExitStack() as stack:
+        counted = stack.enter_context(Counted("faults"))
+        stack.enter_context(routes.recording())
+        stack.callback(crash_points.clear)
+        stack.callback(net_faults.clear)
+        override = stack.enter_context(contextlib.ExitStack())
+        override.enter_context(config.override(**FAULT_OVERRIDES))
+        override.enter_context(stamped_daemons(loadgen_cluster))
+        c = boot("faultpool")
+        override.callback(c.shutdown)
+
+        # -- 1. a kill at each RMW commit point --------------------------
+        for point, role in FAULT_POINTS:
+            name = point.split(".", 1)[1]
+            got = drill(c, point, role, name)
+            summary["crash"][point] = got
+            moved = got["rollforwards"] + got["rollbacks"]
+            # nothing on the wire, an unacked member, or an unsaid
+            # commit leaves a shard behind the log; a commit whose
+            # reply died leaves none
+            if point == "rmw.primary_committed_before_reply":
+                check(moved == 0 and got["dedup_hits"] > 0,
+                      f"{point}: {got}, want the resend replayed from "
+                      "the reqid cache and nothing rolled")
+            else:
+                check(moved > 0, f"{point}: {got}, want a rollback or "
+                      "rollforward")
+
+        # -- 2. the same drill under lossy links; duplicated appends -----
+        c.net_flaky(seed=FAULT_NET_SEED)
+        got = drill(c, "rmw.primary_committed_before_reply", "primary",
+                    "lossy", lossy=True)
+        summary["lossy"] = {**got, "net": dict(net_faults.counters)}
+        logs = [f"rbd_data.fault.log{i}" for i in range(FAULT_LOGS)]
+        records = {oid: [] for oid in logs}
+        victim = c.mon.osdmap.object_to_acting(c.pool, logs[0])[0]
+        held_pos = positions(c, victim)
+        dedup = counter(c, "net_pc", "dedup_hits")
+        net_faults.configure(FAULT_DUP_SEED)
+        net_faults.add_rule("client", "osd.*", LinkRule(dup=1.0))
+        appends = FAULT_LOGS * FAULT_RECORDS
+        with held(c, "dup_appends", appends * FAULT_RECORD, ops=appends,
+                  rebuilds=held_pos):
+            for i in range(appends):
+                oid = logs[i % FAULT_LOGS]
+                rec = rng.integers(0, 256, FAULT_RECORD, dtype=np.uint8)
+                got = c.io.append(oid, rec.tobytes())
+                records[oid].append(rec)
+                check(got == FAULT_RECORD * len(records[oid]),
+                      f"{oid}: the append returned size {got}")
+                if i == appends // 2:
+                    c.kill(victim)
+                    wait_stopped([c.daemons[victim]],
+                                 "after the log's primary was killed")
+        net_faults.clear()
+        dedup = counter(c, "net_pc", "dedup_hits") - dedup
+        check(dedup > 0, "no duplicated append hit the reqid dedup")
+        for oid in logs:
+            model[oid] = np.concatenate(records[oid])
+        revive(c, victim, "dup_recovery", held_pos)
+        read_scrub(c, "dup")
+        summary["dup_appends"] = {"victim": victim, "dedup_hits": dedup}
+        override.close()
+
+        # -- 3. the loadgen run under flaky links, lockdep armed ---------
+        net_faults.reset_counters()
+        lockdep.reset()
+        with routes("loadgen"), Phase("faults_loadgen", 0):
+            report = loadgen_run(dev, fault_argv(), "faults_loadgen")
+        found = lockdep.findings()
+        edges = len(lockdep.dump()["edges"])
+        lockdep.reset()
+        check(not any(found.values()) and not any(
+            report["lockdep"].values()) and edges,
+              f"lockdep findings {found} over {edges} lock edges")
+        exposed = {key: sum(
+            float(line.rpartition(" ")[2])
+            for line in report["exposition"].splitlines()
+            if line.startswith(f"ceph_tpu_{key}{{"))
+            for key in ("frames_dropped", "frames_duped", "frames_delayed")}
+        for key, val in exposed.items():
+            check(net_faults.counters[key] > 0 and val > 0,
+                  f"{key}: {net_faults.counters[key]} on the plane, "
+                  f"{val} in the exposition, want both above 0")
+        summary["loadgen"] = {"lockdep": found, "lock_edges": edges,
+                              "net": dict(net_faults.counters),
+                              "exposition": exposed,
+                              "dedup_hits": report.get("net_dedup_hits")}
+
+        # -- 4. thrash with divergent tampering --------------------------
+        model.clear()
+        override = stack.enter_context(contextlib.ExitStack())
+        override.enter_context(config.override(**FAULT_OVERRIDES))
+        override.enter_context(stamped_daemons(loadgen_cluster))
+        c = boot("thrashpool")
+        override.callback(c.shutdown)
+        oids = [f"rbd_data.thrash.{i:016x}" for i in range(FAULT_OBJECTS)]
+        with held(c, "thrash_write", len(oids) * size, ops=len(oids)):
+            for oid in oids:
+                model[oid] = rng.integers(0, 256, size, dtype=np.uint8)
+                c.io.write_full(oid, model[oid].tobytes())
+        victim = int(rng.choice(c.live_osds()))
+        before = counter(c, "rmw_crash_pc", "rollbacks")
+        held_pos = positions(c, victim)
+        c.kill(victim)
+        wait_stopped([c.daemons[victim]], "before the tamper")
+        tampered = tamper(c.stores[victim], rng)
+        check(tampered > 0, "the tamper changed no shard")
+        over = oids[:FAULT_OVERWRITES]
+        with held(c, "thrash_overwrite", len(over) * size, ops=len(over)):
+            for oid in over:
+                model[oid] = rng.integers(0, 256, size, dtype=np.uint8)
+                c.io.write_full(oid, model[oid].tobytes())
+        revive(c, victim, "thrash_recovery", held_pos)
+        rolled = counter(c, "rmw_crash_pc", "rollbacks") - before
+        check(rolled > 0, f"osd.{victim}'s divergent residue was not "
+              "rolled back")
+        read_scrub(c, "thrash")
+        summary["thrash"] = {"victim": victim, "tampered": tampered,
+                             "rollbacks": rolled}
+
+        # -- 5. an asymmetric partition of the most-primary OSD ---------
+        victim = c.most_primary_osd()
+        elections = counter(c, "peering_pc", "elections_run")
+        held_pos = positions(c, victim)
+        c.net_partition(victim, asymmetric=True)
+        wait_settled(c.mon, [d for d in live(c) if d.osd_id != victim],
+                     f"after osd.{victim} was partitioned")
+        over = oids[FAULT_OBJECTS - FAULT_OVERWRITES:]
+        with held(c, "partition_write", len(over) * size, ops=len(over),
+                  rebuilds=held_pos):
+            for oid in over:
+                model[oid] = rng.integers(0, 256, size, dtype=np.uint8)
+                c.io.write_full(oid, model[oid].tobytes())
+        revive(c, victim, "partition_heal", held_pos)
+        elections = counter(c, "peering_pc", "elections_run") - elections
+        check(elections > 0 and not c.partitioned,
+              f"the partition of osd.{victim} ran {elections} elections")
+        read_scrub(c, "partition")
+        summary["partition"] = {"victim": victim, "elections": elections}
+
+    rows = routes.rows
+    decodes = routes.phase_decodes
+    for row in rows.values():
+        for key in ClusterRoutes.COALESCE_KEYS:
+            row.pop(f"coalesce.{key}", None)
+    loadgen_row = rows.pop("loadgen")
+    for phase, row in rows.items():
+        ops, resent = bounds[phase]
+        fused = (row.get("fused_encode", 0) - row.get("stream.batches", 0)
+                 + row.get("stream.ops", 0))
+        check(ops <= fused <= ops + resent,
+              f"faults phase {phase}: {fused} fused ops for {ops} client "
+              f"writes and {resent} resends")
+        for call in decodes.get(phase, []):
+            check(set(call[1]) <= allowed[phase],
+                  f"faults phase {phase} decoded {call[:2]}, outside the "
+                  f"positions {sorted(allowed[phase])}")
+    predicted = predict_faults(on_card, rows, decodes, hashed)
+    print("faults route split: " + json.dumps(
+        {"predicted": predicted, "observed": rows}))
+    for phase, want in predicted.items():
+        check(rows[phase] == want, f"faults phase {phase} routes "
+              f"{rows[phase]}, predicted {want}")
+    summary["launches"] = {
+        "held": merge_routes(*({key: val for key, val in row.items()
+                               if key.startswith("launch.")}
+                              for row in rows.values())),
+        "loadgen": {key: val for key, val in loadgen_row.items()
+                    if key.startswith("launch.")}}
+    summary["decodes"] = {phase: len(calls) for phase, calls in
+                          decodes.items() if calls and phase != "loadgen"}
+    print("faults summary: " + json.dumps(summary))
+    if on_card:
+        for name in ("gf_apply_csum", "gf_apply", "crc32c_blocks"):
+            check(counted.launches[name] > 0,
+                  f"kernel {name} never launched on the faults path")
+    return counted
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4890,6 +5439,8 @@ def main(argv=None) -> int:
     paths.append(multi_device_path(rng, dev))
     torch.cuda.empty_cache()
     paths.append(lifecycle_path(rng, dev))
+    torch.cuda.empty_cache()
+    paths.append(faults_path(rng, dev))
 
     print(json.dumps({"phases": Phase.results}))
     kern_rows = []

@@ -7,7 +7,9 @@ runs one command and shuts down. A state directory made by either
 package's CLI (``mon/store.log`` or ``mon.N/`` quorum stores, ``osd.N/``
 FileStore or BlockStore trees, ``mons``) boots under the other and
 serves ``get``, ``ls`` and ``scrub``; the global ``--device`` reaches the
-monitor and every OSD daemon. (The ``MonStore`` cases of test_cli.py are
+monitor and every OSD daemon. In the crossing cases each reference boot
+is followed by the port's linking wait over the reference's daemons
+(``ref_linked``). (The ``MonStore`` cases of test_cli.py are
 mirrored in ``test_torch_mon.py``.)
 """
 
@@ -227,15 +229,34 @@ def test_boot_waits_until_every_daemon_links(cdir, tmp_path, capsys):
         cl.shutdown()
 
 
+@pytest.fixture
+def ref_linked(monkeypatch):
+    """The reference CLI's boot, then the port CLI's linking wait
+    (``Cluster.wait_linked``: every daemon reaches every up peer, every
+    PG a daemon leads peered with no position held) run over the
+    reference's daemons. The reference boots its daemons one after
+    another and runs its command at once, so under load a command can
+    find a position still held back for catch-up."""
+    boot = ref_cli.Cluster
+
+    class Linked(boot):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            Cluster.wait_linked(self)
+
+    monkeypatch.setattr(ref_cli, "Cluster", Linked)
+
+
 @pytest.mark.parametrize("store", ["file", "block"])
 @pytest.mark.parametrize("mons", [1, 3])
 @pytest.mark.parametrize("maker", ["ref", "port"])
 def test_state_dirs_cross_between_the_packages(
-    maker, mons, store, cdir, tmp_path, capsys
+    maker, mons, store, cdir, tmp_path, capsys, ref_linked
 ):
     """A cluster made and written by one package's CLI boots under the
     other's and serves get, ls and scrub; an object the second package
-    writes reads back through the first."""
+    writes reads back through the first. Each reference boot waits for
+    its daemons to link (``ref_linked``), as the port's does."""
     first, second = (run_ref, run) if maker == "ref" else (run, run_ref)
     argv = ["vstart", "--osds", "6", "--store", store]
     if mons > 1:

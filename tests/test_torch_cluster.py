@@ -2,9 +2,11 @@
 ``monitor.py``, ``peering.py``) against ceph_tpu's, on the CPU.
 
 The mirrors run the reference's ``tests/test_cluster.py`` and
-``tests/test_peering_fsm.py`` (all but the victim pickers of its load
-generator, which is not ported) against ``ceph_tpu_torch`` with
-``device="cpu"``. The twin cases drive one command sequence through a
+``tests/test_peering_fsm.py`` against ``ceph_tpu_torch`` with
+``device="cpu"``; its victim pickers run on both packages' load
+generator clusters, which must pick the same OSDs from the same census
+(the pickers' schedule cases are ``test_torch_loadgen.py``'s fault
+schedule twins). The twin cases drive one command sequence through a
 monitor of each package and hold ``OSDMap.to_bytes`` equal at every
 epoch, and hold profile validation to the same errors.
 """
@@ -680,6 +682,37 @@ class TestAdmission:
         assert io.read("obj") == payload(1000)
 
 
+
+class TestVictimPickers:
+    def test_most_and_least_primary_pickers(self):
+        """The most- and least-primary pickers over a live cluster's
+        primary census, ties to the lowest id; both packages' clusters
+        count the same census and pick the same OSDs."""
+        import importlib
+
+        from test_torch_dcn import time_limit
+
+        got = []
+        with time_limit(60):
+            for root in ("ceph_tpu", "ceph_tpu_torch"):
+                lg = importlib.import_module(f"{root}.loadgen")
+                kw = {"device": "cpu"} if root == "ceph_tpu_torch" else {}
+                cluster = lg.LoadCluster(
+                    n_osds=5, k=2, m=1, pg_num=8, chunk_size=1024, **kw,
+                )
+                try:
+                    counts = cluster._primary_counts()
+                    most = cluster.most_primary_osd()
+                    least = cluster.least_primary_osd()
+                    assert counts[most] == max(counts.values())
+                    assert counts[least] == min(counts.values())
+                    assert most == min(
+                        o for o, c in counts.items() if c == counts[most]
+                    )
+                    got.append((counts, most, least))
+                finally:
+                    cluster.shutdown()
+        assert got[1] == got[0]
 
 # -- twins: one command sequence through a monitor of each package -----
 

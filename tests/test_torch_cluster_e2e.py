@@ -4,7 +4,9 @@ client over sockets) against ceph_tpu's, on the CPU.
 The mirrors run the deterministic cases of the reference's
 ``tests/test_cluster_e2e.py``, ``tests/test_op_shards.py`` (booted with
 the port's own daemons: its load generator is not ported),
-``tests/test_qos.py`` (the cases without the load generator) and
+``tests/test_qos.py`` (the noisy-neighbour runs on the port's load
+generator, the CLI's two-tenant smoke and the exporter's tenant label
+among them) and
 ``tests/test_cluster_plugins.py`` against ``ceph_tpu_torch`` with
 ``device="cpu"``. The reference's device-route case reads the
 reference's counter names (``einsum_*``); its mirror reads the port's
@@ -1523,6 +1525,145 @@ class TestSpecPush:
         assert isinstance(one, dict)
         for cls_state in one.values():
             assert {"profile", "depth", "tag_lag_s"} <= set(cls_state)
+
+
+# -- the load-generator legs of tests/test_qos.py ---------------------
+
+def _nn_spec():
+    """Tenant A a steady trickle; tenant B capped hard (2 ops/s per OSD
+    scheduler) so the limit, not the server, paces it."""
+    from ceph_tpu_torch.loadgen import WorkloadSpec
+
+    return WorkloadSpec(
+        mix={"seq_write": 1, "read": 1},
+        object_size=2048, max_objects=8, queue_depth=2,
+        total_ops=16, warmup_ops=0, seed=0x91,
+        tenants={
+            "tA": {},
+            "tB": {"total_ops": 10, "queue_depth": 4,
+                   "qos": {"lim_ops": 2.0, "weight": 1.0}},
+        },
+    )
+
+
+def _nn_run(qos_on: bool):
+    from test_torch_dcn import time_limit
+
+    from ceph_tpu_torch.loadgen import LoadCluster, run_spec
+
+    with time_limit(120), config.override(osd_op_qos=qos_on):
+        cluster = LoadCluster(n_osds=3, k=2, m=1, pg_num=2,
+                              chunk_size=1024, tick_period=0.1,
+                              device="cpu")
+        try:
+            report = run_spec(cluster, _nn_spec())
+            report["_daemons"] = {
+                i: {
+                    "qos": {
+                        k: d.qos_pc.get(k)
+                        for k in ("dequeue_r", "dequeue_p",
+                                  "throttle", "admit_timeout")
+                    },
+                    "classes": sorted(d.scheduler.dump()),
+                }
+                for i, d in cluster.daemons.items()
+            }
+            return report
+        finally:
+            cluster.shutdown()
+
+
+@pytest.fixture(scope="module")
+def nn_runs():
+    return _nn_run(qos_on=True), _nn_run(qos_on=False)
+
+
+class TestNoisyNeighbor:
+    def test_runs_are_green(self, nn_runs):
+        for report in nn_runs:
+            assert report["verify_failures"] == 0
+            assert report["errors"] == 0
+            assert report["exactly_once"] is True
+            assert sorted(report["tenants"]) == ["tA", "tB"]
+
+    def test_limit_paces_the_noisy_tenant(self, nn_runs):
+        armed, hatch = nn_runs
+        tb = armed["tenants"]["tB"]
+        assert tb["duration_s"] >= 1.5, tb
+        assert tb["ops"] / tb["duration_s"] <= 2.0 * 2 + 2.0, tb
+
+    def test_escape_hatch_blows_past_the_limit(self, nn_runs):
+        armed, hatch = nn_runs
+        dur_on = armed["tenants"]["tB"]["duration_s"]
+        dur_off = hatch["tenants"]["tB"]["duration_s"]
+        assert dur_on >= 2.0 * dur_off, (dur_on, dur_off)
+
+    def test_tenant_classes_only_when_armed(self, nn_runs):
+        armed, hatch = nn_runs
+        armed_classes = {
+            c for d in armed["_daemons"].values() for c in d["classes"]
+        }
+        hatch_classes = {
+            c for d in hatch["_daemons"].values() for c in d["classes"]
+        }
+        assert {"client.tA", "client.tB"} <= armed_classes
+        assert "client.tA" not in hatch_classes
+        assert "client.tB" not in hatch_classes
+
+    def test_qos_counters_count(self, nn_runs):
+        armed, _ = nn_runs
+        served = sum(
+            d["qos"]["dequeue_r"] + d["qos"]["dequeue_p"]
+            for d in armed["_daemons"].values()
+        )
+        assert served > 0
+        throttled = sum(
+            d["qos"]["throttle"] for d in armed["_daemons"].values()
+        )
+        assert throttled > 0
+
+
+def test_bench_cli_multi_tenant_smoke(capfd):
+    """``loadgen --smoke --tenants 2`` keeps the two-column contract and
+    reports each tenant."""
+    import json
+
+    from test_torch_dcn import time_limit
+
+    from ceph_tpu_torch import bench_cli
+
+    args = bench_cli.parse_args(["loadgen", "--smoke", "--tenants", "2",
+                                 "--device", "cpu"])
+    with time_limit(120):
+        elapsed, kib = bench_cli.run(args)
+    assert elapsed > 0 and kib > 0
+    err = capfd.readouterr().err
+    report = json.loads(
+        [ln for ln in err.splitlines() if ln.startswith("{")][-1])
+    assert sorted(report["tenants"]) == ["t0", "t1"]
+    assert report["verify_failures"] == 0
+    for sect in report["tenants"].values():
+        assert sect["ops"] > 0
+
+
+@pytest.mark.parametrize("root", ["ceph_tpu", "ceph_tpu_torch"])
+def test_exporter_renders_tenant_as_pool_label(root):
+    """A tenant's QoS class set renders with its tenant as the pool
+    label, the same line in both packages."""
+    import importlib
+
+    qos = importlib.import_module(f"{root}.cluster.qos")
+    exporter = importlib.import_module(f"{root}.utils.exporter")
+    pc = qos.make_qos_class_perf("qostest.7.qos", "client.tenantA")
+    pc.inc("dequeue", 5)
+    text = exporter.render_exposition()
+    line = next(
+        ln for ln in text.splitlines()
+        if "qostest" in ln and "dequeue" in ln and not ln.startswith("#")
+    )
+    assert 'pool="tenantA"' in line
+    assert 'set="qostest.7.qos"' in line
+    assert line.rstrip().endswith(" 5")
 
 
 # -- mirror of tests/test_cluster_plugins.py -------------------------

@@ -10,7 +10,11 @@ are compared on the same spans. The mirrors run the reference's
 ``tests/test_stats_plane.py`` and the offline classes of
 ``tests/test_trace_tool.py`` (``TestAssembly``, ``TestCriticalPath``,
 ``TestChromeTrace``, ``TestCaptureTraces``, ``TestForensicsBundle``) on
-the port, with ``device="cpu"`` wherever a cluster boots.
+the port, with ``device="cpu"`` wherever a cluster boots; and the live
+legs of ``tests/test_stats_plane.py`` (``TestLiveStatsPlane``: a kill seen
+as degraded counts and a revive back to clean, the stats-derived recovery
+time against the direct poll, reporting off at interval 0, the forensics
+bundle's stats), each under a time limit.
 """
 
 import importlib
@@ -563,3 +567,157 @@ def test_bench_cli_forced_forensics(tmp_path):
     manifest = json.loads((bundles[0] / "MANIFEST.json").read_text())
     assert manifest["reason"].startswith("forced")
     assert "traces.txt" in manifest["files"]
+
+
+# -- the live legs of tests/test_stats_plane.py (TestLiveStatsPlane) ------
+
+class TestLiveStatsPlane:
+    """The stats plane sees a primary kill as rising degraded counts and
+    recovery, and converges back to clean when recovery completes."""
+
+    def test_kill_degrades_revive_cleans(self):
+        import time
+
+        from test_torch_dcn import time_limit
+
+        from ceph_tpu_torch.cluster import Manager
+        from ceph_tpu_torch.cluster.pgmap import status_dict
+        from ceph_tpu_torch.loadgen import LoadCluster
+
+        with time_limit(150):
+            cluster = LoadCluster(
+                n_osds=5, k=2, m=1, pg_num=4, chunk_size=1024,
+                device="cpu",
+            )
+            try:
+                rng_data = bytes(range(256)) * 16
+                for i in range(8):
+                    cluster.io.write_full(f"sp-{i}", rng_data)
+                for d in cluster.daemons.values():
+                    d.report_pg_stats(force=True)
+                pm = cluster.pgmap
+                st = status_dict(cluster.mon)
+                assert st["objects"] == 8
+                assert st["pgs"]["histogram"].get("active+clean", 0) >= 1
+                deadline = time.monotonic() + 15.0
+                i = 0
+                while time.monotonic() < deadline:
+                    cluster.io.write_full(f"sp-{i % 8}", rng_data)
+                    i += 1
+                    io = pm.rates()
+                    if io["client_write_bps"] > 0:
+                        break
+                    time.sleep(0.05)
+                assert io["client_write_bps"] > 0
+                victim = cluster.most_primary_osd()
+                cluster.kill(victim)
+                deadline = time.monotonic() + 15.0
+                while time.monotonic() < deadline:
+                    if pm.degraded_objects() > 0:
+                        break
+                    time.sleep(0.1)
+                assert pm.degraded_objects() > 0, (
+                    "stats plane never saw the kill"
+                )
+                hist = pm.state_histogram()
+                assert any("degraded" in k for k in hist), hist
+                checks = Manager(cluster.mon).health()["checks"]
+                assert "PG_DEGRADED" in checks
+                assert "object copies" in checks["PG_DEGRADED"]["detail"]
+                cluster.revive(victim)
+                min_epoch = cluster.mon.osdmap.epoch
+                assert cluster.wait_recovered(timeout=60.0)
+                assert cluster.wait_recovered_stats(
+                    timeout=10.0, min_epoch=min_epoch
+                ), "stats plane never converged after recovery"
+                assert pm.degraded_objects() == 0
+                hist = pm.state_histogram()
+                assert set(hist) == {"active+clean"}, hist
+            finally:
+                cluster.shutdown()
+
+    def test_time_to_recovered_agreement(self):
+        """The stats-derived time_to_recovered_s trails the direct-state
+        poll by at most one report interval."""
+        from test_torch_dcn import time_limit
+
+        from ceph_tpu_torch.loadgen import (
+            FaultSchedule,
+            LoadCluster,
+            WorkloadSpec,
+            run_spec,
+        )
+
+        with time_limit(150):
+            cluster = LoadCluster(
+                n_osds=5, k=2, m=1, pg_num=4, chunk_size=1024,
+                device="cpu",
+            )
+            try:
+                report = run_spec(cluster, WorkloadSpec(
+                    mix={"seq_write": 2, "read": 1, "rmw_overwrite": 1},
+                    object_size=4096, max_objects=8, queue_depth=4,
+                    total_ops=60, seed=0x57A7,
+                ), FaultSchedule.primary_kill(60, recovery_timeout=60.0))
+            finally:
+                cluster.shutdown()
+        assert report["verify_failures"] == 0
+        assert report["errors"] == 0
+        assert report["recovered"]
+        fault = report["fault"]
+        assert "time_to_recovered_s" in fault, fault
+        assert "time_to_recovered_legacy_s" in fault, fault
+        lag = (
+            fault["time_to_recovered_s"]
+            - fault["time_to_recovered_legacy_s"]
+        )
+        assert -0.001 <= lag <= 1.0, fault
+        assert report["pg_states"] == {"active+clean": 4}
+        assert report["degraded_objects"] == 0
+        assert "active+clean" in report["status_digest"]
+
+    def test_interval_zero_disables_reporting(self):
+        import time
+
+        from test_torch_dcn import time_limit
+
+        from ceph_tpu_torch.loadgen import LoadCluster
+        from ceph_tpu_torch.utils import config
+
+        with time_limit(60), config.override(osd_stats_report_interval=0.0):
+            cluster = LoadCluster(
+                n_osds=4, k=2, m=1, pg_num=4, chunk_size=1024,
+                device="cpu",
+            )
+            try:
+                cluster.io.write_full("quiet", b"q" * 2048)
+                time.sleep(0.8)
+                assert cluster.pgmap.version == 0
+            finally:
+                cluster.shutdown()
+
+    def test_forensics_bundle_captures_stats(self, tmp_path):
+        from test_torch_dcn import time_limit
+
+        from ceph_tpu_torch.loadgen import LoadCluster, write_bundle
+
+        with time_limit(60):
+            cluster = LoadCluster(
+                n_osds=4, k=2, m=1, pg_num=4, chunk_size=1024,
+                device="cpu",
+            )
+            try:
+                cluster.io.write_full("fb-obj", b"f" * 2048)
+                manifest = write_bundle(
+                    str(tmp_path), report={"verify_failures": 0},
+                    reason="stats-plane unit", cluster=cluster,
+                )
+            finally:
+                cluster.shutdown()
+        assert "status.json" in manifest["files"]
+        assert "pg_dump.json" in manifest["files"]
+        bundle = tmp_path / manifest["stamp"]
+        st = json.loads((bundle / "status.json").read_text())
+        assert st["objects"] >= 1
+        dump = json.loads((bundle / "pg_dump.json").read_text())
+        assert dump["pg_stats"]

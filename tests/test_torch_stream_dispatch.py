@@ -10,7 +10,11 @@ concurrent batching, shape grouping, oversized ops, batch error
 isolation (a codec that refuses multi-op batches, in the manner of
 ``_FlakyBatchCodec``), the solo fallback's error delivery, and a fused
 csum batch equal to the per-op fused call. Every parity and csum is also
-held to ``ceph_tpu``'s codec on the same inputs. Every test shuts the
+held to ``ceph_tpu``'s codec on the same inputs. The cluster legs of
+``tests/test_coalesce.py`` run on a port ``LoadCluster`` (5 OSDs, EC(3,2),
+one PG): coalesced writes equal to the solo path's and to ``ceph_tpu``'s
+coalesced stores, a failed op isolated in its tick batch, and the async
+objecter's window, counters, callbacks and errors. Every test shuts the
 dispatchers down in a fixture, and every thread join and wait has a
 timeout.
 """
@@ -519,3 +523,212 @@ def test_example_plugin_matches_reference(rng):
     assert np.array_equal(np.asarray(applied[4]), np.asarray(ref_applied[4]))
     with pytest.raises(ValueError):
         registry.factory("example", {"k": "1"}, device="cpu")
+
+
+# -- the cluster legs of tests/test_coalesce.py ----------------------------
+# (per-tick op coalescing on a live cluster and the async objecter; the
+# sub-write batch frames are twinned in test_torch_msg.py)
+
+def _coal_payload(i: int, size: int = 8192) -> bytes:
+    return np.random.default_rng(0xC0A1 + i).integers(
+        0, 256, size, np.uint8
+    ).tobytes()
+
+
+def _coal_boot(root="ceph_tpu_torch"):
+    import importlib
+
+    lg = importlib.import_module(f"{root}.loadgen")
+    kw = {"device": "cpu"} if root == "ceph_tpu_torch" else {}
+    return lg.LoadCluster(
+        n_osds=5, k=3, m=2, pg_num=1, chunk_size=2048,
+        pool="coalpool", **kw,
+    )
+
+
+def _coal_snapshot(cluster) -> dict:
+    """(osd, oid) -> (bytes, HINFO and shard-identity attrs)."""
+    out = {}
+    for osd, store in cluster.stores.items():
+        for oid in store.list_objects():
+            attrs = {
+                k: v for k, v in store.getattrs(oid).items()
+                if k in ("hinfo_key", "si")
+            }
+            out[(osd, oid)] = (store.read(oid), attrs)
+    return out
+
+
+def _coal_round(coalesce: bool, root="ceph_tpu_torch"):
+    """A warmup create, then 8 concurrent full-object writes queued
+    behind the primary's op lock (so the coalescer sees them together),
+    then 4 concurrent sub-stripe overwrites the same way."""
+    import importlib
+
+    cfg = importlib.import_module(f"{root}.utils.config").config
+    n_obj, size = 8, 8192
+    with cfg.override(osd_op_coalescing=coalesce):
+        cluster = _coal_boot(root)
+        try:
+            cluster.io.write_full("warm", _coal_payload(99, 2048))
+            primary = cluster.mon.osdmap.pg_primary("coalpool", 0)
+            pd = cluster.daemons[primary]
+            with pd._op_lock:
+                comps = [
+                    cluster.io.aio_write_full(f"o{i}",
+                                              _coal_payload(i, size))
+                    for i in range(n_obj)
+                ]
+            for c in comps:
+                c.wait_for_complete(WAIT)
+            with pd._op_lock:
+                comps = [
+                    cluster.io.aio_write(
+                        f"o{i}", _coal_payload(100 + i, 500), offset=1000
+                    )
+                    for i in range(0, n_obj, 2)
+                ]
+            for c in comps:
+                c.wait_for_complete(WAIT)
+            reads = {
+                f"o{i}": cluster.io.read(f"o{i}") for i in range(n_obj)
+            }
+            stores = _coal_snapshot(cluster)
+            coalesced = sum(
+                d.coalesce_pc.get("op_coalesced")
+                for d in cluster.daemons.values()
+            )
+            subwrite_batches = sum(
+                d.coalesce_pc.get("subwrite_batches")
+                for d in cluster.daemons.values()
+            )
+            scrub_ok = cluster.scrub_clean(repair=False)
+        finally:
+            cluster.shutdown()
+    expected = {}
+    for i in range(n_obj):
+        img = bytearray(_coal_payload(i, size))
+        if i % 2 == 0:
+            img[1000:1500] = _coal_payload(100 + i, 500)
+        expected[f"o{i}"] = bytes(img)
+    return reads, expected, stores, coalesced, subwrite_batches, scrub_ok
+
+
+def test_coalesced_equivalence_with_solo_path():
+    """Coalesced tick execution is byte-identical to one op at a time
+    (objects, shard bytes, shard identity and HashInfo), deep scrub is
+    clean on both, and the coalesced stores equal ceph_tpu's."""
+    from test_torch_dcn import time_limit
+
+    with time_limit(120):
+        r_on = _coal_round(coalesce=True)
+        r_off = _coal_round(coalesce=False)
+        r_ref = _coal_round(coalesce=True, root="ceph_tpu")
+    reads_on, exp_on, stores_on, coal_on, swb_on, scrub_on = r_on
+    reads_off, exp_off, stores_off, coal_off, _swb, scrub_off = r_off
+    assert reads_on == exp_on, "coalesced path returned wrong bytes"
+    assert reads_off == exp_off, "solo path returned wrong bytes"
+    assert coal_on > 0, "coalesced run never actually coalesced"
+    assert swb_on > 0, "no sub-write frames were batch-packed"
+    assert coal_off == 0, "coalesce=off still batched ops"
+    assert scrub_on and scrub_off, "deep scrub found csum damage"
+    assert set(stores_on) == set(stores_off)
+    for key in stores_on:
+        assert stores_on[key] == stores_off[key], key
+    assert r_ref[0] == reads_on
+    assert r_ref[2] == stores_on
+
+
+def test_coalesced_batch_error_isolation():
+    """One injected bad op inside a tick batch fails alone: its
+    batch-mates commit and verify, the failed op surfaces EIO."""
+    from test_torch_dcn import time_limit
+
+    from ceph_tpu_torch.pipeline.inject import ec_inject
+
+    ec_inject.clear_all()
+    with time_limit(90), config.override(osd_op_coalescing=True):
+        cluster = _coal_boot()
+        try:
+            cluster.io.write_full("warm", _coal_payload(99, 2048))
+            pool_id = cluster.mon.osdmap.pools["coalpool"].pool_id
+            ec_inject.write_error(f"{pool_id}:bad", 0, duration=1)
+            primary = cluster.mon.osdmap.pg_primary("coalpool", 0)
+            pd = cluster.daemons[primary]
+            with pd._op_lock:
+                bad = cluster.io.aio_write_full("bad", _coal_payload(7))
+                goods = [
+                    cluster.io.aio_write_full(f"g{i}", _coal_payload(i))
+                    for i in range(5)
+                ]
+            with pytest.raises(IOError):
+                bad.wait_for_complete(WAIT)
+            for c in goods:
+                c.wait_for_complete(WAIT)
+            for i in range(5):
+                assert cluster.io.read(f"g{i}") == _coal_payload(i), (
+                    "a batch-mate of the failed op lost its write"
+                )
+            assert sum(
+                d.coalesce_pc.get("op_coalesced")
+                for d in cluster.daemons.values()
+            ) > 0, "the round never rode the coalesced path"
+        finally:
+            cluster.shutdown()
+            ec_inject.clear_all()
+
+
+def test_async_objecter_window_and_counters():
+    """submit_async never blocks the caller, honours the per-OSD
+    in-flight window, completes everything it accepted, and exports the
+    op_coalesced/batch_size pair."""
+    from test_torch_dcn import time_limit
+
+    with time_limit(90):
+        cluster = _coal_boot()
+        try:
+            obj = cluster.client.objecter
+            obj.max_inflight_per_osd = 2
+            comps = [
+                cluster.io.aio_write_full(f"w{i}", _coal_payload(i, 4096))
+                for i in range(12)
+            ]
+            for c in comps:
+                c.wait_for_complete(WAIT)
+            for i in range(12):
+                assert cluster.io.read(f"w{i}") == _coal_payload(i, 4096)
+            dump = obj.perf.dump()
+            assert "op_coalesced" in dump and "batch_size" in dump
+            assert dump["op_completed"] >= 24
+            assert dump["op_inflight"] == 0, "inflight gauge leaked"
+            assert dump["op_coalesced"] > 0
+            assert dump["batch_size"]["sum"] >= dump["op_coalesced"]
+        finally:
+            cluster.shutdown()
+
+
+def test_async_objecter_callback_and_error():
+    """Completions run their callbacks before waiters wake, and terminal
+    errors surface on the completion, not the caller."""
+    from test_torch_dcn import time_limit
+
+    with time_limit(60):
+        cluster = _coal_boot()
+        try:
+            fired = threading.Event()
+            seen: list = []
+
+            def cb(c) -> None:
+                seen.append(c.error)
+                fired.set()
+
+            c = cluster.io.aio_write_full("cb-obj", b"x" * 512,
+                                          on_complete=cb)
+            c.wait_for_complete(WAIT)
+            assert fired.is_set() and seen == [None]
+            bad = cluster.io.aio_read("never-written")
+            with pytest.raises(FileNotFoundError):
+                bad.wait_for_complete(WAIT)
+            assert isinstance(bad.error, FileNotFoundError)
+        finally:
+            cluster.shutdown()
