@@ -139,6 +139,35 @@ class Kernel:
         with self._count_lock:
             self.launches += 1
 
+    def plan(self, args, device, result, keep=()) -> PlannedLaunch:
+        """This kernel's launch with ``args`` on ``device``, prepared
+        once: calling the plan launches it and returns ``result``.
+        ``keep`` holds the host arrays and tensors ``args`` point into."""
+
+        def launch():
+            with torch.cuda.device(device):
+                self(*args)
+
+        return PlannedLaunch(launch, result, keep)
+
+
+class PlannedLaunch:
+    """A launch prepared once: each call runs ``launch()`` and returns
+    ``result``, the same output tensors every time (a call overwrites
+    the last one's). ``launch`` is a kernel's launch with its arguments
+    bound (``Kernel.plan``) or, for a CPU tensor, the plain form
+    writing into ``result``; ``keep`` holds what the arguments point
+    into for as long as the plan lives."""
+
+    def __init__(self, launch, result, keep=()) -> None:
+        self.launch = launch
+        self.result = result
+        self.keep = keep
+
+    def __call__(self):
+        self.launch()
+        return self.result
+
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -175,5 +204,8 @@ CLAY_COUPLE_SCATTER = Kernel(
     [_P, _P, _P, _P, _I, _I, _P, _P, _L, _L, _L, _L, _L, _P],
 )
 
+#: Kernel K10 — the bench's roofline copy, out = in ^ 1 (csrc/copy_probe.cu)
+XOR1_COPY = Kernel("copy_probe", "xor1_copy", [_P, _P, _L, _P])
+
 ALL = (GF_APPLY, GF_APPLY_CSUM, CRC32C_BLOCKS, XOR_SCHEDULE, CLAY_UNCOUPLED,
-       CLAY_COUPLE_SCATTER)
+       CLAY_COUPLE_SCATTER, XOR1_COPY)

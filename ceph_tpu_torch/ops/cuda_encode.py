@@ -119,17 +119,23 @@ def _check_dims(c: int, r: int) -> None:
         )
 
 
-def _launch_apply(coef, ins, outs, b: int, n: int) -> None:
-    from ceph_tpu_torch.kernels import GF_APPLY
+def _apply_plan(coef, ins, outs, b: int, n: int, result):
+    """Kernel A's launch over [B, N] row views, prepared once (the
+    pointer and stride rows, the coefficients); a call launches it and
+    returns ``result``."""
+    from ceph_tpu_torch.kernels import GF_APPLY, PlannedLaunch
 
+    if not (b and n):
+        return PlannedLaunch(lambda: None, result)
     r, c = coef.shape
     _check_dims(c, r)
     ip, ist = _ptr_rows(ins)
     op, ost = _ptr_rows(outs)
     cf = np.ascontiguousarray(coef)
-    with torch.cuda.device(ins[0].device):
-        GF_APPLY(ip.ctypes.data, ist.ctypes.data, c, op.ctypes.data,
-                 ost.ctypes.data, r, cf.ctypes.data, b, n)
+    return GF_APPLY.plan(
+        (ip.ctypes.data, ist.ctypes.data, c, op.ctypes.data,
+         ost.ctypes.data, r, cf.ctypes.data, b, n),
+        ins[0].device, result, (ip, ist, op, ost, cf, ins, outs))
 
 
 class CsumPlan(NamedTuple):
@@ -198,9 +204,14 @@ def csum_supported(n: int, csum_block: int) -> bool:
     )
 
 
-def _launch_apply_csum(coef, ins, outs, b, n, csums, cb) -> None:
-    from ceph_tpu_torch.kernels import GF_APPLY_CSUM
+def _apply_csum_plan(coef, ins, outs, b, n, csums, cb, result):
+    """Kernel B's launch over [B, N] row views into the [B, C+R, N/cb]
+    int32 ``csums``, prepared once; a call launches it and returns
+    ``result``."""
+    from ceph_tpu_torch.kernels import GF_APPLY_CSUM, PlannedLaunch
 
+    if not b:
+        return PlannedLaunch(lambda: None, result)
     r, c = coef.shape
     _check_dims(c, r)
     plan = csum_plan(c, r, n, cb)
@@ -209,11 +220,29 @@ def _launch_apply_csum(coef, ins, outs, b, n, csums, cb) -> None:
     ip, ist = _ptr_rows(ins)
     op, ost = _ptr_rows(outs)
     cf = np.ascontiguousarray(coef)
-    with torch.cuda.device(ins[0].device):
-        GF_APPLY_CSUM(ip.ctypes.data, ist.ctypes.data, c, op.ctypes.data,
-                      ost.ctypes.data, r, cf.ctypes.data, b, n,
-                      csums.data_ptr(), cb, plan.tile, plan.piece,
-                      lanes.data_ptr(), piece_mat.ctypes.data)
+    return GF_APPLY_CSUM.plan(
+        (ip.ctypes.data, ist.ctypes.data, c, op.ctypes.data,
+         ost.ctypes.data, r, cf.ctypes.data, b, n, csums.data_ptr(), cb,
+         plan.tile, plan.piece, lanes.data_ptr(), piece_mat.ctypes.data),
+        ins[0].device, result,
+        (ip, ist, op, ost, cf, lanes, piece_mat, ins, outs, csums))
+
+
+def _stacked_rows(data: torch.Tensor, c: int):
+    """[..., C, N] uint8 CUDA tensor -> ([B, C, N] view, B, N)."""
+    if data.dtype != torch.uint8:
+        raise ValueError(f"data must be uint8, got {data.dtype}")
+    n = int(data.shape[-1])
+    flat = data.reshape((-1, c, n))
+    if n > 1 and flat.stride(2) != 1:
+        raise ValueError("data must have unit column stride")
+    return flat, flat.shape[0], n
+
+
+def _check_stacked(data: torch.Tensor, c: int) -> torch.device:
+    if data.dim() < 2 or data.shape[-2] != c:
+        raise ValueError(f"data {tuple(data.shape)} does not match C={c}")
+    return _check_device([data])
 
 
 # ---------------------------------------------------------- plain forms
@@ -230,29 +259,36 @@ def gf_apply_csum_plain(bitmatrix, data: torch.Tensor, csum_block: int):
 
 
 # ------------------------------------------------------------- Kernel A
-def gf_apply(bitmatrix, data: torch.Tensor) -> torch.Tensor:
-    """Stacked apply (the K1 form): [..., C, N] uint8 -> [..., R, N]."""
+def gf_apply_plan(bitmatrix, data: torch.Tensor):
+    """Kernel A planned once over one [..., C, N] uint8 tensor: each
+    call of the returned ``PlannedLaunch`` applies the code to
+    ``data``'s current bytes with one launch and no host checks, into
+    the same [..., R, N] output. For loops that apply one code to one
+    buffer again and again (the bench's feedback loops). A CPU tensor
+    plans the plain form, writing into one output too."""
     coef = bitmatrix_coefficients(bitmatrix)
     r, c = coef.shape
-    if data.dim() < 2 or data.shape[-2] != c:
-        raise ValueError(f"data {tuple(data.shape)} does not match C={c}")
-    dev = _check_device([data])
-    if dev.type == "cpu":
-        return gf_encode_bitplane(bitmatrix, data)
+    dev = _check_stacked(data, c)
     lead, n = tuple(data.shape[:-2]), int(data.shape[-1])
-    if data.dtype != torch.uint8:
-        raise ValueError(f"data must be uint8, got {data.dtype}")
-    flat = data.reshape((-1, c, n))
-    if n > 1 and flat.stride(2) != 1:
-        raise ValueError("data must have unit column stride")
-    b = flat.shape[0]
+    if dev.type == "cpu":
+        from ceph_tpu_torch.kernels import PlannedLaunch
+
+        out = torch.empty(lead + (r, n), dtype=torch.uint8)
+        return PlannedLaunch(
+            lambda: out.copy_(gf_encode_bitplane(bitmatrix, data)), out)
+    flat, b, n = _stacked_rows(data, c)
     out = torch.empty((b, r, n), dtype=torch.uint8, device=dev)
-    if b and n:
-        _launch_apply(
-            coef, [flat[:, i] for i in range(c)],
-            [out[:, j] for j in range(r)], b, n,
-        )
-    return out.reshape(lead + (r, n))
+    return _apply_plan(coef, [flat[:, i] for i in range(c)],
+                       [out[:, j] for j in range(r)], b, n,
+                       out.view(lead + (r, n)))
+
+
+def gf_apply(bitmatrix, data: torch.Tensor) -> torch.Tensor:
+    """Stacked apply (the K1 form): [..., C, N] uint8 -> [..., R, N]."""
+    if data.device.type == "cpu":
+        _check_stacked(data, bitmatrix_coefficients(bitmatrix).shape[1])
+        return gf_encode_bitplane(bitmatrix, data)
+    return gf_apply_plan(bitmatrix, data)()
 
 
 def gf_apply_shards(bitmatrix, shards: list) -> list:
@@ -273,42 +309,52 @@ def gf_apply_shards(bitmatrix, shards: list) -> list:
         raise ValueError("shards differ in stripe count")
     outs = [torch.empty((b, n), dtype=torch.uint8, device=dev)
             for _ in range(r)]
-    if b and n:
-        _launch_apply(coef, rows, outs, b, n)
+    _apply_plan(coef, rows, outs, b, n, None)()
     return [o.reshape(lead + (n,)) for o in outs]
 
 
 # ------------------------------------------------------------- Kernel B
-def gf_apply_csum(bitmatrix, data: torch.Tensor, csum_block: int):
-    """Stacked fused apply (the K3 form): [..., C, N] -> ([..., R, N]
-    parity, [..., C+R, N/cb] int64 zero-init CRC32C; rows 0..C-1 are
-    the inputs in order, C.. the outputs)."""
+def gf_apply_csum_plan(bitmatrix, data: torch.Tensor, csum_block: int):
+    """Kernel B planned once over one [..., C, N] uint8 tensor, as
+    ``gf_apply_plan``: each call returns the same ([..., R, N] parity,
+    [..., C+R, N/cb] zero-init CRC32C) tensors. The card's csums are
+    the raw int32 bits; the plain form a CPU tensor plans writes int64."""
     coef = bitmatrix_coefficients(bitmatrix)
     r, c = coef.shape
-    if data.dim() < 2 or data.shape[-2] != c:
-        raise ValueError(f"data {tuple(data.shape)} does not match C={c}")
+    dev = _check_stacked(data, c)
     lead, n = tuple(data.shape[:-2]), int(data.shape[-1])
     if not csum_supported(n, csum_block):
         raise ValueError(f"csum_block {csum_block} outside the contract "
                          f"for N={n}")
-    dev = _check_device([data])
-    flat = data.reshape((-1, c, n))
-    if dev.type == "cpu":
-        parity, csums = gf_apply_csum_plain(bitmatrix, flat, csum_block)
-    else:
-        if data.dtype != torch.uint8:
-            raise ValueError(f"data must be uint8, got {data.dtype}")
-        if flat.stride(2) != 1:
-            raise ValueError("data must have unit column stride")
-        b = flat.shape[0]
-        parity = torch.empty((b, r, n), dtype=torch.uint8, device=dev)
-        csums = _fused_launch(
-            coef, [flat[:, i] for i in range(c)],
-            [parity[:, j] for j in range(r)], b, n, csum_block,
-        )
     nb = n // csum_block
-    return (parity.reshape(lead + (r, n)),
-            csums.reshape(lead + (c + r, nb)))
+    if dev.type == "cpu":
+        from ceph_tpu_torch.kernels import PlannedLaunch
+
+        parity = torch.empty(lead + (r, n), dtype=torch.uint8)
+        csums = torch.empty(lead + (c + r, nb), dtype=torch.int64)
+
+        def launch():
+            p, cs = gf_apply_csum_plain(
+                bitmatrix, data.reshape((-1, c, n)), csum_block)
+            parity.copy_(p.reshape(parity.shape))
+            csums.copy_(cs.reshape(csums.shape))
+
+        return PlannedLaunch(launch, (parity, csums))
+    flat, b, n = _stacked_rows(data, c)
+    parity = torch.empty((b, r, n), dtype=torch.uint8, device=dev)
+    csums = torch.empty((b, c + r, nb), dtype=torch.int32, device=dev)
+    return _apply_csum_plan(
+        coef, [flat[:, i] for i in range(c)],
+        [parity[:, j] for j in range(r)], b, n, csums, csum_block,
+        (parity.view(lead + (r, n)), csums.view(lead + (c + r, nb))))
+
+
+def gf_apply_csum(bitmatrix, data: torch.Tensor, csum_block: int):
+    """Stacked fused apply (the K3 form): [..., C, N] -> ([..., R, N]
+    parity, [..., C+R, N/cb] int64 zero-init CRC32C; rows 0..C-1 are
+    the inputs in order, C.. the outputs)."""
+    parity, csums = gf_apply_csum_plan(bitmatrix, data, csum_block)()
+    return parity, csums.to(torch.int64) & 0xFFFFFFFF
 
 
 def gf_apply_csum_shards(bitmatrix, shards: list, csum_block: int):
@@ -346,6 +392,5 @@ def _fused_launch(coef, rows, outs, b, n, cb) -> torch.Tensor:
     csums = torch.empty(
         (b, c + r, n // cb), dtype=torch.int32, device=rows[0].device
     )
-    if b:
-        _launch_apply_csum(coef, rows, outs, b, n, csums, cb)
+    _apply_csum_plan(coef, rows, outs, b, n, csums, cb, None)()
     return csums.to(torch.int64) & 0xFFFFFFFF

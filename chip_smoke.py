@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``ceph_tpu_torch``) on one card.
 
-Drives fifteen paths through the package's public entry points, at
+Drives sixteen paths through the package's public entry points, at
 BlueStore's 4 KiB csum block, each counted on its own:
 
 1. set-up: the card's name and power limit; build the native host tier
@@ -20,7 +20,10 @@ BlueStore's 4 KiB csum block, each counted on its own:
    version (CUDA events); Kernel A also at the CLAY repair's
    inner-decode shape, Kernel B beside Kernel A then Kernel C over the
    same stripes (``unfused_ms``); Kernel A also as
-   ``gf_mul_const_bytes`` (a 1x1 code);
+   ``gf_mul_const_bytes`` (a 1x1 code); Kernel K10, the bench's roofline
+   copy, at lengths 1, 15, 16, 17 and 4 KiB + 3 (two base offsets) and
+   at the bench's [512, 229376], timed there beside the PyTorch call
+   ``x ^ 1`` (``library_ms``);
 3. the ISA-L path, ``reed_sol_van`` EC(8,4): the write
    (``ShardExtentMap.encode`` of 8 stripes x 8 x 1 MiB chunks with fused
    csums and HashInfo, then ``encode_chunks_with_csums`` /
@@ -200,7 +203,25 @@ BlueStore's 4 KiB csum block, each counted on its own:
    partitioned asymmetrically under 8 overwrites, then healed
    (elections counted). Routes held to ``predict_faults``: B a write
    or append (bounded by the client ops and resends), A or D a rebuild
-   at the positions the map allows, C a verify or scrub stride.
+   at the positions the map allows, C a verify or scrub stride;
+16. the bench path: the device phases of ``ceph_tpu_torch.bench``
+   (its ``DEVICE_PHASES`` table, every one), the port's flagship
+   benchmark, at its own shapes (roofline over 117 MB
+   on K10, EC(8,4) 8 x 8 x 1 MiB encode and decodes and the four
+   baseline geometries on Kernel A, the packet families on D and LRC
+   and SHEC on A, the schedule A/B and the xor-local LRC repair on D,
+   CLAY (8,4,11) and (8,4,10) repair on E, A and F, the small-op
+   per-op and streaming legs, the native single core, the host
+   reconstruct, CRC32C at 4/16/64 KiB on C and xxhash over 64 MiB, the
+   fused write path on B against A then C), the cluster, qos and
+   transport phases left to paths 8-10 and the trip-count ladder cut
+   to ``BENCH_SPAN_S``: every timed loop's routes held to its
+   iterations, each phase's to its loops' and its host legs', each
+   loop's kernels timed under the profiler beside the bench's time an
+   iteration, ``hbm_copy_gbps`` within 105 % of 3.35 TB/s, the encode
+   loop within 1.5x Kernel A's profiler time; every planned Kernel A,
+   B and C launch the loops made held byte for byte against its plain
+   form at the bench's shape; the bench's JSON printed.
 
 Kernel launch counts and the ``ec_dispatch`` / ``checksum.backends``
 counters are zeroed just before each path and read just after it: every
@@ -343,6 +364,10 @@ B_EDGE_CB = (256, 4096, 65536)
 B_EDGE_WINDOWS = (1, 3, 131)  # N = cb x windows
 C_EDGE_L = (1, 31, 32, 33, 512, 1000, 4096, 65536, MIB)
 D_EDGE_P = (1, 15, 16, 17, 2048, LIB_P)
+#: Kernel K10, the bench's roofline copy: lengths around its 16-byte
+#: vectors (each at a base offset of 0 and 1), then the bench's shape
+K10_EDGE_N = (1, 15, 16, 17, 4096 + 3)
+ROOF_SHAPE = (512, 229376)
 
 KERNEL_INFO = {
     "gf_apply": (
@@ -369,6 +394,7 @@ KERNEL_INFO = {
         "ceph_tpu_torch/csrc/clay_repair.cu",
         "ceph_tpu/ops/clay_kernels.py:369",
     ),
+    "xor1_copy": ("ceph_tpu_torch/csrc/copy_probe.cu", "bench.py:237"),
 }
 
 
@@ -783,6 +809,40 @@ def kernel_vs_plain(rng, dev) -> dict:
           f"8 x {width}] -> 4 rows: {row['clay_decode_ms']:.4f} ms kernel "
           f"(profiler), bound {row['clay_decode_bound_ms']:.4f} ms (bytes)")
     return out
+
+
+def copy_vs_plain(rng, dev) -> dict:
+    """Phase 2, Kernel K10 (the bench's roofline copy, ``x ^ 1``) against
+    its plain version byte for byte: lengths 1, 15, 16, 17 and 4 KiB + 3
+    at base offsets 0 and 1 (head, vector body, tail; the byte loop),
+    then the bench's [512, 229376] array, where it is timed beside its
+    plain version and the PyTorch call ``x ^ 1`` (the library yardstick).
+    Returns {max_abs_err, ms, call_ms, plain_ms, library_ms, bound_ms}."""
+    from ceph_tpu_torch.ops.cuda_copy import xor1_copy, xor1_copy_plain
+
+    err = 0
+    for n in K10_EDGE_N:
+        for offset in (0, 1):
+            x = rand_on(rng, dev, (n + offset,))[offset:]
+            err = max(err, max_err(xor1_copy(x), xor1_copy_plain(x)))
+    x = rand_on(rng, dev, ROOF_SHAPE)
+    err = max(err, max_err(xor1_copy(x), xor1_copy_plain(x)))
+    print(f"  xor1_copy: N in {K10_EDGE_N} at offsets 0 and 1, and "
+          f"{list(ROOF_SHAPE)}: max_abs_err {err}")
+    check(err == 0, "xor1_copy disagrees with its plain version")
+    row = {
+        "max_abs_err": err,
+        "ms": kernel_ms(lambda: xor1_copy(x), 20, "xor1_copy_kernel"),
+        "call_ms": time_ms(lambda: xor1_copy(x), 20),
+        "plain_ms": time_ms(lambda: xor1_copy_plain(x), 20),
+        "library_ms": time_ms(lambda: x ^ 1, 20),
+        "bound_ms": 2 * x.numel() / H100_BYTES_PER_S * 1e3,
+    }
+    print(f"  xor1_copy: {row['ms']:.4f} ms kernel (profiler), "
+          f"{row['call_ms']:.4f} ms a call (events), {row['plain_ms']:.4f} "
+          f"ms plain, {row['library_ms']:.4f} ms x ^ 1 (events), bound "
+          f"{row['bound_ms']:.4f} ms (bytes)")
+    return row
 
 
 def xor_cases(rng):
@@ -5369,6 +5429,330 @@ def faults_path(rng, dev) -> Counted:
     return counted
 
 
+#: path 16: the bench's device phases at its own shapes, the trip-count
+#: ladder cut to this differenced span (the bench's is 0.45 s); each
+#: loop's device time is taken over this many iterations under the
+#: profiler
+BENCH_SPAN_S = 0.05
+BENCH_PROFILED_ITERS = 20
+#: inner decodes of one CLAY repair of a parity chunk: one per
+#: intersection-score group, one when no helper is aloof
+CLAY_REPAIR_DECODES = {"clay_repair": 1, "clay_repair_aloof": 2}
+#: the loops of path 16 that launch a planned kernel an iteration (no
+#: codec call, so no ec_dispatch count): phase -> kernels of each loop
+BENCH_PLANNED = {
+    "roofline": [{"xor1_copy": 1}],
+    "device_path": [{"gf_apply": 1}] * 3,
+    "baseline_configs": [{"gf_apply": 1}] * 4,
+    "checksums": [{"crc32c_blocks": 1}] * 3 + [{}, {}],
+    "fused_write_path": [{"gf_apply_csum": 1},
+                         {"gf_apply": 1, "crc32c_blocks": 2}],
+}
+#: the phases of path 16 that run on the host by design
+BENCH_HOST_PHASES = ("smallop", "single_core", "reconstruct_latency")
+
+
+def bench_loop_routes(on_card: bool, phase: str, idx: int) -> dict:
+    """The routes of one iteration of loop ``idx`` of a bench phase: a
+    planned kernel launch (``BENCH_PLANNED``; the plain form, uncounted,
+    on the CPU); a packet-family encode or the xor-local LRC repair on
+    Kernel D (``sched_*``); the LRC and SHEC encodes on Kernel A; a CLAY
+    repair one Kernel E, one inner decode a score group on Kernel A and
+    one Kernel F."""
+    from ceph_tpu_torch import bench
+
+    if phase in BENCH_PLANNED:
+        if not on_card:
+            return {}
+        return {f"launch.{k}": n for k, n in BENCH_PLANNED[phase][idx].items()}
+    if phase == "code_families" and idx < 3 or phase == "sched_superopt":
+        op = "decode" if (phase, idx) == ("sched_superopt", 1) else "encode"
+        if not on_card:
+            return {f"plain_{op}": 1}
+        return {f"sched_{op}": 1, "launch.xor_schedule": 1}
+    if phase == "code_families":
+        return applies(on_card, "encode", 1)
+    if phase == "clay_repair":
+        g = CLAY_REPAIR_DECODES[bench.CLAY_GEOMETRIES[idx][0]]
+        out = applies(on_card, "decode", g)
+        if on_card:
+            out.update({"launch.clay_uncoupled": 1,
+                        "launch.clay_couple_scatter": 1})
+        return out
+    raise AssertionError(f"no bench loop {phase}.{idx}")
+
+
+def bench_extra_routes(on_card: bool, phase: str, stream_batches: int) -> dict:
+    """The routes of a bench phase outside its timed loops: the small-op
+    phase's 2 + 16 per-op encodes of CUDA tensors and, on the card, the
+    device clock's encodes (Kernel A), and its streaming batches of
+    host arrays (each at most 16 x 64 KiB, within the 1 MiB host
+    crossover: host GF tables); the reconstruct phase's host encode and
+    decodes; the fused phase's host CRC32C sample."""
+    from ceph_tpu_torch import bench
+
+    if phase == "smallop":
+        perop = 18 + (DEVICE_CLOCK_ENCODES if on_card else 0)
+        return merge_routes(applies(on_card, "encode", perop),
+                            {"host_encode": stream_batches})
+    if phase == "reconstruct_latency":
+        return {"host_encode": 1, "host_decode": bench.RECONSTRUCT_ITERS}
+    if phase == "fused_write_path":
+        return {"backend.host": 1 + bench.HOST_CSUM_SAMPLE // bench.FUSED_CB}
+    return {}
+
+
+def loop_device_ms(loop, data, iters: int) -> float:
+    """Device time of one iteration of a bench loop: its kernels'
+    time (copies left out) under torch.profiler over ``iters``
+    iterations. The profiler now and then drops kernel records, so a
+    session that kept fewer records of one of this repo's kernels than
+    its wrapper launched is taken again, twice at most; then each of
+    those kernels counts at its mean record over the sessions times its
+    launches, the other kernels at their mean over the sessions, and a
+    line says so."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ceph_tpu_torch import kernels
+
+    pooled: dict[str, list] = {}  # symbol -> [record us, records]
+    other = []  # per session: device us of the other kernels
+    for _ in range(3):
+        before = {k.symbol: k.launches for k in kernels.ALL}
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            loop(data, iters).item()
+            torch.cuda.synchronize()
+        launched = {k.symbol: k.launches - before[k.symbol]
+                    for k in kernels.ALL if k.launches > before[k.symbol]}
+        other_us, ours = 0.0, {}
+        for evt in prof.key_averages():
+            if not str(evt.device_type).endswith("CUDA") or evt.key.startswith(
+                    ("Activity Buffer Request", "Memcpy", "Memset")):
+                continue
+            dev_us = float(getattr(evt, "self_device_time_total", None)
+                           or getattr(evt, "self_cuda_time_total", 0) or 0)
+            kern = max((k for k in kernels.ALL if k.symbol + "_" in evt.key),
+                       key=lambda k: len(k.symbol), default=None)
+            if kern is None:
+                other_us += dev_us
+            else:
+                us, n = ours.get(kern.symbol, (0.0, 0))
+                ours[kern.symbol] = (us + dev_us, n + evt.count)
+        if all(ours.get(sym, (0, 0))[1] == n for sym, n in launched.items()):
+            total = other_us + sum(us for us, _n in ours.values())
+            return total / iters / 1e3
+        other.append(other_us)
+        for sym, (us, n) in ours.items():
+            acc = pooled.setdefault(sym, [0.0, 0])
+            acc[0] += us
+            acc[1] += n
+    missing = sorted(set(launched) - set(pooled))
+    print(f"  note: the profiler dropped records of {sorted(launched)} "
+          f"in three sessions of a bench loop; each counted at its mean "
+          f"record" + (f", {missing} not measured" if missing else ""))
+    total = sum(other) / len(other) + sum(
+        us / n * launched[sym] for sym, (us, n) in pooled.items())
+    return total / iters / 1e3
+
+
+@contextlib.contextmanager
+def recording_plans(active):
+    """Yields a list that gathers, while ``active()`` holds, every plan
+    of Kernels A, B and C made through their plan factories, as (kernel,
+    plan, plain): ``plain()`` is the plain form of the plan's input as
+    it stands. The factories are the modules' own again on exit."""
+    from ceph_tpu_torch.checksum import cuda_crc
+    from ceph_tpu_torch.checksum.crc32c import crc32c_fold_plain
+    from ceph_tpu_torch.ops import cuda_encode as ce
+    from ceph_tpu_torch.ops.bitplane import gf_encode_bitplane
+
+    plans: list = []
+    orig = (ce.gf_apply_plan, ce.gf_apply_csum_plan,
+            cuda_crc.crc32c_blocks_plan)
+
+    def recorded(kernel, factory, plain):
+        def make(*args):
+            plan = factory(*args)
+            if active():
+                plans.append((kernel, plan, lambda: plain(*args)))
+            return plan
+
+        return make
+
+    ce.gf_apply_plan = recorded("gf_apply", orig[0], gf_encode_bitplane)
+    ce.gf_apply_csum_plan = recorded(
+        "gf_apply_csum", orig[1], lambda bm, d, cb: ce.gf_apply_csum_plain(
+            bm, d.reshape(-1, d.shape[-2], d.shape[-1]), cb))
+    cuda_crc.crc32c_blocks_plan = recorded(
+        "crc32c_blocks", orig[2], crc32c_fold_plain)
+    try:
+        yield plans
+    finally:
+        (ce.gf_apply_plan, ce.gf_apply_csum_plan,
+         cuda_crc.crc32c_blocks_plan) = orig
+
+
+def plans_vs_plain(plans) -> None:
+    """Each recorded plan run once more, on its buffer's bytes as the
+    loop left them, and held byte for byte against its plain form on
+    the same input (CRCs as their 32 bits). Fails on any difference."""
+    import torch
+
+    def as_bytes(t):
+        if t.dtype == torch.uint8:
+            return t.reshape(-1)
+        return t.reshape(-1).to(torch.int64) & 0xFFFFFFFF
+
+    for kernel, plan, plain in plans:
+        got, want = plan(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        shapes = [tuple(g.shape) for g in got]
+        check(len(got) == len(want) and all(
+            torch.equal(as_bytes(g), as_bytes(w)) for g, w in zip(got, want)),
+            f"planned {kernel} at {shapes} differs from its plain form")
+        print(f"  planned {kernel} {shapes}: equal to its plain form")
+
+
+def bench_path(dev, a_ms: float | None) -> Counted:
+    """Path 16, the flagship bench's device phases through
+    ``ceph_tpu_torch.bench`` at its own shapes, roofline to fused write
+    path (the cluster, qos and transport phases are paths 8-10's work),
+    with the ladder cut to ``BENCH_SPAN_S``. Each timed loop's routes are
+    held to ``bench_loop_routes`` times its iterations, each phase's to
+    its loops' plus ``bench_extra_routes``; no device phase takes a
+    plain or host route. On the card each loop's kernels are also timed
+    under the profiler (device time an iteration beside the bench's
+    time an iteration), ``hbm_copy_gbps`` is held within 105 % of the
+    card's 3.35 TB/s, and the encode loop's time an iteration within
+    1.5x Kernel A's profiler time at the same 8 x 8 x 1 MiB (``a_ms``).
+    Every planned launch of the ``BENCH_PLANNED`` loops is held byte
+    for byte against its plain form at the bench's shape, after the
+    counted run (``plans_vs_plain``)."""
+    from ceph_tpu_torch import bench
+
+    on_card = dev.type == "cuda"
+    routes = ClusterRoutes([])
+    loops: list[dict] = []
+    cur = {"phase": None, "idx": 0}
+    orig_stats, orig_span = bench._loop_stats, bench.SPAN_TARGET_S
+
+    def loop_stats(loop, data, *args, **kw):
+        idx = cur["idx"]
+        cur["idx"] += 1
+        iters = [0]
+
+        def counted(d, n):
+            iters[0] += n
+            return loop(d, n)
+
+        with routes(f"{cur['phase']}.{idx}"):
+            per, iqr = orig_stats(counted, data, *args, **kw)
+        row = {"phase": cur["phase"], "loop": idx, "iters": iters[0],
+               "ms": per * 1e3, "device_ms": None}
+        if on_card:
+            iters[0] = 0
+            row["device_ms"] = loop_device_ms(counted, data,
+                                              BENCH_PROFILED_ITERS)
+        row["profiled"] = iters[0] if on_card else 0
+        loops.append(row)
+        return per, iqr
+
+    @contextlib.contextmanager
+    def phase(name):
+        cur["phase"], cur["idx"] = name, 0
+        t0 = time.perf_counter()
+        with routes(name):
+            yield
+        print(f"bench {name}: {time.perf_counter() - t0:.3f} s (host clock)")
+
+    result: dict = {}
+    state = bench.Run(dev)
+    bench._loop_stats, bench.SPAN_TARGET_S = loop_stats, BENCH_SPAN_S
+    try:
+        with recording_plans(lambda: cur["phase"] in BENCH_PLANNED) as plans:
+            with Counted("bench") as counted:
+                for name, measure in bench.DEVICE_PHASES:
+                    with phase(name):
+                        measure(result, state)
+            cur["phase"] = None
+    finally:
+        bench._loop_stats, bench.SPAN_TARGET_S = orig_stats, orig_span
+    enc_gbps = state.enc_gbps
+    result = {"value": round(enc_gbps, 2), **result}
+    print("bench plans against their plain forms:")
+    plans_vs_plain(plans)
+    check({kernel for kernel, _p, _f in plans}
+          == {name for loop in BENCH_PLANNED.values() for kl in loop
+              for name in kl} - {"xor1_copy"},
+          f"the planned loops planned {[p[0] for p in plans]}")
+    print(json.dumps({"bench": result}))
+    print("bench loops (time an iteration: the bench's, and its kernels' "
+          "device time under the profiler):")
+    for row in loops:
+        dev_ms = row["device_ms"]
+        ratio = f", x{row['ms'] / dev_ms:.2f}" if dev_ms else ""
+        print(f"  {row['phase']}.{row['loop']}: {row['iters']} iterations, "
+              f"{row['ms']:.4f} ms" + (f", device {dev_ms:.4f} ms{ratio}"
+                                      if dev_ms is not None else ""))
+
+    observed = {name: {k: v for k, v in row.items()
+                       if not k.startswith(("stream.", "coalesce."))}
+                for name, row in routes.rows.items()}
+    predicted: dict[str, dict] = {}
+    for name in dict.fromkeys(row["phase"] for row in loops):
+        parts = []
+        for row in loops:
+            if row["phase"] != name:
+                continue
+            per_iter = bench_loop_routes(on_card, name, row["loop"])
+            predicted[f"{name}.{row['loop']}"] = {
+                k: v * row["iters"] for k, v in per_iter.items()}
+            parts.append({k: v * (row["iters"] + row["profiled"])
+                          for k, v in per_iter.items()})
+        predicted[name] = merge_routes(*parts)
+    for name in BENCH_HOST_PHASES + ("fused_write_path",):
+        batches = routes.rows.get(name, {}).get("stream.batches", 0)
+        predicted[name] = merge_routes(predicted.get(name, {}),
+                                       bench_extra_routes(on_card, name,
+                                                          batches))
+    for name, _measure in bench.DEVICE_PHASES:
+        check(name in predicted, f"bench phase {name} has no predicted "
+              "routes: add its loops to bench_loop_routes or its name to "
+              "BENCH_HOST_PHASES")
+    print("bench route split: " + json.dumps(
+        {"predicted": predicted, "observed": observed}))
+    for name, want in predicted.items():
+        check(observed.get(name, {}) == want,
+              f"bench {name} routes {observed.get(name)}, predicted {want}")
+    for name, row in observed.items():
+        if name.split(".")[0] not in BENCH_HOST_PHASES:
+            check(not [k for k in row if k.startswith(("plain_", "host_"))
+                       and on_card], f"bench {name} took {row} on the card")
+    check(routes.rows["smallop"].get("stream.batch_faults", 0) == 0,
+          "a small-op streaming batch failed")
+    for key, val in result.items():
+        check(np.isfinite(val) and val >= 0, f"bench {key} = {val}")
+    if on_card:
+        for name in ("xor1_copy", "gf_apply", "gf_apply_csum", "crc32c_blocks",
+                     "xor_schedule", "clay_uncoupled", "clay_couple_scatter"):
+            check(counted.launches[name] > 0,
+                  f"kernel {name} never launched on the bench path")
+        check(result["hbm_copy_gbps"] <= H100_BYTES_PER_S / 1e9 * 1.05,
+              f"hbm_copy_gbps {result['hbm_copy_gbps']} is above 105 % of "
+              "the card's 3.35 TB/s: the roofline loop timed less than the "
+              "copy")
+        enc_ms = bench.BATCH * bench.K * bench.CHUNK / enc_gbps / 1e6
+        print(f"bench encode: {enc_ms:.4f} ms an iteration against Kernel "
+              f"A's {a_ms:.4f} ms (profiler, phase 2)")
+        check(enc_ms <= 1.5 * a_ms, f"the bench's encode loop takes "
+              f"{enc_ms:.4f} ms an iteration, over 1.5x Kernel A's "
+              f"{a_ms:.4f} ms: the loop is timing the host")
+    return counted
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5413,6 +5797,7 @@ def main(argv=None) -> int:
     rows = kernel_vs_plain(rng, dev)
     rows["xor_schedule"] = xor_vs_plain(rng, dev)
     rows.update(clay_vs_plain(rng, dev))
+    rows["xor1_copy"] = copy_vs_plain(rng, dev)
     torch.cuda.empty_cache()
 
     # -- 3.. the main paths, each counted --------------------------------
@@ -5441,6 +5826,8 @@ def main(argv=None) -> int:
     paths.append(lifecycle_path(rng, dev))
     torch.cuda.empty_cache()
     paths.append(faults_path(rng, dev))
+    torch.cuda.empty_cache()
+    paths.append(bench_path(dev, rows["gf_apply"]["ms"]))
 
     print(json.dumps({"phases": Phase.results}))
     kern_rows = []
@@ -5454,7 +5841,7 @@ def main(argv=None) -> int:
             "max_abs_err": rows[name]["max_abs_err"],
             "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
             "bound_ms": rows[name]["bound_ms"], "bound_by": "bytes",
-            "library_ms": None,
+            "library_ms": rows[name].get("library_ms"),
         })
     print(json.dumps({"kernels": kern_rows}))
     print(smi)

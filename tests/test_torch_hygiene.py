@@ -1,8 +1,8 @@
 """Import hygiene and device discipline of ceph_tpu_torch.
 
 - No module of the package, and not ``chip_smoke.py`` or the port's
-  experiment scripts, imports JAX or
-  anything of ceph_tpu: checked on the source (every import statement)
+  experiment scripts, imports JAX, anything of ceph_tpu or the JAX
+  package's root ``bench.py``: checked on the source (every import statement)
   and in a fresh interpreter (this suite's conftest imports JAX, so
   ``sys.modules`` is only meaningful in a subprocess). ``ceph_tpu_torch``
   starts with ``ceph_tpu``: the check is for the module ``ceph_tpu`` and
@@ -36,12 +36,14 @@ SOURCES = sorted(PKG.rglob("*.py")) + [
     ROOT / "experiments" / "torch_slice_breakdown.py",
     ROOT / "experiments" / "torch_kernel_variants.py",
     ROOT / "experiments" / "torch_multi_card.py",
+    ROOT / "experiments" / "torch_wrapper_calls.py",
 ]
 
 
 def _forbidden(name: str) -> bool:
+    """JAX, ceph_tpu, or the JAX package's root ``bench.py``."""
     return (
-        name in ("jax", "jaxlib", "ceph_tpu")
+        name in ("jax", "jaxlib", "ceph_tpu", "bench")
         or name.startswith(("jax.", "jaxlib.", "ceph_tpu."))
     )
 
@@ -144,6 +146,7 @@ def test_fresh_interpreter_loads_no_jax_or_reference():
         "ceph_tpu_torch.cli", "ceph_tpu_torch.parallel",
         "ceph_tpu_torch.parallel.mesh", "ceph_tpu_torch.parallel.collectives",
         "ceph_tpu_torch.parallel.dispatch", "ceph_tpu_torch.parallel.dcn",
+        "ceph_tpu_torch.bench", "ceph_tpu_torch.ops.cuda_copy",
         "torch.distributed",
     ):
         assert name in loaded
@@ -288,6 +291,11 @@ def test_default_device_entry_points_raise_without_a_card(no_card):
         make_ec_mesh()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DcnCluster(2, 2)
+    # the flagship benchmark (--device defaults to cuda)
+    from ceph_tpu_torch import bench
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.main([])
 
 
 def _mesh_too_many_devices():
@@ -384,9 +392,12 @@ def test_codec_without_device_refuses_host_input():
 
 
 def test_kernel_wrappers_never_run_plain_for_a_device_tensor():
-    from ceph_tpu_torch.checksum.cuda_crc import crc32c_blocks
+    from ceph_tpu_torch.checksum.cuda_crc import (
+        crc32c_blocks,
+        crc32c_blocks_plan,
+    )
     from ceph_tpu_torch.gf import gf_matrix_to_bitmatrix, isa_rs_matrix
-    from ceph_tpu_torch.ops import clay_repair, cuda_encode, cuda_xor
+    from ceph_tpu_torch.ops import clay_repair, cuda_copy, cuda_encode, cuda_xor
 
     bm = gf_matrix_to_bitmatrix(isa_rs_matrix(4, 2)[4:])
     rows = ((0, 1), (2, 3))
@@ -405,6 +416,10 @@ def test_kernel_wrappers_never_run_plain_for_a_device_tensor():
         lambda: clay_repair.couple_scatter(
             2, 0, ("r", "r"), ((143, 142), (142, 143)),
             list(meta[:, :2].unbind(1)), [meta[:, 2]], 1, 2, 2048),
+        lambda: cuda_copy.xor1_copy(meta),
+        lambda: cuda_encode.gf_apply_plan(bm, meta),
+        lambda: cuda_encode.gf_apply_csum_plan(bm, meta, 1024),
+        lambda: crc32c_blocks_plan(meta[:, 0], 0),
     ):
         with pytest.raises(ValueError, match="unsupported device"):
             call()

@@ -861,3 +861,47 @@ def test_dcn_pair_on_one_card_over_gloo(cuda):
         assert dcn.kernel_launches == 4
     assert np.array_equal(parity, ce.gf_apply(bm, data.to(cuda)).cpu()
                           .numpy())
+
+
+@pytest.mark.parametrize("offset", [(0, 0), (1, 1), (3, 0), (0, 5)])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 4096 + 3, (1 << 20) + 37])
+def test_xor1_copy_matches_plain(cuda, n, offset):
+    """Kernel K10 (the bench's roofline copy) byte for byte against
+    ``x ^ 1``: lengths around its 16-byte vectors, input and output one
+    offset (head, vector body, tail) or two (the byte loop)."""
+    from ceph_tpu_torch.kernels import XOR1_COPY
+    from ceph_tpu_torch.ops.cuda_copy import xor1_copy, xor1_copy_plain
+
+    src_off, dst_off = offset
+    x = _data((n + src_off,), seed=n).to(cuda)[src_off:]
+    if dst_off == src_off:
+        assert torch.equal(xor1_copy(x), xor1_copy_plain(x))
+    out = torch.zeros(n + dst_off + 16, dtype=torch.uint8, device=cuda)
+    XOR1_COPY(x.data_ptr(), out[dst_off:].data_ptr(), n)
+    assert torch.equal(out[dst_off:dst_off + n], xor1_copy_plain(x))
+    assert not out[:dst_off].any() and not out[dst_off + n:].any()
+
+
+def test_planned_launches_match_the_plain_forms(cuda):
+    """The planned Kernel A, B and C launches give their plain forms'
+    bytes, call after call on the buffer's current bytes, into the
+    same output tensors."""
+    from ceph_tpu_torch.checksum.crc32c import crc32c_fold_plain
+    from ceph_tpu_torch.checksum.cuda_crc import crc32c_blocks_plan
+
+    bm = gf_matrix_to_bitmatrix(isa_rs_matrix(8, 4)[8:])
+    data = _data((3, 8, 1 << 16)).to(cuda)
+    enc = ce.gf_apply_plan(bm, data)
+    fused = ce.gf_apply_csum_plan(bm, data, 4096)
+    rows = data.view(-1, 4096)
+    crc = crc32c_blocks_plan(rows, 0xFFFFFFFF)
+    for _ in range(2):
+        assert enc() is enc.result
+        assert torch.equal(enc.result, gf_encode_bitplane(bm, data))
+        parity, csums = fused()
+        want_p, want_c = ce.gf_apply_csum_plain(bm, data, 4096)
+        assert torch.equal(parity, want_p)
+        assert torch.equal(csums.to(torch.int64) & 0xFFFFFFFF, want_c)
+        assert torch.equal(crc().to(torch.int64) & 0xFFFFFFFF,
+                           crc32c_fold_plain(rows, 0xFFFFFFFF))
+        data[0, 0, :128] ^= 0x5A
