@@ -203,7 +203,8 @@ def make_net_perf(name: str):
     fault plane did to this daemon's links, and what the dedup tiers
     absorbed — the observability half of the chaos contract (injected
     faults MUST show up here, absorbed duplicates MUST show up there,
-    and the ledger still balances exactly-once)."""
+    and the ledger still balances exactly-once) — plus the replies its
+    sub-op drain loop re-queued (``NetShardBackend._drain_until``)."""
     from ceph_tpu_torch.utils import PerfCountersBuilder, perf_collection
 
     return (
@@ -227,6 +228,32 @@ def make_net_perf(name: str):
         .add_u64_counter(
             "dedup_hits",
             "resent client mutations replayed from the reqid cache",
+        )
+        .add_u64_counter(
+            "drain.requeues",
+            "sub-op replies a drainer put back (another thread held "
+            "the callback lock), each followed by a 1 ms sleep",
+        )
+        .create_perf_counters()
+    )
+
+
+def make_op_queue_perf(name: str):
+    """The per-daemon ``op_queue`` counter set (``perf dump`` section
+    ``osd.<id>.op_queue``): work items taken off the mClock queue and
+    their summed wait, from ``_schedule`` to the moment each starts on
+    whichever thread runs it (a coalesced batch's items start
+    together)."""
+    from ceph_tpu_torch.utils import PerfCountersBuilder, perf_collection
+
+    return (
+        PerfCountersBuilder(perf_collection, name)
+        .add_u64_counter(
+            "op_queue.dequeued", "queued work items started"
+        )
+        .add_time(
+            "op_queue.wait_s",
+            "seconds the started items waited in the queue",
         )
         .create_perf_counters()
     )
@@ -654,6 +681,11 @@ class OSDDaemon:
         #: through it (their IO still runs on their own threads)
         self.scheduler = MClockScheduler(scheduler_profiles)
         self._sched_cv = threading.Condition()
+        #: id(queued item) -> perf_counter stamp of its ``_schedule``
+        #: (the scheduler holds the item until it starts, so its id
+        #: stays unique while stamped)
+        self._queued_at: dict[int, float] = {}
+        self.op_queue_pc = make_op_queue_perf(f"osd.{osd_id}.op_queue")
         #: QoS observability: the osd.N.qos aggregate set plus lazily
         #: created per-class osd.N.qos.pool.<label> sets. The scheduler
         #: keeps the lifetime counts; the tick syncs them into perf by
@@ -861,7 +893,9 @@ class OSDDaemon:
                 continue
             batch, leftover = self._collect_coalesce(fn)
             if batch is not None:
-                self._run_thunk(lambda: self._run_coalesced_batch(batch))
+                self._run_thunk(
+                    lambda: self._run_coalesced_batch(batch), batch
+                )
             else:
                 self._run_thunk(fn)
             if leftover is not None:
@@ -924,7 +958,7 @@ class OSDDaemon:
             batch = self._collect_shard_coalesce(idx, fn)
             if batch is not None:
                 self._run_thunk(
-                    lambda: self._run_coalesced_batch(batch, idx)
+                    lambda: self._run_coalesced_batch(batch, idx), batch
                 )
             else:
                 self._run_thunk(fn)
@@ -957,7 +991,10 @@ class OSDDaemon:
             return None
         return items
 
-    def _run_thunk(self, fn) -> None:
+    def _run_thunk(self, fn, items=None) -> None:
+        """Run one work item (or a coalesced batch, whose queued
+        ``items`` start together) on this thread."""
+        self._note_started((fn,) if items is None else items)
         try:
             fn()
         except Exception as e:
@@ -1012,8 +1049,22 @@ class OSDDaemon:
 
     def _schedule(self, class_name: str, fn, cost: float = 1.0) -> None:
         with self._sched_cv:
+            self._queued_at[id(fn)] = time.perf_counter()
             self.scheduler.enqueue(class_name, fn, cost)
             self._sched_cv.notify()
+
+    def _note_started(self, items) -> None:
+        now = time.perf_counter()
+        waited, started = 0.0, 0
+        for item in items:
+            t = self._queued_at.pop(id(item), None)
+            if t is not None:
+                waited += now - t
+                started += 1
+        if started:
+            self.op_queue_pc.add_many((
+                ("op_queue.dequeued", started), ("op_queue.wait_s", waited),
+            ))
 
     def admit(self, class_name: str, cost: float = 1.0) -> None:
         """QoS admission gate for background work: blocks until the
@@ -2643,11 +2694,16 @@ class OSDDaemon:
             live: list[_CoalCtx] = []
             for ctx in ctxs:
                 try:
+                    # osd_op_submit, not osd_op: this span covers the
+                    # submit alone; the wave's drains and the truncate
+                    # half run after it, shared by the batch, where the
+                    # serial path's osd_op covers the op to its reply
                     with tracer.continue_trace(
                         ctx.msg.trace_id, ctx.msg.parent_span
                     ), tracer.span(
-                        "osd_op", op=ctx.msg.op, oid=ctx.msg.oid,
-                        osd=self.osd_id, tid=ctx.msg.tid,
+                        "osd_op_submit", op=ctx.msg.op,
+                        oid=ctx.msg.oid, osd=self.osd_id,
+                        tid=ctx.msg.tid,
                     ):
                         ctx.trace_ctx = tracer.current()
                         ctx.pg.rmw.submit(
@@ -2674,10 +2730,10 @@ class OSDDaemon:
             for ctx in trunc:
                 ctx.done = []
                 try:
-                    # re-enter the op's own osd_op context: the shrink's
-                    # sub-op spans must land under the SAME primary
-                    # subtree the write half opened (the serial path
-                    # runs both halves inside one osd_op span) — the
+                    # re-enter the op's own osd_op_submit context: the
+                    # shrink's sub-op spans must land under the SAME
+                    # primary subtree the write half opened (the serial
+                    # path runs both halves inside one osd_op span) — the
                     # coalesced-path trace gap of CAPABILITIES §4b
                     with tracer.continue_trace(*ctx.trace_ctx):
                         ctx.pg.rmw.submit_truncate(

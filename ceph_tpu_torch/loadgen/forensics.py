@@ -14,6 +14,8 @@ wedged ops are still live:
                            critical-path attribution
 - ``traces_chrome.json``   the same traces as Chrome trace-event JSON
                            (open in Perfetto)
+- ``span_totals.txt``      every span and timer name's closes and
+                           wall / self / CPU ms a close, since start
 - ``cluster_log.jsonl``    the cluster-log tail (down-marks, slow-op
                            complaints, peering stalls, net-fault
                            arms, crash-point fires)
@@ -98,7 +100,11 @@ def write_bundle(
     from ceph_tpu_torch.utils.cluster_log import cluster_log
     from ceph_tpu_torch.utils.optracker import op_tracker
     from ceph_tpu_torch.utils.perf_counters import perf_collection
-    from ceph_tpu_torch.utils.trace_assembly import capture_traces
+    from ceph_tpu_torch.utils.trace_assembly import (
+        capture_traces,
+        format_span_totals,
+        span_totals,
+    )
 
     stamp = time.strftime("%Y%m%d-%H%M%S") + f"-{os.getpid()}"
     bundle_dir = os.path.join(out_dir, stamp)
@@ -124,6 +130,7 @@ def write_bundle(
     traces = capture_traces(limit=trace_capture)
     dump("traces.txt", traces["text"])
     dump("traces_chrome.json", traces["chrome_json"])
+    dump("span_totals.txt", format_span_totals(span_totals()))
     dump("cluster_log.jsonl", cluster_log.last(2000), jsonl=True)
     dump("perf_dump.json", perf_collection.dump())
     from ceph_tpu_torch.utils import lockdep

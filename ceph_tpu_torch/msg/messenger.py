@@ -40,8 +40,8 @@ from collections.abc import Callable
 from . import secure as secure_mod
 from . import shm_ring
 from .messages import decode_message, message_type
-from .wire import BadFrame, decode_frame, encode_frame
-from ceph_tpu_torch.utils import lockdep
+from .wire import HEADER_BYTES, BadFrame, decode_frame, encode_frame
+from ceph_tpu_torch.utils import lockdep, tracer
 from ceph_tpu_torch.utils.lockdep import DebugLock
 
 
@@ -511,15 +511,17 @@ class Connection:
             self._seq += 1
             # Sealing must happen under the send lock: the AEAD tx
             # counter and the socket write have to agree on order.
-            frame = encode_frame(
-                message_type(msg),
-                self._seq,
-                msg.encode(),
-                compress=self.messenger.compress,
-                secure=self._tx,
-            )
+            with tracer.timer("msg_encode"):
+                frame = encode_frame(
+                    message_type(msg),
+                    self._seq,
+                    msg.encode(),
+                    compress=self.messenger.compress,
+                    secure=self._tx,
+                )
             try:
-                self.sock.sendall(frame)
+                with tracer.timer("msg_send"):
+                    self.sock.sendall(frame)
             except OSError as e:
                 self.alive = False
                 raise ConnectionError(str(e)) from e
@@ -533,13 +535,25 @@ class Connection:
             buf += chunk
         return buf
 
+    def _read_frame(self):
+        """Block until the next frame's header, then read and decode
+        the rest under the ``msg_decode`` timer (the wait for a frame
+        is idle time, not decode time)."""
+        header = [self._read_exact(HEADER_BYTES)]
+
+        def read_exact(n: int) -> bytes:
+            return header.pop() if header else self._read_exact(n)
+
+        with tracer.timer("msg_decode"):
+            msg_type, _seq, segments = decode_frame(
+                read_exact, secure=self._rx
+            )
+            return decode_message(msg_type, segments)
+
     def _read_loop(self) -> None:
         try:
             while True:
-                msg_type, _seq, segments = decode_frame(
-                    self._read_exact, secure=self._rx
-                )
-                msg = decode_message(msg_type, segments)
+                msg = self._read_frame()
                 if net_faults.active and self.peer_name is not None:
                     # inbound half of the link (peer → me): replies on
                     # a client-initiated conn are faulted HERE, after

@@ -470,6 +470,9 @@ class NetShardBackend:
                     self._cb_lock.release()
             else:
                 self._inbox.put(thunk)
+                pc = self.messenger.net_pc
+                if pc is not None:
+                    pc.inc("drain.requeues")
                 time.sleep(0.001)
 
     # -- ShardBackend surface ------------------------------------------

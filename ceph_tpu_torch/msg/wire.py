@@ -41,6 +41,8 @@ from ceph_tpu_torch.utils.config import config as _config
 
 MAGIC = b"CTv2"
 _HDR = struct.Struct("<4sHBBQ")  # magic, type, flags, nseg, seq
+#: bytes of a frame's fixed header, the first read ``decode_frame`` makes
+HEADER_BYTES = _HDR.size
 _SEG = struct.Struct("<II")      # length, crc32c
 _SLEN = struct.Struct("<I")      # secure mode: plain length table entry
 _SECHDR = struct.Struct("<QI")   # secure mode: counter, ciphertext len

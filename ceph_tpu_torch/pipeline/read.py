@@ -36,6 +36,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ceph_tpu_torch.utils import tracer
 from ceph_tpu_torch.utils.device import to_numpy, to_tensor
 
 from .extents import ExtentSet
@@ -169,6 +170,11 @@ def gather_ro_range(
 ) -> bytes:
     """Assemble the rados byte range from per-shard buffers (the inverse
     of the write path's shard scatter; absent bytes read as zero)."""
+    with tracer.timer("ec_stage"), smap.tally(length):
+        return _gather(sinfo, smap, ro_offset, length)
+
+
+def _gather(sinfo, smap, ro_offset: int, length: int) -> bytes:
     out = np.zeros(length, dtype=np.uint8)
     pos, taken = ro_offset, 0
     while taken < length:
@@ -214,7 +220,8 @@ def reconstruct_shards(
             error_shards, lost,
         )
         return
-    result.decode(codec, lost, object_size)
+    with tracer.timer("ec_decode"):
+        result.decode(codec, lost, object_size)
 
 
 def _repair_fractional(
@@ -423,8 +430,9 @@ class ReadPipeline:
             op.error_shards.add(shard)
             self._retry(op)
         else:
-            for start, buf in result.items():
-                op.result.insert(shard, start, buf)
+            with tracer.timer("ec_stage"):
+                for start, buf in result.items():
+                    op.result.insert(shard, start, buf)
             if not op.pending:
                 self._complete(op)
 
@@ -478,8 +486,6 @@ class ReadPipeline:
 
     def _complete(self, op: ClientReadOp) -> None:
         if op.error is None and op.need_decode:
-            from ceph_tpu_torch.utils import tracer
-
             self.perf.inc("reconstruct_ops")
             try:
                 with tracer.span("ec_reconstruct", oid=op.oid, rid=op.rid):

@@ -37,6 +37,7 @@ import numpy as np
 
 from ceph_tpu_torch.codecs.interface import Flag
 from ceph_tpu_torch.store import Transaction
+from ceph_tpu_torch.utils import tracer
 from ceph_tpu_torch.utils.crash_points import crash_points
 from ceph_tpu_torch.utils.optracker import NULL_OP, op_tracker
 
@@ -219,6 +220,8 @@ class ClientOp:
         self.notified = False
         self.error: Exception | None = None
         self.t_submit: float | None = None
+        #: perf_counter stamp of waiting_for_subops
+        self.t_subops: float | None = None
         #: live-op handle (dump_ops_in_flight): queued -> dispatched
         #: -> waiting_for_subops -> committed -> done
         self.tracked = NULL_OP
@@ -425,6 +428,13 @@ class RMWPipeline:
             .add_u64_counter("full_stripe_ops", "writes via full re-encode")
             .add_u64_counter("aborts", "writes failed before dispatch")
             .add_avg("commit_lat", "submit-to-commit seconds")
+            .add_u64_counter(
+                "committed", "writes whose sub-writes all acked"
+            )
+            .add_time(
+                "subop_wait_s",
+                "seconds from waiting_for_subops to committed, summed",
+            )
             .create_perf_counters()
         )
 
@@ -531,8 +541,6 @@ class RMWPipeline:
             self.perf.inc("aborts")
             self._check_commit_order()
             return op.tid
-
-        from ceph_tpu_torch.utils import tracer
 
         self._projected_sizes[oid] = max(
             self._projected_sizes.get(
@@ -884,17 +892,21 @@ class RMWPipeline:
         pos = op.ro_offset
         data = np.frombuffer(op.data, dtype=np.uint8)
         taken = 0
-        while taken < len(op.data):
-            chunk_index = pos // sinfo.chunk_size
-            raw = chunk_index % sinfo.k
-            in_chunk = pos % sinfo.chunk_size
-            take = min(sinfo.chunk_size - in_chunk, len(op.data) - taken)
-            shard_off = (chunk_index // sinfo.k) * sinfo.chunk_size + in_chunk
-            new_map.insert(
-                sinfo.get_shard(raw), shard_off, data[taken : taken + take]
-            )
-            pos += take
-            taken += take
+        with tracer.timer("ec_stage"), new_map.tally(len(op.data)):
+            while taken < len(op.data):
+                chunk_index = pos // sinfo.chunk_size
+                raw = chunk_index % sinfo.k
+                in_chunk = pos % sinfo.chunk_size
+                take = min(sinfo.chunk_size - in_chunk, len(op.data) - taken)
+                shard_off = (
+                    (chunk_index // sinfo.k) * sinfo.chunk_size + in_chunk
+                )
+                new_map.insert(
+                    sinfo.get_shard(raw), shard_off,
+                    data[taken : taken + take],
+                )
+                pos += take
+                taken += take
 
         hinfo = self._get_hinfo(op.oid)
         hashed = hinfo.get_total_chunk_size()
@@ -904,15 +916,18 @@ class RMWPipeline:
             hinfo.clear()  # overwrite invalidates cumulative shard crcs
         else:
             # merge old data under the new so parity encodes full stripes
-            for shard in old_map.shards():
-                if not sinfo.is_data_shard(shard):
-                    continue
-                for start, end in old_map.get_extent_set(shard):
-                    gap = ExtentSet([(start, end)]).difference(
-                        new_map.get_extent_set(shard)
-                    )
-                    for s, e in gap:
-                        new_map.insert(shard, s, old_map.get(shard, s, e - s))
+            with tracer.timer("ec_stage"):
+                for shard in old_map.shards():
+                    if not sinfo.is_data_shard(shard):
+                        continue
+                    for start, end in old_map.get_extent_set(shard):
+                        gap = ExtentSet([(start, end)]).difference(
+                            new_map.get_extent_set(shard)
+                        )
+                        for s, e in gap:
+                            new_map.insert(
+                                shard, s, old_map.get(shard, s, e - s)
+                            )
             lo, _hi = new_map.ro_range()
             if lo == hashed:
                 append_base = hashed
@@ -985,7 +1000,11 @@ class RMWPipeline:
                 end = min(end, shard_size)
                 if end <= start:
                     continue
-                buf = bytes(result.get(shard, start, end - start))
+                with tracer.timer("ec_stage"):
+                    buf = bytes(result.get(shard, start, end - start))
+                    written.insert(
+                        shard, start, np.frombuffer(buf, np.uint8)
+                    )
                 # fused-kernel csums ride the sub-write when they
                 # describe this exact range (block-aligned within the
                 # encode window) — the store adopts them instead of
@@ -998,7 +1017,6 @@ class RMWPipeline:
                     )
                 else:
                     txn.write(op.oid, start, buf)
-                written.insert(shard, start, np.frombuffer(buf, np.uint8))
             self._stamp_identity(
                 txn, op.oid, shard, new_size,
                 (self.epoch, op.tid), hinfo_bytes, op.extra_attrs,
@@ -1031,6 +1049,7 @@ class RMWPipeline:
             tid=op.tid,
         )
         op.tracked.mark_event("waiting_for_subops", n=len(live))
+        op.t_subops = time.perf_counter()
         # build every txn before the first dispatch: a synchronous ack
         # (local stores) must see the complete written map
         for shard, txn in txns:
@@ -1108,6 +1127,11 @@ class RMWPipeline:
                 )
                 op.committed = True
                 op.tracked.mark_event("committed")
+                if op.t_subops is not None:
+                    self.perf.add_many((
+                        ("committed", 1),
+                        ("subop_wait_s", time.perf_counter() - op.t_subops),
+                    ))
                 finish = True
         # cache release OUTSIDE the ack lock: write_done may dispatch
         # the next queued op for this object, whose RMW backend read

@@ -17,17 +17,48 @@ Encodes take the per-op path (one codec call per map) unless
 ``dispatcher.coalescing_scope()``: then they stage in the native ring
 (``pipeline/dispatcher.py``) and share one batched launch with the
 concurrent ops of other threads.
+
+The process-wide ``ec_staging`` perf set counts the bytes ``insert``
+and ``get`` copy (``copy_bytes``) and zero-fill (``zero_bytes``), once
+per call or once per ``tally`` block, and the client bytes the
+pipelines stage (``user_bytes``: a write's payload as the RMW pipeline
+scatters it, a read's as it is gathered); ``encode`` and
+``encode_parity_delta`` run under the ``ec_encode`` timer
+(``utils/trace.py``).
 """
 
 from __future__ import annotations
 
+from contextlib import contextmanager
+
 import numpy as np
 
+from ceph_tpu_torch.utils import PerfCountersBuilder, perf_collection, tracer
 from ceph_tpu_torch.utils.device import to_numpy
 
 from .extents import ExtentSet
 from .hashinfo import HashInfo
 from .stripe import PAGE_SIZE, StripeInfo, align_page_next, align_page_prev
+
+
+_STAGING = (
+    PerfCountersBuilder(perf_collection, "ec_staging")
+    .add_u64_counter(
+        "copy_bytes", "bytes ShardExtentMap.insert/get copied"
+    )
+    .add_u64_counter(
+        "zero_bytes", "bytes ShardExtentMap.insert/get zero-filled"
+    )
+    .add_u64_counter(
+        "user_bytes", "client bytes scattered into or gathered from "
+        "shard maps"
+    )
+    .create_perf_counters()
+)
+
+
+def _staged(copied: int, zeroed: int) -> None:
+    _STAGING.add_many((("copy_bytes", copied), ("zero_bytes", zeroed)))
 
 
 class ShardExtentMap:
@@ -41,19 +72,52 @@ class ShardExtentMap:
         #: uint32[nblocks] ZERO-INIT per-block crc32c)}} — the blocks
         #: cover each shard's encode window contiguously
         self.csums: "dict | None" = None
+        #: [copied, zeroed] while ``tally`` holds this map's staging
+        #: counts back
+        self._tally: "list[int] | None" = None
+
+    def _staged(self, copied: int, zeroed: int) -> None:
+        if self._tally is None:
+            _staged(copied, zeroed)
+        else:
+            self._tally[0] += copied
+            self._tally[1] += zeroed
+
+    @contextmanager
+    def tally(self, user_bytes: int = 0):
+        """Count this map's inserts and gets inside the block, with the
+        ``user_bytes`` of client data they stage, as one ``ec_staging``
+        update at its end: the per-4 KiB scatter and gather loops take
+        the counter lock once, not ~1,000 times, and a window that
+        closes mid-loop counts neither the bytes nor their base."""
+        self._tally = [0, 0]
+        try:
+            yield
+        finally:
+            copied, zeroed = self._tally
+            self._tally = None
+            _STAGING.add_many((
+                ("copy_bytes", copied), ("zero_bytes", zeroed),
+                ("user_bytes", user_bytes),
+            ))
 
     # -- buffer management --------------------------------------------
     def insert(self, shard: int, offset: int, data) -> None:
         """Insert bytes at a shard offset, coalescing adjacent/overlapping
         runs (later inserts win on overlap, matching extent_map assign)."""
-        arr = np.frombuffer(bytes(data), dtype=np.uint8).copy() \
-            if isinstance(data, (bytes, bytearray, memoryview)) \
-            else np.asarray(data, dtype=np.uint8).reshape(-1).copy()
+        if isinstance(data, (bytes, bytearray, memoryview)):
+            arr = np.frombuffer(bytes(data), dtype=np.uint8).copy()
+            # bytes(...) copies all but a bytes object
+            copied = arr.size * (1 if type(data) is bytes else 2)
+        else:
+            arr = np.asarray(data, dtype=np.uint8).reshape(-1).copy()
+            copied = arr.size
         if arr.size == 0:
             return
         runs = self._bufs.setdefault(shard, [])
         if not runs or runs[-1][0] + runs[-1][1].size < offset:
             runs.append((offset, arr))  # past every run: nothing merges
+            self._staged(copied, 0)
             return
         new_start, new_end = offset, offset + arr.size
         merged_start, merged_end = new_start, new_end
@@ -69,10 +133,12 @@ class ShardExtentMap:
         out = np.zeros(merged_end - merged_start, dtype=np.uint8)
         for off, buf in overlapping:
             out[off - merged_start : off - merged_start + buf.size] = buf
+            copied += buf.size
         out[new_start - merged_start : new_end - merged_start] = arr
         keep.append((merged_start, out))
         keep.sort(key=lambda t: t[0])
         self._bufs[shard] = keep
+        self._staged(copied + arr.size, out.size)
 
     def shards(self) -> list[int]:
         return sorted(self._bufs)
@@ -86,11 +152,14 @@ class ShardExtentMap:
         """Read a range; absent bytes read as zero (the shared
         zero-buffer convention)."""
         out = np.zeros(length, dtype=np.uint8)
+        copied = 0
         for off, buf in self._bufs.get(shard, []):
             s = max(offset, off)
             e = min(offset + length, off + buf.size)
             if s < e:
                 out[s - offset : e - offset] = buf[s - off : e - off]
+                copied += e - s
+        self._staged(copied, length)
         return out
 
     def contains(self, shard: int, offset: int, length: int) -> bool:
@@ -195,6 +264,10 @@ class ShardExtentMap:
         and the HashInfo append is seeded from those kernel csums via
         crc chaining — the bytes are hashed exactly once, on device.
         """
+        with tracer.timer("ec_encode"):
+            self._encode(codec, hashinfo, old_size, csum_block)
+
+    def _encode(self, codec, hashinfo, old_size, csum_block) -> None:
         k, m = self.sinfo.k, self.sinfo.m
         self.csums = None
         lo0, hi0 = self._slice_window()
@@ -364,6 +437,10 @@ class ShardExtentMap:
         present here, delta = old XOR new; parity' = parity XOR
         sum_i G[:,i] * delta_i. ``old_map`` must hold the old data AND
         old parity over this map's window."""
+        with tracer.timer("ec_encode"):
+            self._encode_parity_delta(codec, old_map)
+
+    def _encode_parity_delta(self, codec, old_map: "ShardExtentMap") -> None:
         from ceph_tpu_torch.codecs.interface import Flag
 
         k, m = self.sinfo.k, self.sinfo.m

@@ -14,6 +14,7 @@ from __future__ import annotations
 import threading
 
 from .transaction import Op, OpKind, Transaction
+from ceph_tpu_torch.utils import tracer
 from ceph_tpu_torch.utils.lockdep import DebugLock
 
 
@@ -58,10 +59,11 @@ class MemStore:
     # -- write path ----------------------------------------------------
     def queue_transactions(self, txns: list[Transaction] | Transaction) -> int:
         """Apply transactions atomically, in order; returns the commit
-        sequence (the on_commit callback's context in the reference)."""
+        sequence (the on_commit callback's context in the reference).
+        Runs under the ``store_commit`` timer."""
         if isinstance(txns, Transaction):
             txns = [txns]
-        with self._lock:
+        with tracer.timer("store_commit"), self._lock:
             staged: dict[str, _Object | None] = {}
 
             def get(oid: str, create: bool) -> _Object | None:
@@ -145,8 +147,9 @@ class MemStore:
 
     def read(self, oid: str, offset: int = 0, length: int | None = None) -> bytes:
         """Read a range; short if it extends past EOF (POSIX-style, as
-        MemStore::read). FileNotFoundError if the object is absent."""
-        with self._lock:
+        MemStore::read). FileNotFoundError if the object is absent.
+        Runs under the ``store_read`` timer."""
+        with tracer.timer("store_read"), self._lock:
             obj = self._objects.get(oid)
             if obj is None:
                 raise FileNotFoundError(oid)

@@ -75,6 +75,16 @@ class PerfCounters:
         with self._lock:
             self._values[key] += seconds
 
+    def add_many(self, deltas) -> None:
+        """Add each ``(key, delta)`` to its U64 counter or TIME total
+        under ONE lock acquisition: the hot paths (a span's close, a
+        staging copy) update several keys at once. Keys are the
+        caller's fixed set, so no per-key type check runs here."""
+        values = self._values
+        with self._lock:
+            for key, delta in deltas:
+                values[key] += delta
+
     def ainc(self, key: str, value: float) -> None:
         """Add one sample to an average (count += 1, sum += value)."""
         self._check(key, CounterType.AVG)

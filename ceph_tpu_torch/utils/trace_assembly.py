@@ -11,9 +11,13 @@ DCN hosts' admin sockets serve the same format) back into per-trace
 span TREES, finds each tree's critical path with per-stage
 attribution, and emits:
 
-- a top-N-slowest text report (``format_report``), and
+- a top-N-slowest text report (``format_report``),
 - Chrome trace-event JSON (``chrome_trace``) loadable in Perfetto /
-  chrome://tracing, one lane per daemon.
+  chrome://tracing, one lane per daemon, and
+- the per-name host accounting of the tracer's ``trace`` perf set
+  (``span_totals``, ``format_span_totals``): every span's and timer's
+  count, wall, self and CPU seconds, the spans the ring has dropped
+  included.
 
 Live ops from ``dump_ops_in_flight`` join as synthetic open-ended
 spans (duration = current age), so a trace wedged RIGHT NOW assembles
@@ -279,6 +283,40 @@ def format_report(trees: list[dict], top: int = 10) -> str:
             )
     if not trees:
         out.append("(no traces)")
+    return "\n".join(out)
+
+
+def span_totals(counters: "dict | None" = None) -> list[dict]:
+    """One row per name of ``SPAN_NAMES`` that closed at least once in
+    ``counters`` (the ``trace`` section of a ``perf dump``, or the
+    delta of two; default: the process tracer's set now): ``count``,
+    ``wall_s``, ``self_s`` and ``cpu_s``, largest self time first."""
+    from .trace import SPAN_NAMES, SPAN_STATS, tracer
+
+    if counters is None:
+        counters = tracer.counters.dump()
+    rows = []
+    for name in SPAN_NAMES:
+        row = {"name": name}
+        row.update(
+            (stat, counters.get(f"{name}.{stat}", 0)) for stat in SPAN_STATS
+        )
+        if row["count"]:
+            rows.append(row)
+    rows.sort(key=lambda r: -r["self_s"])
+    return rows
+
+
+def format_span_totals(rows: list[dict]) -> str:
+    """``span_totals`` as a text table, milliseconds per close."""
+    out = [f"{'name':<16}{'count':>10}{'wall ms':>12}{'self ms':>12}"
+           f"{'cpu ms':>12}"]
+    for r in rows:
+        n = r["count"]
+        out.append(
+            f"{r['name']:<16}{n:>10}{r['wall_s'] * 1e3 / n:>12.4f}"
+            f"{r['self_s'] * 1e3 / n:>12.4f}{r['cpu_s'] * 1e3 / n:>12.4f}"
+        )
     return "\n".join(out)
 
 

@@ -11,6 +11,10 @@
   running on the CPU; ``device="cpu"`` is the only way onto the plain
   path.
 - Every configuration option is read somewhere in the package.
+- Every span and timer name of ``utils/trace.py``'s ``SPAN_NAMES`` is
+  opened by a call site of the package, no call site opens another
+  name, and every counter key of the host accounting is read by a
+  benchmark metric (``ecbench/metrics/``) or by ``trace_assembly``.
 - Every kernel binding's ctypes signature (``kernels.py``) matches its C
   entry point in ``csrc/``, the stream included: a pointer or 64-bit
   integer passed without its type reaches C as a truncated int.
@@ -78,6 +82,90 @@ def test_every_option_has_a_reader(name):
     readers = [p for p in PKG.rglob("*.py") if p != config_py
                and re.search(rf"[\"']{name}[\"']", p.read_text())]
     assert readers, f"option {name} is declared but never read"
+
+
+def _span_call_sites() -> list[tuple[str, int, object]]:
+    """(file, line, first argument) of every ``...tracer.span(...)``
+    and ``...tracer.timer(...)`` call of the package."""
+    sites = []
+    for path in PKG.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if not (isinstance(node, ast.Call)
+                    and isinstance(node.func, ast.Attribute)
+                    and node.func.attr in ("span", "timer")):
+                continue
+            owner = ast.unparse(node.func.value)
+            if not owner.endswith("tracer"):
+                continue
+            arg = node.args[0] if node.args else None
+            name = arg.value if isinstance(arg, ast.Constant) else arg
+            sites.append((path.name, node.lineno, name))
+    return sites
+
+
+def _span_names():
+    from ceph_tpu_torch.utils.trace import SPAN_NAMES
+
+    return list(SPAN_NAMES)
+
+
+@pytest.mark.parametrize("name", _span_names())
+def test_every_span_name_is_opened(name):
+    """A listed name that no call site opens is a counter set's dead
+    keys."""
+    assert any(n == name for _f, _l, n in _span_call_sites()), \
+        f"span name {name} is listed but never opened"
+
+
+def test_no_call_site_opens_an_unlisted_name():
+    listed = set(_span_names())
+    bad = [(f, line, n) for f, line, n in _span_call_sites()
+           if n not in listed]
+    assert not bad, f"spans opened outside SPAN_NAMES: {bad}"
+
+
+#: the counter keys the host accounting added to sets that were there
+#: (``osd.<id>.<pool>.<pg>.rmw``, ``osd.<id>.net``)
+_ADDED_KEYS = ("committed", "subop_wait_s", "drain.requeues")
+
+
+def _accounting_keys():
+    from ceph_tpu_torch.cluster.osd_daemon import make_op_queue_perf
+    from ceph_tpu_torch.pipeline.shard_map import _STAGING
+    from ceph_tpu_torch.utils import perf_collection
+    from ceph_tpu_torch.utils.trace import Tracer
+
+    queue = make_op_queue_perf("osd.hygiene.op_queue")
+    perf_collection.deregister(queue.name)
+    return ([f"trace:{k}" for k in Tracer().counters.dump()]
+            + [f"ec_staging:{k}" for k in _STAGING.dump()]
+            + [f"op_queue:{k}" for k in queue.dump()]
+            + [f"added:{k}" for k in _ADDED_KEYS])
+
+
+@pytest.mark.parametrize("key", _accounting_keys())
+def test_every_accounting_key_has_a_reader(key):
+    """The host accounting holds only keys something reads: the
+    ``trace`` set's through ``trace_assembly.span_totals`` (every
+    span's and timer's row), every other key through a benchmark
+    metric's reader."""
+    kind, _, name = key.partition(":")
+    if kind == "trace":
+        from ceph_tpu_torch.utils.trace_assembly import span_totals
+
+        read = set()
+
+        class Seen(dict):
+            def get(self, k, default=None):
+                read.add(k)
+                return super().get(k, default)
+
+        span_totals(Seen())
+        assert name in read, f"trace key {name} is never read"
+        return
+    readers = [p for p in (ROOT / "ecbench" / "metrics").glob("*.py")
+               if re.search(rf"[\"']{re.escape(name)}[\"']", p.read_text())]
+    assert readers, f"counter key {name} is written but no metric reads it"
 
 
 def test_fresh_interpreter_loads_no_jax_or_reference():

@@ -477,8 +477,8 @@ def test_twin_capture_traces_from_process_state():
         ta = _mod(root, "utils.trace_assembly")
         tracer = _mod(root, "utils").tracer
         tracer.clear()
-        with tracer.span("alpha", op="x"):
-            with tracer.span("beta"):
+        with tracer.span("client_op", op="x"):
+            with tracer.span("osd_op"):
                 pass
         spans = tracer.dump_historic()
         ids = {s["span_id"]: f"s{i}" for i, s in enumerate(spans)}
@@ -487,7 +487,7 @@ def test_twin_capture_traces_from_process_state():
                      parent_id=ids.get(s["parent_id"]), trace_id="t",
                      start=float(i), start_mono=float(i), duration=1.0)
         cap = ta.capture_traces(limit=2, spans=spans, live_ops=[])
-        assert cap["captured"] >= 1 and "alpha" in cap["text"]
+        assert cap["captured"] >= 1 and "client_op" in cap["text"]
         assert json.loads(cap["chrome_json"])["traceEvents"]
         caps.append(cap)
     assert caps[1] == caps[0]
@@ -498,13 +498,13 @@ def test_capture_from_the_ports_process_state():
     from ceph_tpu_torch.utils.trace_assembly import capture_traces
 
     tracer.clear()
-    with tracer.span("alpha", op="x"):
-        with tracer.span("beta"):
+    with tracer.span("client_op", op="x"):
+        with tracer.span("osd_op"):
             pass
     cap = capture_traces(limit=2)
     assert cap["captured"] >= 1
     assert json.loads(cap["chrome_json"])["traceEvents"]
-    assert "alpha" in cap["text"]
+    assert "client_op" in cap["text"]
 
 
 # -- forensics (TestForensicsBundle) -----------------------------------
@@ -721,3 +721,167 @@ class TestLiveStatsPlane:
         assert st["objects"] >= 1
         dump = json.loads((bundle / "pg_dump.json").read_text())
         assert dump["pg_stats"]
+
+
+# -- the live legs of tests/test_trace_tool.py (TestLiveCluster) ------------
+# test_loadgen_trace_capture_contract is not mirrored: it rests on how many
+# ops the daemons coalesce in one run.
+
+#: the benchmark's per-layer readers of the host accounting
+HOST_METRICS = (
+    "staging_bytes_per_byte", "staging_cpu_ms", "codec_host_ms",
+    "messenger_cpu_ms", "op_queue_wait_ms", "subop_wait_ms",
+    "store_cpu_ms", "drain_requeues_per_op",
+)
+#: timers a write and a degraded read run on the port's cluster
+LIVE_TIMERS = ("msg_encode", "msg_send", "msg_decode", "ec_stage",
+               "ec_encode", "ec_decode", "store_commit", "store_read")
+
+
+def _collect(node, out):
+    out.append(node)
+    for c in node["children"]:
+        _collect(c, out)
+    return out
+
+
+class TestLiveTrace:
+    """A live ``LoadCluster`` on the CPU: one client write assembles
+    into one span tree across the daemons, writes and reads move every
+    counter of the host accounting, and a capture with
+    ``profile_all_threads`` holds its timers' ranges from several
+    threads."""
+
+    @pytest.fixture(scope="class")
+    def cluster(self):
+        from test_torch_dcn import time_limit
+
+        from ceph_tpu_torch.loadgen import LoadCluster
+
+        with time_limit(60):
+            cluster = LoadCluster(n_osds=5, k=2, m=1, pg_num=4,
+                                  chunk_size=1024, device="cpu")
+        try:
+            yield cluster
+        finally:
+            cluster.shutdown()
+
+    @staticmethod
+    def _io(cluster, tag: str) -> list:
+        """4 KiB and 64 KiB writes and reads, one read degraded by an
+        injected shard error; returns each op's user bytes."""
+        from ceph_tpu_torch.cluster.osd_daemon import make_loc, shard_key
+        from ceph_tpu_torch.pipeline.inject import ec_inject
+
+        rng = np.random.default_rng(17)
+        sizes, written = [], {}
+        for i, n in enumerate((4096, 65536, 4096, 65536)):
+            oid = f"{tag}-{i}"
+            written[oid] = rng.integers(0, 256, n, np.uint8).tobytes()
+            assert cluster.io.write_full(oid, written[oid]) == n
+            assert cluster.io.read(oid) == written[oid]
+            sizes += [n, n]
+        oid = f"{tag}-1"
+        loc = make_loc(cluster.mon.osdmap.pools[cluster.pool].pool_id, oid)
+        ec_inject.read_error(shard_key(loc, 0), 0, duration=1_000_000)
+        try:
+            assert cluster.io.read(oid) == written[oid]
+        finally:
+            ec_inject.clear_read_error(shard_key(loc, 0), 0)
+        sizes.append(len(written[oid]))
+        return sizes
+
+    def test_multidaemon_trace_reassembles(self, cluster):
+        from ceph_tpu_torch.utils import tracer
+        from ceph_tpu_torch.utils.trace_assembly import (
+            assemble_traces,
+            chrome_trace,
+            critical_path,
+        )
+
+        tracer.clear()
+        data = np.random.default_rng(3).integers(
+            0, 256, 4096, np.uint8).tobytes()
+        cluster.io.write("trace-me", data)
+        assert cluster.io.read("trace-me") == data
+        trees = assemble_traces(tracer.dump_historic())
+        mine = [t for t in trees for r in t["roots"]
+                if r["name"] == "client_op"
+                and r["tags"].get("oid") == "trace-me"
+                and r["tags"].get("op") == "write"]
+        assert mine, "client write trace missing"
+        t = mine[0]
+        assert t["complete"], t
+        nodes = _collect(t["roots"][0], [])
+        names = [n["name"] for n in nodes]
+        assert "osd_op" in names
+        subs = [n for n in nodes if n["name"] == "sub_write"]
+        assert len(subs) >= 2, names
+        assert len({n["tags"]["osd"] for n in subs}) >= 2, \
+            "sub-writes on one daemon only"
+        cp = critical_path(t)
+        assert cp["total_s"] > 0
+        assert cp["stages"][0]["name"] == "client_op"
+        json.loads(json.dumps(chrome_trace([t])))
+
+    def test_io_moves_every_counter_and_reader(self, cluster):
+        import types
+
+        from ecbench.harness import _numeric_delta
+        from ecbench.reading import Reading
+
+        from ceph_tpu_torch.utils import perf_collection
+        from ceph_tpu_torch.utils.trace_assembly import span_totals
+
+        before = perf_collection.dump()
+        sizes = self._io(cluster, "acct")
+        after = perf_collection.dump()
+        delta = _numeric_delta(before, after)
+        trace = delta["trace"]
+        for name in LIVE_TIMERS:
+            for stat in ("count", "wall_s", "self_s", "cpu_s"):
+                assert trace[f"{name}.{stat}"] > 0, (name, stat)
+        assert {r["name"] for r in span_totals(trace)} >= set(LIVE_TIMERS)
+        assert delta["ec_staging"]["copy_bytes"] > 0
+        assert delta["ec_staging"]["zero_bytes"] > 0
+        # every write's payload is scattered once, every read's gathered
+        assert delta["ec_staging"]["user_bytes"] == sum(sizes)
+
+        def total(suffix, key):
+            return sum(v.get(key, 0) for n, v in delta.items()
+                       if n.startswith("osd.") and n.endswith(suffix))
+
+        assert total(".op_queue", "op_queue.dequeued") >= len(sizes)
+        assert total(".op_queue", "op_queue.wait_s") > 0
+        assert total(".rmw", "committed") >= 4
+        assert total(".rmw", "subop_wait_s") > 0
+        assert any("drain.requeues" in v for n, v in delta.items()
+                   if n.endswith(".net"))
+        reading = Reading(
+            config={"k": 2, "m": 1}, mix={}, window_s=1.0,
+            ops=[types.SimpleNamespace(op=types.SimpleNamespace(length=n))
+                 for n in sizes],
+            setup_s=0.0, counters=delta, trace=None, lost={},
+            device_kind="cpu")
+        for metric in HOST_METRICS:
+            reader = importlib.import_module(f"ecbench.metrics.{metric}")
+            value = reader.read(reading)
+            assert isinstance(value, float | int) and np.isfinite(value), \
+                metric
+            assert value >= 0, metric
+
+    def test_profiler_sees_timers_on_several_threads(self, cluster):
+        from torch._C._profiler import _ExperimentalConfig
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(
+            activities=[ProfilerActivity.CPU],
+            experimental_config=_ExperimentalConfig(
+                profile_all_threads=True),
+        ) as prof:
+            self._io(cluster, "prof")
+        threads: dict[str, set] = {}
+        for e in prof.events():
+            threads.setdefault(e.name, set()).add(e.thread)
+        for name in ("msg_decode", "ec_stage", "store_commit"):
+            assert len(threads.get(name, ())) > 1, (name, threads.get(name))

@@ -130,7 +130,7 @@ class TestTrackedOp:
     def test_trace_id_adopted_from_current_span(self):
         from ceph_tpu_torch.utils import tracer
 
-        with tracer.span("outer") as sp:
+        with tracer.span("client_op") as sp:
             top = op_tracker.register("x", daemon="osd.1")
         assert top.trace_id == sp.trace_id
         top.finish()
@@ -301,7 +301,7 @@ class TestClusterLog:
         from ceph_tpu_torch.utils import tracer
 
         cl = ClusterLog()
-        with tracer.span("spanned") as sp:
+        with tracer.span("client_op") as sp:
             e = cl.log("osd.1", "t", "inside")
         assert e["trace_id"] == sp.trace_id
 
