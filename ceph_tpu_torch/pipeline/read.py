@@ -165,30 +165,130 @@ def get_min_avail_to_read_shards(
     return reads, True
 
 
+def _chunk_pieces(sinfo: StripeInfo, ro_offset: int, length: int):
+    """Each chunk's piece of the rados range, in order: (raw shard,
+    shard offset, offset in the range, length)."""
+    cs = sinfo.chunk_size
+    pos, taken = ro_offset, 0
+    while taken < length:
+        chunk_index = pos // cs
+        in_chunk = pos % cs
+        take = min(cs - in_chunk, length - taken)
+        yield (
+            chunk_index % sinfo.k,
+            (chunk_index // sinfo.k) * cs + in_chunk,
+            taken,
+            take,
+        )
+        pos += take
+        taken += take
+
+
+def _whole_stripes(
+    sinfo: StripeInfo, ro_offset: int, length: int
+) -> tuple[int, int]:
+    """Rados ``[lo, hi)`` of the whole stripes inside the range; both
+    are the range's end when there is none."""
+    sw = sinfo.stripe_width
+    end = ro_offset + length
+    lo = -(-ro_offset // sw) * sw
+    hi = end // sw * sw
+    return (lo, hi) if hi > lo else (end, end)
+
+
+def _layout(sinfo: StripeInfo, ro_offset: int, length: int):
+    """Split the range around its whole stripes ``[lo, hi)``: the chunk
+    pieces of the head ``[ro_offset, lo)`` and of the tail ``[hi,
+    end)``, with their offsets in the range, and the shard range
+    ``[shard_lo, shard_hi)`` the whole stripes fill on every data
+    shard. Each raw shard has at most one head piece, ending at
+    ``shard_lo``, and one tail piece, starting at ``shard_hi``."""
+    lo, hi = _whole_stripes(sinfo, ro_offset, length)
+    head = list(_chunk_pieces(sinfo, ro_offset, lo - ro_offset))
+    tail = [
+        (raw, off, at + hi - ro_offset, take)
+        for raw, off, at, take in _chunk_pieces(
+            sinfo, hi, ro_offset + length - hi
+        )
+    ]
+    shard_lo = lo // sinfo.stripe_width * sinfo.chunk_size
+    shard_hi = hi // sinfo.stripe_width * sinfo.chunk_size
+    return lo, hi, head, tail, shard_lo, shard_hi
+
+
+def scatter_ro_range(
+    sinfo: StripeInfo, smap: ShardExtentMap, ro_offset: int, data
+) -> None:
+    """Place the rados byte range ``data`` (bytes-like) at
+    ``ro_offset`` into the per-shard buffers: the write path's shard
+    scatter, the inverse of ``gather_ro_range``.
+
+    Over whole stripes each data shard takes its column of the range
+    with one strided copy, into one buffer that also holds its piece of
+    the partial stripes at either end, and the map adopts that buffer
+    as one run without copying it again. A range with no whole stripe
+    (a small or sub-page write) goes one chunk piece at a time through
+    ``insert``."""
+    data = np.frombuffer(data, dtype=np.uint8)
+    lo, hi, head, tail, shard_lo, shard_hi = _layout(
+        sinfo, ro_offset, data.size
+    )
+    with tracer.timer("ec_stage"), smap.tally(data.size, hi - lo):
+        if hi == lo:
+            for raw, shard_off, at, take in head:
+                smap.insert(
+                    sinfo.get_shard(raw), shard_off, data[at : at + take]
+                )
+            return
+        k, cs = sinfo.k, sinfo.chunk_size
+        stripes = (hi - lo) // sinfo.stripe_width
+        whole = data[lo - ro_offset : hi - ro_offset].reshape(
+            stripes, k, cs
+        )
+        for raw in range(k):
+            ends = [p for p in head + tail if p[0] == raw]
+            start = min([shard_lo] + [off for _r, off, _a, _t in ends])
+            end = max([shard_hi] + [off + t for _r, off, _a, t in ends])
+            buf = np.empty(end - start, dtype=np.uint8)
+            for _raw, off, at, take in ends:
+                buf[off - start : off - start + take] = data[at : at + take]
+            buf[shard_lo - start : shard_hi - start].reshape(
+                stripes, cs
+            )[...] = whole[:, raw, :]
+            smap._adopt(sinfo.get_shard(raw), start, buf)
+
+
 def gather_ro_range(
     sinfo: StripeInfo, smap: ShardExtentMap, ro_offset: int, length: int
 ) -> bytes:
     """Assemble the rados byte range from per-shard buffers (the inverse
-    of the write path's shard scatter; absent bytes read as zero)."""
-    with tracer.timer("ec_stage"), smap.tally(length):
-        return _gather(sinfo, smap, ro_offset, length)
+    of ``scatter_ro_range``; absent bytes read as zero).
 
-
-def _gather(sinfo, smap, ro_offset: int, length: int) -> bytes:
-    out = np.zeros(length, dtype=np.uint8)
-    pos, taken = ro_offset, 0
-    while taken < length:
-        chunk_index = pos // sinfo.chunk_size
-        raw = chunk_index % sinfo.k
-        in_chunk = pos % sinfo.chunk_size
-        take = min(sinfo.chunk_size - in_chunk, length - taken)
-        shard_off = (chunk_index // sinfo.k) * sinfo.chunk_size + in_chunk
-        out[taken : taken + take] = smap.get(
-            sinfo.get_shard(raw), shard_off, take
-        )
-        pos += take
-        taken += take
-    return out.tobytes()
+    Over whole stripes each data shard's column of the range is filled
+    with one strided copy, out of the run that covers the shard's range
+    (through ``get`` where none does: holes read as zero). The partial
+    stripes at either end, and a range with no whole stripe, go one
+    chunk piece at a time through ``get``."""
+    lo, hi, head, tail, shard_lo, _shard_hi = _layout(
+        sinfo, ro_offset, length
+    )
+    with tracer.timer("ec_stage"), smap.tally(length, hi - lo):
+        out = np.empty(length, dtype=np.uint8)  # every byte is written
+        for raw, shard_off, at, take in head + tail:
+            out[at : at + take] = smap.get(
+                sinfo.get_shard(raw), shard_off, take
+            )
+        if hi > lo:
+            k, cs = sinfo.k, sinfo.chunk_size
+            stripes = (hi - lo) // sinfo.stripe_width
+            whole = out[lo - ro_offset : hi - ro_offset].reshape(
+                stripes, k, cs
+            )
+            for raw in range(k):
+                smap._read_into(
+                    sinfo.get_shard(raw), shard_lo, whole[:, raw, :]
+                )
+        return out.tobytes()
 
 
 def reconstruct_shards(

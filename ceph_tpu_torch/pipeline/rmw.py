@@ -44,6 +44,7 @@ from ceph_tpu_torch.utils.optracker import NULL_OP, op_tracker
 from .extent_cache import CacheOp, ECExtentCache
 from .extents import ExtentSet
 from .hashinfo import HashInfo
+from .read import scatter_ro_range
 from .shard_map import ShardExtentMap
 from .stripe import StripeInfo
 from ceph_tpu_torch.utils.lockdep import DebugRLock
@@ -889,24 +890,7 @@ class RMWPipeline:
         new_size = max(old_size, op.ro_offset + len(op.data))
 
         new_map = ShardExtentMap(sinfo)
-        pos = op.ro_offset
-        data = np.frombuffer(op.data, dtype=np.uint8)
-        taken = 0
-        with tracer.timer("ec_stage"), new_map.tally(len(op.data)):
-            while taken < len(op.data):
-                chunk_index = pos // sinfo.chunk_size
-                raw = chunk_index % sinfo.k
-                in_chunk = pos % sinfo.chunk_size
-                take = min(sinfo.chunk_size - in_chunk, len(op.data) - taken)
-                shard_off = (
-                    (chunk_index // sinfo.k) * sinfo.chunk_size + in_chunk
-                )
-                new_map.insert(
-                    sinfo.get_shard(raw), shard_off,
-                    data[taken : taken + take],
-                )
-                pos += take
-                taken += take
+        scatter_ro_range(sinfo, new_map, op.ro_offset, op.data)
 
         hinfo = self._get_hinfo(op.oid)
         hashed = hinfo.get_total_chunk_size()

@@ -18,13 +18,24 @@ Encodes take the per-op path (one codec call per map) unless
 (``pipeline/dispatcher.py``) and share one batched launch with the
 concurrent ops of other threads.
 
-The process-wide ``ec_staging`` perf set counts the bytes ``insert``
-and ``get`` copy (``copy_bytes``) and zero-fill (``zero_bytes``), once
-per call or once per ``tally`` block, and the client bytes the
-pipelines stage (``user_bytes``: a write's payload as the RMW pipeline
-scatters it, a read's as it is gathered); ``encode`` and
-``encode_parity_delta`` run under the ``ec_encode`` timer
-(``utils/trace.py``).
+A client op's byte range moves in and out of the map through
+``pipeline/read.py``'s ``scatter_ro_range`` and ``gather_ro_range``.
+The whole stripes inside the range move with one strided copy a data
+shard: the scatter fills one buffer a shard and hands it over with
+``_adopt`` (no second copy), the gather copies each shard's column out
+of the run that covers it with ``_read_into``. The partial stripes at
+either end, and a range with no whole stripe, go one chunk piece at a
+time through ``insert`` and ``get``. ``insert`` merges an adjacent run
+by copying both into a new buffer, so a caller that appends chunk by
+chunk pays for every earlier byte again.
+
+The process-wide ``ec_staging`` perf set counts the bytes the map's
+staging copies (``copy_bytes``) and zero-fills (``zero_bytes``), once
+per call or once per ``tally`` block, the client bytes the pipelines
+stage (``user_bytes``: a write's payload as the RMW pipeline scatters
+it, a read's as it is gathered) and those of them the whole-stripe
+path moves (``strided_bytes``); ``encode`` and ``encode_parity_delta``
+run under the ``ec_encode`` timer (``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -52,6 +63,10 @@ _STAGING = (
     .add_u64_counter(
         "user_bytes", "client bytes scattered into or gathered from "
         "shard maps"
+    )
+    .add_u64_counter(
+        "strided_bytes", "client bytes of whole stripes scattered or "
+        "gathered with one strided copy a shard"
     )
     .create_perf_counters()
 )
@@ -84,12 +99,13 @@ class ShardExtentMap:
             self._tally[1] += zeroed
 
     @contextmanager
-    def tally(self, user_bytes: int = 0):
-        """Count this map's inserts and gets inside the block, with the
-        ``user_bytes`` of client data they stage, as one ``ec_staging``
-        update at its end: the per-4 KiB scatter and gather loops take
-        the counter lock once, not ~1,000 times, and a window that
-        closes mid-loop counts neither the bytes nor their base."""
+    def tally(self, user_bytes: int = 0, strided_bytes: int = 0):
+        """Count this map's staging inside the block, with the
+        ``user_bytes`` of client data it stages and the
+        ``strided_bytes`` of them that move as whole stripes, as one
+        ``ec_staging`` update at its end: the scatter and gather take
+        the counter lock once, not once a chunk piece, and a window
+        that closes mid-op counts neither the bytes nor their base."""
         self._tally = [0, 0]
         try:
             yield
@@ -99,6 +115,7 @@ class ShardExtentMap:
             _STAGING.add_many((
                 ("copy_bytes", copied), ("zero_bytes", zeroed),
                 ("user_bytes", user_bytes),
+                ("strided_bytes", strided_bytes),
             ))
 
     # -- buffer management --------------------------------------------
@@ -139,6 +156,39 @@ class ShardExtentMap:
         keep.sort(key=lambda t: t[0])
         self._bufs[shard] = keep
         self._staged(copied + arr.size, out.size)
+
+    def _adopt(self, shard: int, offset: int, buf: np.ndarray) -> None:
+        """Take ``buf`` (1-D uint8, filled by one copy made for this map
+        and referenced by nothing else) as the run at ``offset``,
+        without copying it again; the copy that filled it counts here.
+        A run it touches merges through ``insert``."""
+        if buf.size == 0:
+            return
+        self._staged(buf.size, 0)
+        runs = self._bufs.get(shard, [])
+        end = offset + buf.size
+        if any(off <= end and offset <= off + b.size for off, b in runs):
+            self.insert(shard, offset, buf)
+            return
+        runs.append((offset, buf))
+        runs.sort(key=lambda t: t[0])
+        self._bufs[shard] = runs
+
+    def _read_into(self, shard: int, offset: int, dst: np.ndarray) -> None:
+        """Copy ``[offset, offset + dst.size)`` of a shard into ``dst``
+        (a view of the caller's buffer, strided or not, filled in
+        row-major order): straight out of the one run that covers the
+        range, else through ``get``, which zero-fills what is absent."""
+        n = dst.size
+        for off, buf in self._bufs.get(shard, []):
+            if off <= offset and offset + n <= off + buf.size:
+                dst[...] = buf[offset - off : offset - off + n].reshape(
+                    dst.shape
+                )
+                break
+        else:
+            dst[...] = self.get(shard, offset, n).reshape(dst.shape)
+        self._staged(n, 0)
 
     def shards(self) -> list[int]:
         return sorted(self._bufs)

@@ -731,7 +731,7 @@ class TestLiveStatsPlane:
 HOST_METRICS = (
     "staging_bytes_per_byte", "staging_cpu_ms", "codec_host_ms",
     "messenger_cpu_ms", "op_queue_wait_ms", "subop_wait_ms",
-    "store_cpu_ms", "drain_requeues_per_op",
+    "store_cpu_ms", "drain_requeues_per_op", "strided_stage_frac",
 )
 #: timers a write and a degraded read run on the port's cluster
 LIVE_TIMERS = ("msg_encode", "msg_send", "msg_decode", "ec_stage",

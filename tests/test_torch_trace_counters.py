@@ -10,6 +10,10 @@ counters, ``pipeline/shard_map.py``'s ``ec_staging`` set, the OSD's
 - ``ShardExtentMap.insert`` and ``.get`` count exactly the bytes they
   copy and zero-fill (the client bytes staged are counted by the
   pipelines, in the live test of ``test_torch_observability.py``).
+- Through the port's RMW and read pipelines, a whole-stripe 4 MiB write
+  stages at most 14 bytes a user byte and a whole-object read at most
+  2.5, all of their bytes as whole stripes (``strided_bytes``); a small
+  unaligned op moves none that way.
 - An OSD's queued work balances: every scheduled item is counted once
   as started, with its wait.
 """
@@ -220,7 +224,8 @@ def test_insert_counts_its_copies(case):
     for off, n in runs:
         smap.insert(0, off, _u8(n, 2))
     _, d = _staged(lambda: smap.insert(0, offset, data))
-    assert d == {"copy_bytes": copy, "zero_bytes": zero, "user_bytes": 0}
+    assert d == {"copy_bytes": copy, "zero_bytes": zero, "user_bytes": 0,
+                 "strided_bytes": 0}
 
 
 @pytest.mark.parametrize("case", [
@@ -239,7 +244,8 @@ def test_get_counts_its_copies(case):
         smap.insert(0, off, _u8(n, 2))
     out, d = _staged(lambda: smap.get(0, offset, length))
     assert out.size == length
-    assert d == {"copy_bytes": copy, "zero_bytes": zero, "user_bytes": 0}
+    assert d == {"copy_bytes": copy, "zero_bytes": zero, "user_bytes": 0,
+                 "strided_bytes": 0}
 
 
 def test_tally_defers_the_same_counts():
@@ -269,7 +275,71 @@ def test_tally_defers_the_same_counts():
             pass
 
     _, base = _staged(base_only)
-    assert base == {"copy_bytes": 0, "zero_bytes": 0, "user_bytes": 80}
+    assert base == {"copy_bytes": 0, "zero_bytes": 0, "user_bytes": 80,
+                    "strided_bytes": 0}
+
+    def strided_base():
+        with smap.tally(user_bytes=80, strided_bytes=64):
+            pass
+
+    _, base = _staged(strided_base)
+    assert base == {"copy_bytes": 0, "zero_bytes": 0, "user_bytes": 80,
+                    "strided_bytes": 64}
+
+
+def _pipeline(k=8, m=4):
+    """The port's RMW and read pipelines over k+m MemStores on the CPU,
+    with the benchmark's geometry: ISA, 4 KiB chunks."""
+    from ceph_tpu_torch.codecs import registry
+    from ceph_tpu_torch.pipeline.read import ReadPipeline
+    from ceph_tpu_torch.pipeline.rmw import RMWPipeline, ShardBackend
+    from ceph_tpu_torch.pipeline.stripe import StripeInfo
+    from ceph_tpu_torch.store import MemStore
+
+    codec = registry.factory(
+        "isa", {"k": str(k), "m": str(m), "technique": "reed_sol_van"},
+        device="cpu")
+    sinfo = StripeInfo(k, m, k * codec.get_chunk_size(k * 4096))
+    backend = ShardBackend({s: MemStore(f"osd.{s}") for s in range(k + m)})
+    rmw = RMWPipeline(sinfo, codec, backend)
+    return rmw, ReadPipeline(sinfo, codec, backend, rmw.object_size)
+
+
+MiB = 1 << 20
+
+
+@pytest.mark.parametrize("case", [
+    # (op after a 4 MiB write of "obj" at 0, its bytes, largest staged
+    # bytes a user byte, strided bytes)
+    ("write_full_4m", ("write", "new", 0, 4 * MiB), 14, 4 * MiB),
+    ("write_4k_unaligned", ("write", "obj", 4096 * 5 + 100, 4096), None, 0),
+    ("read_full_4m", ("read", "obj", 0, 4 * MiB), 2.5, 4 * MiB),
+    ("read_4k_unaligned", ("read", "obj", 100, 4096), None, 0),
+], ids=lambda c: c[0])
+def test_pipeline_staging_counts(case):
+    """A whole-stripe 4 MiB write stages 12.5 bytes a user byte, not the
+    141.5 of one insert a 4 KiB chunk, and every byte of it and of a
+    whole-object read moves as whole stripes; a small unaligned op moves
+    none that way."""
+    _name, (kind, oid, offset, n), most, strided = case
+    rmw, reads = _pipeline()
+    rng = np.random.default_rng(7)
+    image = rng.integers(0, 256, 4 * MiB, dtype=np.uint8).tobytes()
+    rmw.submit("obj", 0, image)
+    if kind == "write":
+        data = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+        _, d = _staged(lambda: rmw.submit(oid, offset, data))
+        if oid == "obj":
+            image = image[:offset] + data + image[offset + n:]
+        assert reads.read_sync(oid, offset, n) == data
+    else:
+        got, d = _staged(lambda: reads.read_sync(oid, offset, n))
+        assert got == image[offset:offset + n]
+    assert d["user_bytes"] == n
+    assert d["strided_bytes"] == strided
+    if most is not None:
+        assert (d["copy_bytes"] + d["zero_bytes"]) / n <= most
+    assert reads.read_sync("obj", 0, 4 * MiB) == image
 
 
 # -- the OSD's op queue ------------------------------------------------
@@ -349,3 +419,20 @@ def test_drain_counts_its_requeues():
         perf_collection.deregister(pc.name)
     assert ran == [1]
     assert pc.get("drain.requeues") == 1
+
+
+@pytest.mark.parametrize("staged, want", [
+    ({"copy_bytes": 9, "zero_bytes": 0, "user_bytes": 8,
+      "strided_bytes": 6}, 0.75),
+    ({"copy_bytes": 9, "zero_bytes": 0, "user_bytes": 0,
+      "strided_bytes": 0}, None),
+    # a program that counts no strided bytes, as before the counter
+    ({"copy_bytes": 9, "zero_bytes": 0, "user_bytes": 8}, None),
+], ids=["counted", "no_user_bytes", "no_key"])
+def test_strided_stage_frac_reader(staged, want):
+    import types
+
+    from ecbench.metrics import strided_stage_frac
+
+    r = types.SimpleNamespace(counters={"ec_staging": staged})
+    assert strided_stage_frac.read(r) == want
